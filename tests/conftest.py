@@ -35,6 +35,11 @@ def run_distributed(script: str, n_devices: int = 8, timeout: int = 560):
     return r.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def dist():
     return run_distributed
