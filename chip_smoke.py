@@ -11,9 +11,12 @@ JAX).  In order it:
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
    csrc/`` (one ``nvcc`` per source, in parallel) and prints the seconds;
 3. holds each kernel against its plain PyTorch version on the card at
-   gpt-moe-s shapes (stated tolerances), and times kernel, plain version
-   and, where one exists, the PyTorch library call computing the same
-   function (CUDA events, median, L2 flushed before each launch);
+   gpt-moe-s shapes (stated tolerances): the serving kernels at serving
+   shapes, the grouped-MLP training forward, dgrad and wgrad at training
+   shapes (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32; and times
+   kernel, plain version and, where one exists, the PyTorch library call
+   computing the same function (CUDA events, median, L2 flushed before
+   each launch);
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights from a seed) through the continuous-batching scheduler: four
    byte-encoded prompts of mixed lengths, 16 greedy tokens each; it counts
@@ -21,7 +24,16 @@ JAX).  In order it:
    tick with the plain versions on the same tensors, and serves the smoke
    config in f32 with the kernels and with the plain versions, which must
    give the same tokens;
-5. prints the kernel table as one JSON line, then
+5. trains gpt-moe-s at full width (12 layers, bf16 compute, f32 master
+   weights and AdamW moments from a seed) through the Hecate loop
+   (``train.trainer.train_loop``, ``ep`` plan), batch 8 × seq 2,048 of
+   the bytes stream: two identical steps must give bitwise-equal parameters,
+   then 12 steps with the launch counters reset just before: a finite,
+   falling loss, 12 dgrad and 12 wgrad launches per step and no
+   flash-attention launch; one step under the profiler; and one step of
+   full width cut to 2 layers in f32 whose every gradient must match the
+   plain versions';
+6. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,6 +60,17 @@ PAGE_SIZE = 8
 MAX_SLOTS = 4
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}
 PAGED_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 1e-5)}
+# training: batch 8 × the paper's seq 2,048, so the MoE layer sees 16,384
+# tokens, 32,768 (token, expert) assignments, in 64 slots of capacity 16,384
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 12
+# at seq 2,048 the loss of random-init gpt-moe-s rose over 12 steps at lr
+# 3e-3 (see PERF.md); 1e-3 is the rate that trains it here
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 3
+GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
+SERVE_KERNELS = ("grouped_mlp_fwd", "flash_attention_fwd",
+                 "paged_decode_attention")
+TRAIN_KERNELS = ("grouped_mlp_fwd_train", "grouped_mlp_dgrad",
+                 "grouped_mlp_wgrad")
 
 
 class CheckFailed(RuntimeError):
@@ -181,6 +205,153 @@ def _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush):
     return dict(shape=f"K={K} T={T} D={D} F={Fd} bf16, {rows} valid rows "
                 f"in {len(groups)} slots", ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_grouped_mlp_train(torch, ops, dev, flush):
+    """The three training stages at the main path's shapes: K=64 slots of
+    capacity T = batch × seq, 2T valid rows spread over the slots as the
+    dispatch lays them out (a prefix per slot), D=768, F=1,536, GELU.
+    Each kernel wrapper against its plain version on the same inputs, in
+    bf16 and f32 (each stage takes the kernel outputs of the stage before
+    it); timed in bf16.  The plain versions are compared a few slots at a
+    time, which gives the same values in a fraction of the memory."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    K, T, D, Fd = 64, TRAIN_BATCH * TRAIN_SEQ, 768, 1536
+    rows = 2 * T
+    g = torch.Generator(device=dev).manual_seed(4)
+    cnt = torch.bincount(torch.randint(0, K, (rows,), generator=g,
+                                       device=dev), minlength=K)
+    mask = (torch.arange(T, device=dev)[None, :] < cnt[:, None]) \
+        .to(torch.int32)
+    valid = mask.bool()
+    errs = {n: [] for n in TRAIN_KERNELS}
+    shape = f"K={K} T={T} D={D} F={Fd} gelu, {rows} valid rows"
+
+    def inputs(dt):
+        def rnd(shp, sc):
+            return torch.randn(shp, generator=g, device=dev).mul_(sc).to(dt)
+        return (rnd((K, T, D), 0.3), rnd((K, D, Fd), 0.05),
+                rnd((K, Fd, D), 0.05), rnd((K, T, D), 0.1))
+
+    def held(name, labels, got, plain, residuals=()):
+        """Kernel outputs ``got`` against ``plain(slots)`` over slot
+        chunks; the outputs named in ``residuals`` (h1, h2) only at valid
+        rows, where the next stage reads them."""
+        worst, bad = {}, set()
+        for k0 in range(0, K, 8):
+            sl = slice(k0, k0 + 8)
+            for a, b, what in zip(got, plain(sl), labels.split(",")):
+                if b is None:
+                    continue
+                a = a[sl]
+                if what in residuals:
+                    a, b = a[valid[sl]], b[valid[sl]]
+                err = (a.float() - b.float()).abs()
+                if not bool(torch.isfinite(a).all()) or bool(
+                        (err > atol + rtol * b.float().abs()).any()):
+                    bad.add(what)
+                mx = float(err.max()) if err.numel() else 0.0
+                worst[what] = max(worst.get(what, 0.0), mx)
+        for what, mx in worst.items():
+            ok = what not in bad
+            print(f"  {name} {what} {shape} {dname}: max|kernel - plain| = "
+                  f"{mx:.3e} (atol {atol:g}, rtol {rtol:g}) "
+                  f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise CheckFailed(f"{name} {what}: kernel disagrees with "
+                                  f"plain version")
+            errs[name].append(mx)
+
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        atol, rtol = TOL[dname]
+        x, wi, wo, dy = inputs(dt)
+        fwd = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
+        held("grouped_mlp_fwd_train", "y,h1,h2", fwd,
+             lambda s: ref.grouped_mlp_fwd_train_ref(
+                 x[s], wi[s], None, wo[s], mask[s], act="gelu"),
+             residuals=("h1", "h2"))
+        h1 = fwd[1]
+        del fwd
+        dg = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
+                                  act="gelu")
+        held("grouped_mlp_dgrad", "dx,dh1,dh2,h", dg,
+             lambda s: ref.grouped_mlp_dgrad_ref(
+                 dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
+                 act="gelu"))
+        dh1, h = dg[1], dg[3]
+        del dg
+        held("grouped_mlp_wgrad", "dwi,dwg,dwo",
+             gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
+             lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
+                                                 dh1[s], None, h[s]))
+        del x, wi, wo, dy, h1, dh1, h
+        torch.cuda.empty_cache()
+    # time in bf16
+    x, wi, wo, dy = inputs(torch.bfloat16)
+    _, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
+    _, dh1, _, h = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
+                                        act="gelu")
+    groups = [(k, int(n)) for k, n in enumerate(cnt.tolist()) if n > 0]
+    es = x.element_size()
+    wbytes = len(groups) * 2 * D * Fd * es
+    ops2 = 2 * 2 * rows * D * Fd            # two products of 2·rows·D·F
+    gelu_bwd = torch.ops.aten.gelu_backward
+
+    def lib_fwd():
+        for k, n in groups:
+            F.gelu(x[k, :n] @ wi[k], approximate="tanh") @ wo[k]
+
+    def lib_dgrad():
+        for k, n in groups:
+            d1 = gelu_bwd((dy[k, :n] @ wo[k].t()).float(),
+                          h1[k, :n].float(), approximate="tanh")
+            F.gelu(h1[k, :n], approximate="tanh")
+            d1.to(x.dtype) @ wi[k].t()
+
+    def lib_wgrad():
+        for k, n in groups:
+            x[k, :n].t() @ dh1[k, :n]
+            h[k, :n].t() @ dy[k, :n]
+
+    cases = {
+        "grouped_mlp_fwd_train": (
+            lambda: gm.grouped_mlp_fwd_train(x, wi, None, wo, mask,
+                                             act="gelu"),
+            lambda: ref.grouped_mlp_fwd_train_ref(x, wi, None, wo, mask,
+                                                  act="gelu"),
+            lib_fwd,
+            # x's valid rows, mask, the used slots' weights in; y written
+            # whole (the Pallas kernel writes all of it), h1 at valid rows
+            # (its only reader, dgrad, reads those)
+            rows * (D + Fd) * es + K * T * 4 + wbytes + K * T * D * es),
+        "grouped_mlp_dgrad": (
+            lambda: gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
+                                         act="gelu"),
+            lambda: ref.grouped_mlp_dgrad_ref(dy, mask, h1, None, wi, None,
+                                              wo, act="gelu"),
+            lib_dgrad,
+            # dy's and h1's valid rows, mask, weights in; dx, dh1, h out
+            rows * (D + Fd) * es + K * T * 4 + wbytes
+            + K * T * (D + 2 * Fd) * es),
+        "grouped_mlp_wgrad": (
+            lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
+            lambda: ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, None, h),
+            lib_wgrad,
+            # x, dy, dh1, h valid rows and mask in; dwi and dwo written
+            rows * 2 * (D + Fd) * es + K * T * 4 + K * 2 * D * Fd * es),
+    }
+    res = {}
+    for name, (kern, plain, lib, nbytes) in cases.items():
+        b_ms, b_by = bound(nbytes, ops2, "bfloat16")
+        res[name] = dict(
+            shape=shape + " bf16", ms=time_ms(torch, kern, flush),
+            plain_ms=time_ms(torch, plain, flush, reps=5, warmup=1),
+            library_ms=time_ms(torch, lib, flush, reps=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs[name]))
+    return res
 
 
 def check_flash_attention(torch, ops, dev, flush):
@@ -407,9 +578,10 @@ def serve_full_width(torch, ops, dev, card):
     print(f"  [{card}] slot-cache build ms: {slot_ms:.3f}; run wall s: "
           f"{wall_s:.3f}")
     print(f"  launches on the main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise CheckFailed(f"a kernel of the main path never launched: "
-                          f"{launches}")
+    if min(launches[k] for k in SERVE_KERNELS) <= 0 or any(
+            launches[k] for k in TRAIN_KERNELS):
+        raise CheckFailed(f"a serving kernel never launched, or a training "
+                          f"kernel did: {launches}")
 
     # one prefill and one decode tick through the plain versions on the
     # same CUDA tensors (explicit opt-in; after the counted run)
@@ -560,11 +732,199 @@ def serve_small_f32(torch, ops, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+def _train_setup(torch, dev, cfg):
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.models import model as mdl
+    # attention runs its plain version (the flash kernel has no backward,
+    # and the JAX package trains with XLA attention); the experts run the
+    # grouped-MLP kernels
+    rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(use_pallas=True))
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS)
+    stream = make_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                         kind="bytes", seed=0)
+    return rt, tc, stream
+
+
+def train_full_width(torch, ops, dev, card):
+    import repro_torch.configs as configs
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+
+    cfg = configs.get("gpt-moe-s")
+    rt, tc, stream = _train_setup(torch, dev, cfg)
+    pa = _plan(torch, cfg, dev)
+    print(f"  gpt-moe-s: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.experts_per_token}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype} compute, f32 master weights "
+          f"and AdamW moments from seed 0, remat={cfg.remat}; batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ} of the bytes stream, lr "
+          f"{TRAIN_LR} (warm-up {TRAIN_WARMUP})")
+
+    # two identical steps from the seeded state on one batch: the
+    # parameters must agree bit for bit (no atomics on the path)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.next_batch().items()}
+    step_fn = step_lib.build_train_step(cfg, rt, tc)
+    first = None
+    for _ in range(2):
+        state = step_lib.init_state(cfg, 0, device=dev)
+        state, m = step_fn(state, batch, pa)
+        leaves = adamw.leaves(state.params)
+        if first is None:
+            first = ([t.detach().clone() for t in leaves], float(m["loss"]))
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(first[0], leaves))
+            print(f"  two identical steps: loss {first[1]:.6f} / "
+                  f"{float(m['loss']):.6f}, parameters "
+                  f"{'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                raise CheckFailed("two identical train steps gave different "
+                                  "parameters")
+        del state, m, leaves
+    del first, batch
+    torch.cuda.empty_cache()
+
+    # the main path: the Hecate loop from the seeded state
+    state = step_lib.init_state(cfg, 0, device=dev)
+    sched = HecateScheduler(cfg, ep=1, impl="ep", device=str(dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()               # the main path's run starts
+    t = time.perf_counter()
+    state, hist = train_loop(cfg, rt, tc, stream, scheduler=sched,
+                             state=state, num_steps=TRAIN_STEPS, log_every=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = ops.launch_counts()          # ... and ends
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    med = statistics.median(step_ms)
+    print(f"  losses: {[round(x, 4) for x in losses]}")
+    print(f"  [{card}] step ms: {[round(x, 1) for x in step_ms]}; median "
+          f"{med:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; "
+          f"run wall {wall_s:.2f} s; device memory peak {peak_gb:.2f} GB")
+    print(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise CheckFailed(f"training loss not finite and falling: {losses}")
+    if any(h["step_ok"] != 1.0 for h in hist):
+        raise CheckFailed("the step guard skipped a step")
+    n_moe = cfg.num_layers * TRAIN_STEPS
+    want = {"grouped_mlp_dgrad": n_moe, "grouped_mlp_wgrad": n_moe,
+            # remat re-runs each superblock's forward in the backward
+            "grouped_mlp_fwd_train": (2 if cfg.remat else 1) * n_moe,
+            "grouped_mlp_fwd": 0, "flash_attention_fwd": 0,
+            "paged_decode_attention": 0}
+    if launches != want:
+        raise CheckFailed(f"training launches {launches}, expected {want}")
+    prof = _profile_train_step(torch, cfg, rt, tc, stream, state, pa, dev,
+                               card)
+    del state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, median_step_ms=med,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+                run_wall_s=wall_s, peak_memory_gb=peak_gb,
+                launches=launches, profiled_step=prof,
+                dropped_frac=[h.get("dropped_frac") for h in hist],
+                pad_frac=[h.get("pad_frac") for h in hist])
+
+
+def _profile_train_step(torch, cfg, rt, tc, stream, state, pa, dev,
+                        card):
+    """One more train step under torch.profiler: device-busy time, kernel
+    launches and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import step as step_lib
+    step_fn = step_lib.build_train_step(cfg, rt, tc)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.next_batch().items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch, pa)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    ev = prof.key_averages()
+    dev_ev = [e for e in ev
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in dev_ev) / 1e3
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+           for e in top]
+    print(f"  [{card}] one train step under the profiler: {launches} kernel "
+          f"launches, device busy {busy:.1f} ms of {wall:.1f} ms wall "
+          f"(device idle share {1 - busy / wall:.3f})")
+    for name, n, ms in top:
+        print(f"    {ms:9.2f} ms  x{n:<5d} {name}")
+    return dict(launches=launches, device_busy_ms=busy, wall_ms=wall,
+                top_kernels=top)
+
+
+def train_grads_cut_depth(torch, ops, dev):
+    """Full width cut to 2 layers, f32: one step's loss and the gradient of
+    every parameter through the kernels against the plain versions on the
+    same tensors (no route flips at this depth)."""
+    import repro_torch.configs as configs
+    from repro_torch.common.params import _leaves
+    from repro_torch.models import model as mdl
+    from repro_torch.train import step as step_lib
+    cfg = configs.get("gpt-moe-s").replace(num_layers=2, dtype="float32")
+    rt, _, stream = _train_setup(torch, dev, cfg)
+    params = mdl.init_params(cfg, 0, dev)
+    pa = _plan(torch, cfg, dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in stream.next_batch().items()}
+    ops.reset_launch_counts()
+    mk, gk = step_lib.loss_and_grads(cfg, rt, params, batch, pa)
+    launched = ops.launch_counts()
+    with ops.reference_mode():
+        mr, gr = step_lib.loss_and_grads(cfg, rt, params, batch, pa)
+    if launched["grouped_mlp_dgrad"] != 2 or launched["grouped_mlp_wgrad"] \
+            != 2:
+        raise CheckFailed(f"the 2-layer kernel step launched {launched}")
+    if not torch.equal(mk["expert_counts"], mr["expert_counts"]):
+        raise CheckFailed("2-layer f32 routing differs between the kernels "
+                          "and the plain versions")
+    dl = abs(float(mk["loss"]) - float(mr["loss"]))
+    worst = {}
+    for (path, a), (_, b) in zip(_leaves(gk), _leaves(gr)):
+        scale = float(b.abs().max())
+        worst["/".join(path)] = float((a - b).abs().max()) / max(scale,
+                                                                 1e-30)
+    name = max(worst, key=worst.get)
+    print(f"  full width cut to 2 layers, f32, one step: loss "
+          f"{float(mr['loss']):.6f}, |dloss| kernels vs plain {dl:.3e}; "
+          f"max |dgrad| / max |grad| over {len(worst)} parameters "
+          f"{worst[name]:.3e} ({name}; tolerance {GRAD_TOL:g})")
+    if not dl <= 1e-5 * abs(float(mr["loss"])) or worst[name] > GRAD_TOL:
+        raise CheckFailed("2-layer f32 gradients disagree with the plain "
+                          "path")
+    return dict(dloss=dl, max_rel_grad_err=worst[name], worst_param=name,
+                rel_grad_err=worst)
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    # the training phase's plain versions allocate and free many large
+    # (K, T, F) temporaries: grow segments instead of fragmenting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -611,6 +971,7 @@ def main() -> None:
                                                              flush),
                 "paged_decode_attention": check_paged_attention(torch, ops,
                                                                 dev, flush)}
+        kern.update(check_grouped_mlp_train(torch, ops, dev, flush))
         for k, r in kern.items():
             for tag, rr in (("", r), ("prefill ", r.get("prefill"))):
                 if rr:
@@ -622,9 +983,13 @@ def main() -> None:
         print("== 4. serving gpt-moe-s at full width")
         serve = serve_full_width(torch, ops, dev, card_line)
         serve_small_f32(torch, ops, dev)
+        torch.cuda.empty_cache()
+        print("== 5. training gpt-moe-s at full width")
+        train = train_full_width(torch, ops, dev, card_line)
+        train["grads_2_layers_f32"] = train_grads_cut_depth(torch, ops, dev)
     except CheckFailed as e:
         fail(str(e))
-    results.update(kernels=kern, serving=serve)
+    results.update(kernels=kern, serving=serve, training=train)
 
     meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
                                 "src/repro/kernels/grouped_mlp.py:106"),
@@ -632,13 +997,20 @@ def main() -> None:
                                     "src/repro/kernels/flash_attention.py:25"),
             "paged_decode_attention": (
                 "kernels/csrc/paged_attention.cu",
-                "src/repro/kernels/paged_attention.py:59")}
+                "src/repro/kernels/paged_attention.py:59"),
+            "grouped_mlp_fwd_train": ("kernels/csrc/grouped_mlp.cu",
+                                      "src/repro/kernels/grouped_mlp.py:106"),
+            "grouped_mlp_dgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
+                                  "src/repro/kernels/grouped_mlp.py:215"),
+            "grouped_mlp_wgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
+                                  "src/repro/kernels/grouped_mlp.py:324")}
     table = []
     for k, r in kern.items():
         table.append({"name": k, "route": "cuda",
                       "source": "src/repro_torch/" + meta[k][0],
                       "replaces": meta[k][1],
-                      "launches": serve["launches"][k],
+                      "launches": (train if k in TRAIN_KERNELS
+                                   else serve)["launches"][k],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
@@ -648,7 +1020,7 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print("== 5. kernels")
+    print("== 6. kernels")
     print(f"kernels: {json.dumps(list(kern))}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Configuration schema of the PyTorch port: its own copy of the JAX
-package's ``MoEConfig``, ``SSMConfig`` and ``ModelConfig``, field for field,
-so that one configuration describes the same model in both packages.
+package's ``MoEConfig``, ``SSMConfig``, ``ModelConfig`` and ``TrainConfig``,
+field for field, so that one configuration describes the same model and
+the same training run in both packages.
 """
 from __future__ import annotations
 
@@ -241,3 +242,35 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    microbatch: int = 0                 # 0 = no gradient accumulation
+    # --- fault tolerance (train.trainer.train_loop) ------------------
+    # Step-health guard: skip the optimizer update when the loss or the
+    # gradient global norm is non-finite (the check rides the clipping
+    # gnorm and the existing metrics readback — no extra device sync).
+    # The skipped step's params/moments are bit-identical to the step
+    # before it; state.step still advances (one batch was consumed).
+    step_guard: bool = True
+    # Consecutive skipped steps tolerated before train_loop aborts with
+    # rollback to the last intact checkpoint (TrainAbortError).
+    max_bad_steps: int = 3
+    # Crash-safe training: "" disables periodic checkpointing (not yet
+    # ported: the port's train_loop refuses a checkpoint_dir).
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0           # steps between saves (0 = off)
+    keep_checkpoints: int = 3           # keep-last retention
+    # Auto-resume from the newest INTACT checkpoint when train_loop is
+    # started without an explicit state.
+    auto_resume: bool = True

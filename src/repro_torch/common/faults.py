@@ -24,6 +24,17 @@ The sites of the ported serving path (``serve.scheduler``):
     request's pages are freed and it is re-queued for a bounded number of
     retries, then REJECTED with ``finish_reason="prefill_crash"``.
 
+The site of the ported training path (``train.trainer.train_loop``):
+
+``train.nan_grads``
+    Fired by ``train_loop`` with the step's batch as payload.  Arm with
+    ``mutate=faults.poison_grads`` to scale the step's gradients by NaN
+    (the batch grows a ``GRAD_SCALE_KEY`` entry that ``build_train_step``
+    multiplies into the grads).  The step-health guard skips the optimizer
+    update (params bit-identical across the step), ``skipped_steps``
+    increments and training continues; after ``tc.max_bad_steps``
+    consecutive bad steps ``train_loop`` aborts (``TrainAbortError``).
+
 Usage::
 
     from repro_torch.common import faults
@@ -56,6 +67,9 @@ class _Fault:
     release: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
+
+# batch key of the ``train.nan_grads`` gradient scale (see poison_grads)
+GRAD_SCALE_KEY = "__fault_grad_scale"
 
 _ARMED = False                          # the zero-overhead fast path
 _LOCK = threading.Lock()
@@ -156,3 +170,10 @@ def fire(site: str, payload: Any = None) -> Any:
         return mutate(payload)
     raise (exc() if exc is not None
            else FaultError(f"injected fault at {site!r}"))
+
+
+def poison_grads(batch: dict) -> dict:
+    """``train.nan_grads`` mutator: make this step's gradients NaN."""
+    batch = dict(batch)
+    batch[GRAD_SCALE_KEY] = float("nan")
+    return batch

@@ -10,9 +10,15 @@ layer in the compute dtype once per (plan, parameter version), and
 ``me = 0``: the collectives of a one-device mesh are identities, so none
 is issued.  ``moe_layer_ref`` — the dense oracle that applies every expert
 to every token — is its plain reference.
+
+The layer is differentiable end to end: the dispatch scatter and the
+combine gather pass gradients, the grouped FFN carries its own backward
+(``kernels.grouped_mlp.GroupedMLPFunction``), and the gradient of the
+compute slots flows back into the f32 chunk buffer through the cast.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -112,6 +118,15 @@ def plan_to_arrays(plan: MaterializationPlan, device, r_max: int = 0):
     return tables_to_device(plan_tables(plan, r_max), device)
 
 
+@dataclasses.dataclass
+class MoERuntime:
+    """Context of the MoE layer: the JAX package's ``MoERuntime`` at world
+    size 1 (no mesh, the ``ep`` plan).  ``use_pallas`` runs the grouped
+    expert FFN through ``kernels.ops`` (the CUDA kernels for CUDA tensors);
+    the port defaults it on, where the JAX package defaults it off."""
+    use_pallas: bool = True
+
+
 class MoEAux(NamedTuple):
     counts: torch.Tensor         # (E,) f32 token counts this layer
     aux_loss: torch.Tensor       # scalar load-balance loss
@@ -148,7 +163,9 @@ def gate(cfg: ModelConfig, wr, x, valid):
     counts = counts[:e]
     prob_sum = (probs * valid[:, None]).sum(0)
     n_valid = valid.sum().float().clamp_min(1.0)
-    frac = counts / counts.sum().clamp_min(1.0)
+    # the load fraction is a constant of the loss, as the JAX package's
+    # stop_gradient makes it
+    frac = (counts / counts.sum().clamp_min(1.0)).detach()
     aux = e * torch.sum(frac * (prob_sum / n_valid))
     z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2 * valid) / n_valid
     return idx, vals, counts, aux, z
@@ -259,8 +276,9 @@ def moe_layer(cfg: ModelConfig, rt, x, wr, buf, pa: PlanArrays, valid=None,
     x: (T, D) tokens; wr: (D, E) this layer's router; buf: the flat chunk
     buffer (rows, chunk_len); pa: this layer's PlanArrays slice; premat:
     optional (1, K, chunk_len) compute slots from ``materialize_chunks``
-    (else this layer's slots are built from ``buf``).  ``rt`` needs only
-    ``use_pallas``.  Returns (y: (T, D), MoEAux).
+    (else this layer's slots are built from ``buf``).  ``rt``: a
+    ``MoERuntime`` (only ``use_pallas`` is read).  Returns
+    (y: (T, D), MoEAux).
 
     Gate, then the sort-based dispatch with ``me = 0`` into a (K, C, D)
     buffer, the grouped FFN with per-slot group sizes (kernel B1), and the

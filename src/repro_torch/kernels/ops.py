@@ -40,20 +40,41 @@ def _use_kernel(t: torch.Tensor) -> bool:
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last ``reset_launch_counts``."""
-    return {"grouped_mlp_fwd": _gm.launches,
+    return {**_gm.LAUNCHES,
             "flash_attention_fwd": _fa.launches,
             "paged_decode_attention": _pa.launches}
 
 
 def reset_launch_counts() -> None:
-    _gm.launches = _fa.launches = _pa.launches = 0
+    for k in _gm.LAUNCHES:
+        _gm.LAUNCHES[k] = 0
+    _fa.launches = _pa.launches = 0
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def grouped_mlp(x, wi, wg, wo, group_sizes=None, row_valid=None, *,
                 act: str = "silu_glu"):
     """Grouped expert FFN: x (K,T,D) -> (K,T,D).  Validity is
     ``group_sizes`` (K,) (valid-row prefix) or ``row_valid`` (K,T); None =
-    every row valid.  Invalid rows come back exactly zero."""
+    every row valid.  Invalid rows come back exactly zero.
+
+    When an operand requires grad, the call goes through
+    ``GroupedMLPFunction``: the training form of the forward, then dgrad
+    and wgrad in the backward (kernels for CUDA tensors, their step-wise
+    plain versions otherwise); else through the inference form."""
+    if _needs_grad(x, wi, wg, wo):
+        k_, t_ = x.shape[:2]
+        if row_valid is None and group_sizes is None:
+            mask = torch.ones((k_, t_), dtype=torch.int32, device=x.device)
+        else:
+            mask = ref.row_mask(t_, group_sizes, row_valid,
+                                device=x.device).to(torch.int32)
+        return _gm.GroupedMLPFunction.apply(x, wi, wg, wo, mask, act,
+                                            _use_kernel(x))
     if _use_kernel(x):
         return _gm.grouped_mlp(x, wi, wg, wo, group_sizes, row_valid,
                                act=act)
@@ -63,7 +84,15 @@ def grouped_mlp(x, wi, wg, wo, group_sizes=None, row_valid=None, *,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Flash attention, q/k/v (B,S,N,H).  GQA K/V are expanded to the query
-    heads here, once per prefill, as the JAX package does."""
+    heads here, once per prefill, as the JAX package does.
+
+    The kernel has no backward: a CUDA call whose operands require grad
+    raises rather than cut the autograd graph (training runs the plain
+    attention, as the JAX package trains with XLA attention)."""
+    if _use_kernel(q) and _needs_grad(q, k, v):
+        raise RuntimeError("flash_attention: the CUDA kernel has no "
+                           "backward; run attention with use_pallas=False "
+                           "when gradients are needed")
     nq, nkv = q.shape[2], k.shape[2]
     if nq != nkv:
         rep = nq // nkv

@@ -1,4 +1,5 @@
-"""Model assembly: config -> params / prefill forward / paged decode.
+"""Model assembly: config -> params / forward (training and prefill) /
+paged decode.
 
 A model is a stack of ``num_superblocks`` identical superblocks (one tile
 of ``cfg.layer_pattern``).  Parameters are stacked along a leading
@@ -11,25 +12,32 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import init_tree, stack_params, torch_dtype
 from repro_torch.core import moe as moe_core
-from repro_torch.core.moe import PlanArrays
+from repro_torch.core.moe import MoERuntime, PlanArrays
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
 
 
 @dataclasses.dataclass
 class Runtime:
-    """Execution context threaded through the model.  ``use_pallas`` keeps
-    the JAX package's name for "run the hand-written kernels": flash
-    attention at prefill and the grouped expert FFN (CUDA kernels for CUDA
-    tensors, their plain versions on the CPU)."""
+    """Execution context threaded through the model, as in the JAX package
+    without a mesh.  ``use_pallas`` keeps the JAX package's name for "run
+    the hand-written kernel" in attention: the flash-attention forward at
+    prefill.  ``moe.use_pallas`` does the same for the grouped expert FFN.
+    Kernels run for CUDA tensors; CPU tensors take their plain versions.
+    The port defaults both on (serving); training turns attention's off,
+    since the flash kernel has no backward and the JAX package trains with
+    XLA attention."""
     use_pallas: bool = True
+    moe: MoERuntime = dataclasses.field(default_factory=MoERuntime)
 
 
 def _moe_positions(cfg: ModelConfig) -> Tuple[int, ...]:
@@ -108,21 +116,61 @@ def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
     """x: (B, S, D) -> (y, MoEAux): flatten the tokens and run the MoE
     layer over all of them (world size 1: no padding to a device count)."""
     b, s, d = x.shape
-    y, aux = moe_core.moe_layer(cfg, rt, x.reshape(b * s, d), wr, buf, pa,
-                                premat=premat)
+    y, aux = moe_core.moe_layer(cfg, rt.moe, x.reshape(b * s, d), wr, buf,
+                                pa, premat=premat)
     return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
-# Prefill forward
+# Full-sequence forward (training and prefill)
 # ---------------------------------------------------------------------------
+def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
+                positions, causal: bool, collect_cache: bool, x):
+    """One superblock: returns (x, [MoEAux per MoE layer], {l{j}: (k, v)}
+    when ``collect_cache``)."""
+    moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
+    p_sb = _block(params, sb)
+    aux_list, cache = [], {}
+    mi = sb * len(moe_pos)
+    for j, kind in enumerate(cfg.layer_pattern):
+        p = p_sb[f"l{j}"]
+        h = ly.apply_norm(p["ln1"], x, cfg.norm)
+        y = attn.attention(p["attn"], cfg, h, positions, kind=kind,
+                           causal=causal, use_pallas=rt.use_pallas,
+                           return_kv=collect_cache)
+        if collect_cache:
+            y, cache[f"l{j}"] = y
+        x = x + y
+        h = ly.apply_norm(p["ln2"], x, cfg.norm)
+        if j in moe_pos:
+            y, aux = _moe_ffn(cfg, rt, h, params["router"][mi],
+                              params["moe_buffer"], pa.layer(mi),
+                              premat=None if premat is None else premat[mi])
+            aux_list.append(aux)
+            mi += 1
+        else:
+            y = ly.apply_mlp(p["mlp"], h, cfg.act)
+        x = x + y
+    return x, aux_list, cache
+
+
 def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
             pa: Optional[PlanArrays] = None, positions=None,
-            causal: bool = True, collect_cache: bool = False, premat=None):
+            causal: bool = True, collect_cache: bool = False,
+            return_hidden: bool = False, premat=None):
     """tokens: (B, S) int -> (logits (B, S, V) f32, aux) — or
     (logits, aux, cache) with ``collect_cache``: the cache holds every
     layer's rotated K/V as ``{"l{j}": {"k", "v"}}`` of shape
     (n_superblocks, B, S, nkv, hd), the JAX package's stacked layout.
+    aux: one MoEAux per MoE layer, in layer order.
+
+    ``return_hidden`` returns the final-norm hidden states (B, S, D) in
+    place of the logits: the train path computes its loss chunked from
+    them and never materializes (B, S, V) logits.  With ``cfg.remat`` and
+    grad enabled each superblock runs under ``torch.utils.checkpoint``, at
+    the place the JAX package puts its ``jax.checkpoint``: only the
+    superblock inputs are kept, and the backward re-runs each block's
+    forward (so the forward kernels launch twice per step).
 
     pa: stacked PlanArrays (L_moe leading dim).  premat: optional
     (L_moe, 1, K, chunk_len) compute slots (``moe.materialize_chunks``)."""
@@ -133,38 +181,26 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
-    if moe_pos:
+    if cfg.moe.enabled:
         assert pa is not None, "MoE arch needs PlanArrays"
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     aux_list = []
     caches = {f"l{j}": {"k": [], "v": []}
               for j in range(len(cfg.layer_pattern))}
-    mi = 0
     for sb in range(cfg.num_superblocks):
-        p_sb = _block(params, sb)
-        for j, kind in enumerate(cfg.layer_pattern):
-            p = p_sb[f"l{j}"]
-            h = ly.apply_norm(p["ln1"], x, cfg.norm)
-            y = attn.attention(p["attn"], cfg, h, positions, kind=kind,
-                               causal=causal, use_pallas=rt.use_pallas,
-                               return_kv=collect_cache)
-            if collect_cache:
-                y, c = y
-                caches[f"l{j}"]["k"].append(c["k"])
-                caches[f"l{j}"]["v"].append(c["v"])
-            x = x + y
-            h = ly.apply_norm(p["ln2"], x, cfg.norm)
-            if j in moe_pos:
-                y, aux = _moe_ffn(cfg, rt, h, params["router"][mi],
-                                  params["moe_buffer"], pa.layer(mi),
-                                  premat=None if premat is None
-                                  else premat[mi])
-                aux_list.append(aux)
-                mi += 1
-            else:
-                y = ly.apply_mlp(p["mlp"], h, cfg.act)
-            x = x + y
+        blk = partial(_superblock, cfg, rt, params, sb, pa, premat,
+                      positions, causal, collect_cache)
+        if remat:
+            x, auxs, cache = checkpoint(blk, x, use_reentrant=False)
+        else:
+            x, auxs, cache = blk(x)
+        aux_list.extend(auxs)
+        for name, c in cache.items():
+            for kv in ("k", "v"):
+                caches[name][kv].append(c[kv])
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x, aux_list
     logits = ly.unembed(params["embed"], x, cfg.final_logit_softcap)
     if collect_cache:
         cache = {name: {kv: torch.stack(v) for kv, v in c.items()}

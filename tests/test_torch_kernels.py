@@ -239,5 +239,8 @@ def test_ops_route_cpu_tensors_to_plain_versions():
         ops.paged_decode_attention(qp, kp, vp, ri, pos, page_size=PS),
         ref.paged_decode_attention_ref(qp, kp, vp, ri, pos), rtol=0, atol=0)
     assert ops.launch_counts() == {"grouped_mlp_fwd": 0,
+                                   "grouped_mlp_fwd_train": 0,
+                                   "grouped_mlp_dgrad": 0,
+                                   "grouped_mlp_wgrad": 0,
                                    "flash_attention_fwd": 0,
                                    "paged_decode_attention": 0}

@@ -132,3 +132,125 @@ def test_paged_decode_kernel_trash_page_and_parked_slot(cuda):
     with ops.reference_mode():
         want = ops.paged_decode_attention(q, k, v, ri, pos, page_size=PS)
     torch.testing.assert_close(clean, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# grouped-MLP training: forward with residuals, dgrad, wgrad, autograd
+# ---------------------------------------------------------------------------
+def _train_case(cuda, dtype, act, seed, K=3, T=300, D=192, F=200):
+    """Inputs of the three training stages; slot 0 empty, slot 1 ragged
+    with a scattered hole, slot 2 full."""
+    rng = np.random.default_rng(seed)
+    x = _t(rng, (K, T, D), 0.3, dtype, cuda)
+    wi = _t(rng, (K, D, F), 0.05, dtype, cuda)
+    wg = _t(rng, (K, D, F), 0.05, dtype, cuda) if act.endswith("_glu") \
+        else None
+    wo = _t(rng, (K, F, D), 0.05, dtype, cuda)
+    dy = _t(rng, (K, T, D), 0.1, dtype, cuda)
+    mask = torch.zeros((K, T), dtype=torch.int32, device=cuda)
+    mask[1, :137] = 1
+    mask[1, 40:90] = 0
+    mask[2] = 1
+    return x, wi, wg, wo, dy, mask
+
+
+def _launched(fn):
+    before = ops.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in ops.launch_counts().items()
+                 if v != before[k]}
+
+
+def _close_all(got, want, dtype, rows=None):
+    """``rows = (keep, idx)``: for the outputs at the indices ``idx``,
+    compare only the rows where the (K, T) bool ``keep`` is set."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype == dtype
+        if rows is not None and i in rows[1]:
+            g, w = g[rows[0]], w[rows[0]]
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_train_kernels_match_plain(cuda, dtype, act):
+    """B1 training form, B2 dgrad and B3 wgrad, each on the same inputs as
+    its plain version; invalid rows are exactly zero in y, dx, dh1 and h.
+    The residuals h1/h2 are compared at valid rows: the kernel leaves them
+    unwritten in sub-tiles without a valid row, as the Pallas kernel leaves
+    its skipped tiles, and dgrad reads them at valid rows only."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    x, wi, wg, wo, dy, mask = _train_case(cuda, dtype, act, 21)
+    fwd, n = _launched(lambda: gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask,
+                                                        act=act))
+    assert n == {"grouped_mlp_fwd_train": 1}
+    _close_all(fwd, ref.grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask,
+                                                  act=act), dtype,
+               rows=(mask.bool(), (1, 2)))
+    _, h1, h2 = fwd
+    dg, n = _launched(lambda: gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg,
+                                                   wo, act=act))
+    assert n == {"grouped_mlp_dgrad": 1}
+    _close_all(dg, ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
+                                             act=act), dtype)
+    _, dh1, dh2, h = dg
+    wgr, n = _launched(lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h))
+    assert n == {"grouped_mlp_wgrad": 1}
+    _close_all(wgr, ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2, h),
+               dtype)
+    inv = mask == 0
+    for a in (fwd[0], dg[0], dg[1], dg[3]):
+        assert (a[inv] == 0).all()
+    assert (wgr[0][0] == 0).all() and (wgr[2][0] == 0).all()   # empty slot
+    # no atomics: the same call gives the same bits
+    again = gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(wgr, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_function_matches_autograd_of_plain(cuda, act):
+    """``ops.grouped_mlp`` with grad on CUDA runs GroupedMLPFunction over
+    the three kernels; its gradients match autograd through the plain
+    ``grouped_mlp_ref`` in f32, and invalid rows get exactly zero dx."""
+    from repro_torch.kernels import ref
+    x, wi, wg, wo, dy, mask = _train_case(cuda, torch.float32, act, 22)
+    leaves = [a for a in (x, wi, wg, wo) if a is not None]
+
+    def grads(fn):
+        ts = [a.clone().requires_grad_(True) for a in leaves]
+        wgt = ts[2] if wg is not None else None
+        y = fn(ts[0], ts[1], wgt, ts[-1])
+        (y * dy).sum().backward()
+        return y.detach(), [t.grad for t in ts]
+
+    (y, g), n = _launched(lambda: grads(
+        lambda a, b, c, d: ops.grouped_mlp(a, b, c, d, None, mask.bool(),
+                                           act=act)))
+    assert n == {"grouped_mlp_fwd_train": 1, "grouped_mlp_dgrad": 1,
+                 "grouped_mlp_wgrad": 1}
+    yr, gr = grads(lambda a, b, c, d: ref.grouped_mlp_ref(
+        a, b, c, d, act=act, row_valid=mask.bool()))
+    torch.testing.assert_close(y, yr, atol=2e-5, rtol=2e-4)
+    for got, want in zip(g, gr):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert (g[0][mask == 0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_grad(cuda):
+    """The flash kernel has no backward: a grad-requiring CUDA call raises
+    instead of cutting the graph; without grad it runs."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(rng, (1, 16, 2, 64), 0.5, torch.float32, cuda)
+               for _ in range(3))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(True), k, v)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == q.shape
