@@ -9,21 +9,27 @@ JAX).  In order it:
 1. prints the card (``nvidia-smi`` name and power limit) and turns TF32 off
    for float32 matrix products and convolutions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-   csrc/`` (one ``nvcc`` per source, in parallel) and prints the seconds;
+   csrc/`` (one ``nvcc`` per source, in parallel), prints the seconds and,
+   for the two attention kernels, each instantiation's registers, shared
+   memory and spills as ``ptxas -v`` reports them;
 3. holds each kernel against its plain PyTorch version on the card at
    gpt-moe-s shapes (stated tolerances): the serving kernels at serving
    shapes, the grouped-MLP training forward, dgrad and wgrad at training
    shapes (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32; and times
    kernel, plain version and, where one exists, the PyTorch library call
    computing the same function (CUDA events, median, L2 flushed before
-   each launch);
+   each launch): flash attention at each of the four prompt buckets,
+   paged decode attention at the served tick and near 512 tokens, both
+   also checked bitwise equal over two identical calls;
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights from a seed) through the continuous-batching scheduler: four
    byte-encoded prompts of mixed lengths, 16 greedy tokens each; it counts
-   the kernel launches of that run, compares one prefill and one decode
-   tick with the plain versions on the same tensors, and serves the smoke
-   config in f32 with the kernels and with the plain versions, which must
-   give the same tokens;
+   the kernel launches of that run (flash attention per prompt bucket too),
+   compares one prefill and one decode tick with the plain versions on the
+   same tensors, checks that two identical prefills and two identical
+   decode ticks give the same bits, profiles one decode tick and one
+   prefill at the 512 bucket, and serves the smoke config in f32 with the
+   kernels and with the plain versions, which must give the same tokens;
 5. trains gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights and AdamW moments from a seed) through the Hecate loop
    (``train.trainer.train_loop``, ``ep`` plan), batch 8 × seq 2,048 of
@@ -54,12 +60,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 PROMPT_LENS = (17, 90, 200, 300)
+PROMPT_BUCKETS = (32, 128, 256, 512)      # the scheduler's power-of-two pads
+PAGED_NEAR_MAX = [511, 510, 508, 505]     # positions near the longest
 NEW_TOKENS = 16
 MAX_LEN = 512
 PAGE_SIZE = 8
 MAX_SLOTS = 4
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}
 PAGED_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 1e-5)}
+# bf16 flash attention against its step-wise plain version, which rounds
+# where the kernel rounds: two f32 sums in different orders can still land
+# an output, or rarely one probability, on neighbouring bf16 values: one
+# output ulp (2^-7 of |x|) plus one probability ulp (2^-8 · |v| / l,
+# < 4e-3 for these inputs); as in tests/test_torch_kernels_gpu.py
+TILED_TOL = (4e-3, 2 ** -7)
 # training: batch 8 × the paper's seq 2,048, so the MoE layer sees 16,384
 # tokens, 32,768 (token, expert) assignments, in 64 slots of capacity 16,384
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 12
@@ -123,6 +137,31 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_stats(log: str):
+    """(kernel, "N registers, smem, spills") per entry function of an
+    ``nvcc -Xptxas -v`` log, names demangled where c++filt is present."""
+    import re
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in ln:
+            spill = ln.split(":", 1)[-1].strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append((name, ln.split(":", 1)[-1].strip() + "; " + spill))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True, timeout=30)
+        pretty = names.stdout.splitlines()
+        if names.returncode == 0 and len(pretty) == len(out):
+            out = [(p.split("(")[0], i) for p, (_, i) in zip(pretty, out)]
+    except OSError:
+        pass
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +394,6 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
 
 
 def check_flash_attention(torch, ops, dev, flush):
-    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
     errs = []
 
@@ -368,7 +406,10 @@ def check_flash_attention(torch, ops, dev, flush):
         atol, rtol = TOL[dname]
         for (B, S, N, H), causal, window in (((1, 512, 12, 64), True, 0),
                                              ((1, 512, 12, 64), True, 128),
-                                             ((2, 64, 12, 64), True, 0)):
+                                             ((2, 64, 12, 64), True, 0),
+                                             ((1, 32, 12, 64), True, 0),
+                                             ((1, 256, 12, 64), True, 96),
+                                             ((1, 128, 12, 64), False, 0)):
             q, k, v = qkv(B, S, N, H, dt)
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             with ops.reference_mode():
@@ -378,12 +419,43 @@ def check_flash_attention(torch, ops, dev, flush):
                                 f"({B},{S},{N},{H}) causal={causal} "
                                 f"window={window} {dname}", got, want, atol,
                                 rtol))
-    B, S, N, H = 1, 512, 12, 64
-    q, k, v = qkv(B, S, N, H, torch.bfloat16)
-    run = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    ms = time_ms(torch, run, flush)
-    with ops.reference_mode():
-        plain = time_ms(torch, run, flush)
+            if dname == "bfloat16" and not torch.equal(
+                    got, ops.flash_attention(q, k, v, causal=causal,
+                                             window=window)):
+                raise CheckFailed("two identical flash_attention calls "
+                                  "gave different bits")
+    # at each prompt bucket of the served run (batch 1, causal, bf16): held
+    # to the plain version and to the step-wise one, then timed
+    from repro_torch.kernels import ref
+    buckets = {}
+    for S in PROMPT_BUCKETS:
+        q, k, v = qkv(1, S, 12, 64, torch.bfloat16)
+        got = ops.flash_attention(q, k, v, causal=True)
+        label = f"flash_attention_fwd (1,{S},12,64) causal=True bfloat16"
+        errs.append(compare(torch, label, got, ref.flash_attention_ref(
+            q, k, v, causal=True), *TOL["bfloat16"]))
+        errs.append(compare(torch, f"{label} vs step-wise", got,
+                            ref.flash_attention_tiled_ref(q, k, v,
+                                                          causal=True),
+                            *TILED_TOL))
+        buckets[S] = _time_flash(torch, flush, q, k, v)
+    res = dict(buckets[max(PROMPT_BUCKETS)], max_abs_err=max(errs),
+               buckets=buckets)
+    return res
+
+
+def _time_flash(torch, flush, q, k, v):
+    """The kernel through its wrapper, the plain version called directly
+    (neither through the dispatcher), and SDPA on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, S, N, H = q.shape
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                 flush)
+    plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v,
+                                                           causal=True),
+                    flush)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), flush)
@@ -392,7 +464,7 @@ def check_flash_attention(torch, ops, dev, flush):
                        4 * B * N * H * S * (S + 1) / 2, "bfloat16")
     return dict(shape=f"(B,S,N,H)=({B},{S},{N},{H}) causal bf16", ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=max(errs))
+                bound_by=b_by)
 
 
 def _paged_inputs(torch, dev, g, positions, nkv, group, dt, hd=64,
@@ -422,7 +494,6 @@ def _paged_inputs(torch, dev, g, positions, nkv, group, dt, hd=64,
 
 
 def check_paged_attention(torch, ops, dev, flush):
-    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(3)
     errs = []
     for dname, dt in (("bfloat16", torch.bfloat16),
@@ -442,32 +513,53 @@ def check_paged_attention(torch, ops, dev, flush):
                                 f"{nkv * group}/{nkv} heads {label} {dname}",
                                 got, want, atol, rtol))
     # timing at a decode tick of the served run: the four sequences after
-    # their prompts (17, 90, 200, 300 tokens) and half their new tokens
+    # their prompts (17, 90, 200, 300 tokens) and half their new tokens;
+    # then four sequences near the longest, 512 tokens
     positions = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
-    q, k, v, ri, pos = _paged_inputs(torch, dev, g, positions, 12, 1,
-                                     torch.bfloat16)
-    run = lambda: ops.paged_decode_attention(  # noqa: E731
-        q, k, v, ri, pos, page_size=PAGE_SIZE)
+    res = _time_paged(torch, flush, *_paged_inputs(
+        torch, dev, g, positions, 12, 1, torch.bfloat16), positions)
+    res["near_max"] = _time_paged(torch, flush, *_paged_inputs(
+        torch, dev, g, PAGED_NEAR_MAX, 12, 1, torch.bfloat16),
+        PAGED_NEAR_MAX)
+    res["max_abs_err"] = max(errs)
+    return res
+
+
+def _time_paged(torch, flush, q, k, v, ri, pos, positions):
+    """The kernel through its wrapper, on the page table the dispatcher
+    derives from ``ri`` (made once, outside the timing), the plain version
+    called directly on ``ri`` (its own input; neither through the
+    dispatcher), and SDPA on gathered K/V."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    tbl = (ri[:, ::PAGE_SIZE] // PAGE_SIZE).to(torch.int32).contiguous()
+    run = lambda: pa.paged_decode_attention(  # noqa: E731
+        q, k, v, tbl, pos, page_size=PAGE_SIZE)
+    first = run()
+    if not torch.equal(first, run()):
+        raise CheckFailed("two identical paged_decode_attention calls gave "
+                          "different bits")
     ms = time_ms(torch, run, flush)
-    with ops.reference_mode():
-        plain = time_ms(torch, run, flush)
+    plain = time_ms(torch, lambda: ref.paged_decode_attention_ref(
+        q, k, v, ri, pos), flush)
     B, nq, hd = q.shape
+    nkv = k.shape[1]
     kg = k[ri.long()].permute(0, 2, 1, 3).contiguous()   # (B, nkv, kv, hd)
     vg = v[ri.long()].permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(ri.shape[1], device=dev)[None, :]
+    mask = (torch.arange(ri.shape[1], device=q.device)[None, :]
             <= pos[:, None].long())[:, None, None, :]
     qs = q[:, :, None]
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
     es = q.element_size()
     toks = sum(p + 1 for p in positions)
-    nbytes = 2 * q.numel() * es + toks * 12 * hd * es * 2 + ri.numel() // \
+    nbytes = 2 * q.numel() * es + toks * nkv * hd * es * 2 + ri.numel() // \
         PAGE_SIZE * 4 + B * 4
     b_ms, b_by = bound(nbytes, 4 * toks * nq * hd, "bfloat16")
-    return dict(shape=f"B={B} 12/12 heads hd={hd} page {PAGE_SIZE} "
+    return dict(shape=f"B={B} {nq}/{nkv} heads hd={hd} page {PAGE_SIZE} "
                 f"positions {positions} bf16", ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max(errs))
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------------------
@@ -503,13 +595,22 @@ def _cut_depth(cfg, params, n: int):
     return cfg.replace(num_layers=n, dtype="float32"), p
 
 
-def _timed(torch, fn, sink):
+def _timed(torch, fn, sink, per_bucket=None):
+    """``fn`` timed into ``sink``; with ``per_bucket``, a prefill also adds
+    its flash-attention launches to ``per_bucket[padded length]``."""
+    from repro_torch.kernels import ops
+
     def call(*a, **kw):
         torch.cuda.synchronize()
+        n0 = ops.launch_counts()["flash_attention_fwd"]
         t = time.perf_counter()
         out = fn(*a, **kw)
         torch.cuda.synchronize()
         sink.append((time.perf_counter() - t) * 1e3)
+        if per_bucket is not None:
+            s = a[1]["tokens"].shape[1]
+            per_bucket[s] = per_bucket.get(s, 0) + \
+                ops.launch_counts()["flash_attention_fwd"] - n0
         if not bool(torch.isfinite(out[0]).all()):
             raise CheckFailed("non-finite logits on the main path")
         return out
@@ -541,9 +642,9 @@ def serve_full_width(torch, ops, dev, card):
     rs = RequestScheduler(eng, max_slots=MAX_SLOTS, num_pages=pages,
                           page_size=PAGE_SIZE, max_kv=MAX_LEN,
                           default_ttl_s=3600.0)
-    prefill_ms, tick_ms = [], []
+    prefill_ms, tick_ms, flash_per_bucket = [], [], {}
     prefill_fn, step_fn = rs._prefill_fn, rs._step_fn
-    rs._prefill_fn = _timed(torch, prefill_fn, prefill_ms)
+    rs._prefill_fn = _timed(torch, prefill_fn, prefill_ms, flash_per_bucket)
     rs._step_fn = _timed(torch, step_fn, tick_ms)
     prompts = _prompts(cfg.vocab_size)
     # warm-up outside the counted run: library loads, first-call set-up
@@ -553,6 +654,7 @@ def serve_full_width(torch, ops, dev, card):
         raise CheckFailed(f"warm-up request ended {warm.state}")
     prefill_ms.clear()
     tick_ms.clear()
+    flash_per_bucket.clear()
     ticks0 = rs.decode_ticks
     reqs = [rs.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     ops.reset_launch_counts()               # the main path's run starts
@@ -578,6 +680,8 @@ def serve_full_width(torch, ops, dev, card):
     print(f"  [{card}] slot-cache build ms: {slot_ms:.3f}; run wall s: "
           f"{wall_s:.3f}")
     print(f"  launches on the main path: {launches}")
+    print(f"  flash_attention_fwd launches per prompt bucket: "
+          f"{dict(sorted(flash_per_bucket.items()))}")
     if min(launches[k] for k in SERVE_KERNELS) <= 0 or any(
             launches[k] for k in TRAIN_KERNELS):
         raise CheckFailed(f"a serving kernel never launched, or a training "
@@ -610,7 +714,10 @@ def serve_full_width(torch, ops, dev, card):
     tk[0, 0] = int(lk[0, -1].argmax())
     cache_r = {n: {kv: t.clone() for kv, t in c.items()}
                for n, c in cache.items()}
+    cache_2 = {n: {kv: t.clone() for kv, t in c.items()}
+               for n, c in cache.items()}
     dk, _ = step_fn(params, cache, tk, pos, ri, pa, premat)
+    dk2, _ = step_fn(params, cache_2, tk, pos, ri, pa, premat)
     with ops.reference_mode():
         dr, _ = step_fn(params, cache_r, tk, pos, ri, pa, premat)
     d_dec = float((dk - dr).abs().max())
@@ -624,10 +731,16 @@ def serve_full_width(torch, ops, dev, card):
     if not torch.equal(lk, lk2):
         raise CheckFailed("two identical prefills gave different logits")
     print("  two identical prefills through the kernels: bitwise equal")
+    if not torch.equal(dk, dk2):
+        raise CheckFailed("two identical decode ticks gave different logits")
+    print("  two identical decode ticks through the kernels: bitwise equal")
     prof = _profile_tick(torch, rs, prompts, card)
+    prof_prefill = _profile_prefill(torch, prefill_fn, params, pa, premat,
+                                    prompts[-1], rs._bucket(prompts[-1].size),
+                                    dev, card)
     rs.close()
     eng.close()
-    del premat, ck, cache, cache_r
+    del premat, ck, cache, cache_r, cache_2
 
     # Random-init gpt-moe-s is chaotic: a 1e-7 difference (another sum
     # order) grows with depth until near-tied top-2 routes flip, which
@@ -661,7 +774,8 @@ def serve_full_width(torch, ops, dev, card):
                 run_wall_s=wall_s, launches=launches,
                 max_dlogit_prefill=d_pre, max_dlogit_decode=d_dec,
                 max_logit=scale, max_dlogit_prefill_f32_by_depth=d32,
-                profiled_tick=prof)
+                profiled_tick=prof, profiled_prefill=prof_prefill,
+                flash_launches_per_bucket=flash_per_bucket)
 
 
 def _profile_tick(torch, rs, prompts, card):
@@ -682,13 +796,47 @@ def _profile_tick(torch, rs, prompts, card):
     ev = prof.key_averages()
     launches = sum(e.count for e in ev if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in ev
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    dev_ev = [e for e in ev
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    paged = sum(e.self_device_time_total for e in dev_ev
+                if "paged_decode" in e.key) / 1e3
     rs.run(max_ticks=10)
     print(f"  [{card}] one decode tick under the profiler: {launches} "
           f"kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms "
-          f"wall (device idle share {1 - busy / wall:.3f})")
-    return dict(launches=launches, device_busy_ms=busy, wall_ms=wall)
+          f"wall (device idle share {1 - busy / wall:.3f}), "
+          f"paged_decode_attention {paged:.3f} ms of it")
+    return dict(launches=launches, device_busy_ms=busy, wall_ms=wall,
+                paged_ms=paged)
+
+
+def _profile_prefill(torch, prefill_fn, params, pa, premat, prompt, bucket,
+                     dev, card):
+    """One prefill of ``prompt`` (padded to ``bucket``) under torch.profiler:
+    device-busy time, and the flash-attention kernel's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    toks[0, :prompt.size] = torch.as_tensor(prompt, device=dev)
+    batch = {"tokens": toks,
+             "last_pos": torch.tensor([prompt.size - 1], device=dev)}
+    for _ in range(2):                      # the first pass sets CUPTI up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill_fn(params, batch, pa, premat)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    flash = sum(e.self_device_time_total for e in dev_ev
+                if "flash_fwd" in e.key) / 1e3
+    print(f"  [{card}] one prefill of the {prompt.size}-token prompt (bucket "
+          f"{bucket}) under the profiler: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall, flash_attention_fwd {flash:.3f} ms of it")
+    return dict(bucket=bucket, device_busy_ms=busy, wall_ms=wall,
+                flash_ms=flash)
 
 
 def serve_small_f32(torch, ops, dev):
@@ -958,6 +1106,11 @@ def main() -> None:
     logs = _build.build_all()
     build_s = time.perf_counter() - t
     for src_name, log in logs.items():
+        if src_name in ("flash_attention", "paged_attention") and log:
+            print(f"  {src_name}.cu, per kernel (ptxas -v):")
+            for kname, info in ptxas_stats(log):
+                print(f"    {kname}: {info}")
+            continue
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {src_name}.cu: {regs[0] if regs else 'cached'}")
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
@@ -973,7 +1126,12 @@ def main() -> None:
                                                                 dev, flush)}
         kern.update(check_grouped_mlp_train(torch, ops, dev, flush))
         for k, r in kern.items():
-            for tag, rr in (("", r), ("prefill ", r.get("prefill"))):
+            extra = [("prefill ", r.get("prefill")),
+                     ("near max ", r.get("near_max"))]
+            if "buckets" in r:
+                extra = [(f"bucket S={S} ", rr)
+                         for S, rr in r["buckets"].items()]
+            for tag, rr in [("", r)] + extra:
                 if rr:
                     print(f"  [{card_line}] {k} {tag}{rr['shape']}: kernel "
                           f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "

@@ -159,6 +159,137 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.to(q.dtype)
 
 
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
+                              window: int = 0, bq: int = 64, bk: int = 64,
+                              kv_groups: int = 2):
+    """``flash_attention_ref`` computed step by step as the bf16 CUDA
+    kernel computes it: ``bq``-row query tiles against ``bk``-row KV tiles,
+    skipped and masked as the kernel skips and masks them, with the TPU
+    kernel's rounding points.  q is scaled in its own dtype by the scale
+    rounded to that dtype (as JAX rounds a weak-typed scalar), scores sum
+    in f32, p is rounded to v's dtype before the product with v, l adds
+    the unrounded p, and m, l and acc are f32.  Query rows past S are
+    padded with zeros and key rows past S masked.  A query tile's KV tiles
+    are dealt to ``kv_groups`` groups (group g takes tiles g, g + groups,
+    ... of the tile's range), each with its own online softmax, and the
+    groups' states merge in group order.  Nothing on the main path calls
+    it; the tests hold it to the JAX package's kernel."""
+    b, s, n, h = q.shape
+    dt = q.dtype
+    scale = float(torch.tensor(1.0 / math.sqrt(h), dtype=dt))
+    qs = (q.float() * scale).to(dt).float()
+    nqt, nkt = -(-s // bq), -(-s // bk)
+    pad_q, pad_k = nqt * bq - s, nkt * bk - s
+
+    def padded(a, extra):          # (B, S, N, H) -> (B, N, S + extra, H)
+        return F.pad(a.float(), (0, 0, 0, 0, 0, extra)).permute(0, 2, 1, 3)
+    qs, kf, vf = padded(qs, pad_q), padded(k, pad_k), padded(v, pad_k)
+    out = torch.zeros_like(qs)
+    for qt in range(nqt):
+        q0 = qt * bq
+        qpos = torch.arange(q0, q0 + bq, device=q.device)[:, None]
+        hi = nkt - 1
+        if causal:
+            hi = min(hi, (q0 + bq - 1) // bk)
+        lo = 0
+        if window > 0 and q0 - window + 1 > 0:
+            lo = (q0 - window + 1) // bk
+        states = []
+        for grp in range(kv_groups):
+            m = torch.full((b, n, bq, 1), NEG_INF, device=q.device)
+            l = torch.zeros((b, n, bq, 1), device=q.device)
+            acc = torch.zeros((b, n, bq, h), device=q.device)
+            for kt in range(lo + grp, hi + 1, kv_groups):
+                k0 = kt * bk
+                kpos = torch.arange(k0, k0 + bk, device=q.device)[None, :]
+                sc = qs[:, :, q0:q0 + bq] @ \
+                    kf[:, :, k0:k0 + bk].transpose(-1, -2)
+                ok = kpos < s
+                if causal:
+                    ok = ok & (kpos <= qpos)
+                if window > 0:
+                    ok = ok & (kpos > qpos - window)
+                sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.where(ok, torch.exp(sc - m_new),
+                                torch.zeros_like(sc))
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + \
+                    p.to(v.dtype).float() @ vf[:, :, k0:k0 + bk]
+                m = m_new
+            states.append((m, l, acc))
+        m, l, acc = states[0]
+        for mg, lg, ag in states[1:]:
+            m_new = torch.maximum(m, mg)
+            a, a_g = torch.exp(m - m_new), torch.exp(mg - m_new)
+            l = l * a + lg * a_g
+            acc = acc * a + ag * a_g
+            m = m_new
+        out[:, :, q0:q0 + bq] = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3)[:, :s].to(dt)
+
+
+def paged_decode_attention_split_ref(q, k_pool, v_pool, row_idx, positions,
+                                     *, page_size: int, n_warps: int,
+                                     window: int = 0, softcap: float = 0.0):
+    """``paged_decode_attention_ref`` computed step by step as the CUDA
+    kernel computes it: a sequence's live pages (from the first inside the
+    window to ``positions[b] // page_size``) are dealt round-robin to
+    ``n_warps`` warps; each warp runs its own online softmax over its
+    pages, one page at a time, in f32 on upcast inputs (m, l, acc per
+    query head); then the warps' states fold in warp order 0, 1, ...,
+    with ``m = max`` and l and acc rescaled.  A warp with no page keeps
+    the empty state (m = -1e30, l = 0, acc = 0), which changes nothing.
+    Nothing on the main path calls it."""
+    b, nq, h = q.shape
+    nkv = k_pool.shape[1]
+    g = nq // nkv
+    scale = 1.0 / h ** 0.5
+    out = torch.zeros((b, nkv, g, h), device=q.device)
+    qg = q.reshape(b, nkv, g, h).float()
+    for bi in range(b):
+        pos = int(positions[bi])
+        hi = min(pos // page_size, row_idx.shape[1] // page_size - 1)
+        lo = 0
+        if window > 0 and pos - window + 1 > 0:
+            lo = (pos - window + 1) // page_size
+        states = []
+        for w in range(n_warps):
+            m = torch.full((nkv, g, 1), NEG_INF, device=q.device)
+            l = torch.zeros((nkv, g, 1), device=q.device)
+            acc = torch.zeros((nkv, g, h), device=q.device)
+            for i in range(lo + w, hi + 1, n_warps):
+                t = torch.arange(i * page_size, (i + 1) * page_size,
+                                 device=q.device)
+                rows = row_idx[bi, t].long()
+                kr = k_pool[rows].float().permute(1, 0, 2)   # (nkv, ps, hd)
+                vr = v_pool[rows].float().permute(1, 0, 2)
+                s = (qg[bi] @ kr.transpose(-1, -2)) * scale  # (nkv, g, ps)
+                if softcap > 0.0:
+                    s = torch.tanh(s / softcap) * softcap
+                ok = t <= pos
+                if window > 0:
+                    ok = ok & (t > pos - window)
+                s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.where(ok, torch.exp(s - m_new), torch.zeros_like(s))
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p @ vr
+                m = m_new
+            states.append((m, l, acc))
+        m, l, acc = states[0]
+        for mw, lw, aw in states[1:]:
+            m_new = torch.maximum(m, mw)
+            a, a_w = torch.exp(m - m_new), torch.exp(mw - m_new)
+            l = l * a + lw * a_w
+            acc = acc * a + aw * a_w
+            m = m_new
+        out[bi] = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, nq, h).to(q.dtype)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, row_idx, positions, *,
                                window: int = 0, softcap: float = 0.0):
     """q: (B, nq, hd); k/v_pool: (num_rows, nkv, hd); row_idx: (B, max_kv)

@@ -127,6 +127,27 @@ def test_flash_attention_matches_jax(B, S, NQ, NKV, H, dtype, causal, window):
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize("S", [8, 24, 32, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40),
+                                           (False, 0)])
+def test_flash_attention_tiled_ref_matches_jax(S, dtype, causal, window):
+    """The bf16 kernel's step-wise arithmetic (64×64 tiles, padded rows and
+    columns, q and p rounded where the TPU kernel rounds them) against the
+    Pallas kernel; window 40 crosses the 64-row tile edges.  H is 32 at
+    S = 8 and 128, else 64."""
+    H = 32 if S in (8, 128) else 64
+    rng = np.random.default_rng(S + window)
+    q, k, v = (_both(rng.standard_normal((2, S, 3, H)) * s, dtype)
+               for s in (0.4, 0.4, 0.6))
+    want = jops.flash_attention(q[0], k[0], v[0], causal=causal,
+                                window=window)
+    got = ref.flash_attention_tiled_ref(q[1], k[1], v[1], causal=causal,
+                                        window=window)
+    assert got.dtype == q[1].dtype and got.shape == q[1].shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # B5: paged decode attention
 # ---------------------------------------------------------------------------
@@ -212,6 +233,57 @@ def test_paged_decode_softcap_matches_jax():
     got, want = _paged_both(_paged_case(23, [3, 9, 14], nkv=2, group=2),
                             softcap=50.0)
     np.testing.assert_allclose(got, want, **_paged_tol("float32"))
+
+
+def _split_both(case, n_warps, **kw):
+    q, k, v, ri, pos = case
+    want = jops.paged_decode_attention(q[0], k[0], v[0], ri[0], pos[0],
+                                       page_size=PS, **kw)
+    got = ref.paged_decode_attention_split_ref(
+        q[1], k[1], v[1], ri[1], pos[1], page_size=PS, n_warps=n_warps, **kw)
+    assert got.dtype == q[1].dtype
+    return _f32(got), _f32(want)
+
+
+@pytest.mark.parametrize("n_warps", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_ref_matches_jax(n_warps, group, dtype):
+    """The CUDA kernel's step-wise arithmetic (pages dealt round-robin to
+    warps, per-warp online softmax, fixed-order merge) against the Pallas
+    kernel.  Positions 0..15 hold 1 to 4 pages, so at 4 and 8 warps some
+    warps get no page."""
+    got, want = _split_both(_paged_case(group * 7 + n_warps,
+                                        [2, 7, 11, 0, 15], nkv=2,
+                                        group=group, dtype=dtype), n_warps)
+    np.testing.assert_allclose(got, want, **_paged_tol(dtype))
+
+
+@pytest.mark.parametrize("n_warps", [1, 4, 8])
+@pytest.mark.parametrize("window,softcap", [(7, 0.0), (0, 50.0), (5, 30.0)])
+def test_paged_split_ref_window_softcap_matches_jax(n_warps, window,
+                                                    softcap):
+    got, want = _split_both(_paged_case(window + n_warps, [2, 7, 11, 15],
+                                        nkv=2, group=2), n_warps,
+                            window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want, **_paged_tol("float32"))
+
+
+@pytest.mark.parametrize("n_warps", [1, 8])
+def test_paged_split_ref_parked_slot_matches_jax(n_warps):
+    """An idle slot (no pages, position 0) reduces over trash row 0 alone;
+    at 8 warps seven of its warps are empty and change nothing."""
+    rng = np.random.default_rng(19)
+    q = _both(rng.standard_normal((2, 4, 32)) * 0.4)
+    k = _both(rng.standard_normal((5 * PS, 2, 32)))
+    v = _both(rng.standard_normal((5 * PS, 2, 32)))
+    ri = _both(np.stack([PageTable(PS, MAX_KV, [2, 1]).row_idx(),
+                         PageTable(PS, MAX_KV, []).row_idx()]))
+    pos = _both(np.asarray([6, 0], np.int32))
+    got, want = _split_both((q, k, v, ri, pos), n_warps)
+    np.testing.assert_allclose(got, want, **_paged_tol("float32"))
+    np.testing.assert_array_equal(
+        got[1], _f32(v[1])[0].reshape(1, 2, 32).repeat(2, 1).reshape(4, 32))
 
 
 # ---------------------------------------------------------------------------

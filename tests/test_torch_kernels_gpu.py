@@ -83,13 +83,121 @@ def test_grouped_mlp_kernel_row_valid(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,causal,window", [(256, True, 0), (256, True, 64),
-                                             (8, True, 0), (128, False, 0)])
+                                             (8, True, 0), (128, False, 0),
+                                             (24, True, 0), (32, True, 0),
+                                             (512, True, 0), (512, True, 96),
+                                             (128, True, 96),
+                                             (512, False, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, S, causal, window):
+    """Short prompts and the served buckets; window 96 crosses the kernel's
+    64-row query and key tiles."""
     rng = np.random.default_rng(S)
     q, k, v = (_t(rng, (2, S, 3, 64), 0.5, dtype, cuda) for _ in range(3))
     got, want = _both(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                   window=window))
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# The redesigned kernels against their step-wise plain versions
+# (kernels/ref.py), which round where the kernels round.  bf16 flash: two
+# f32 sums in different orders can still land an output, or rarely one
+# probability, on neighbouring bf16 values: at most one output ulp
+# (2^-7 of |x|) plus one probability ulp (2^-8 · |v| / l, ≤ 4e-3 for
+# these inputs, |v| < 3 and l ≥ 1).  Paged: every sum is f32 and only the
+# output is rounded: 1e-6 in f32, one output ulp in bf16.
+TILED_TOL = dict(atol=4e-3, rtol=2 ** -7)
+SPLIT_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
+             torch.bfloat16: dict(atol=1e-6, rtol=2 ** -7)}
+PAGED_WARPS = 8       # PA_WARPS of csrc/paged_attention.cu
+
+
+def _offset_copy(t):
+    """A contiguous copy of ``t`` that starts one element into its storage,
+    so its rows are not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,window,shift", [
+    (24, 32, 0, None), (128, 64, 0, None), (512, 64, 0, None),
+    (512, 64, 96, None), (256, 32, 40, None),
+    (256, 40, 0, None), (24, 40, 0, None),     # 16-byte copies, H padded
+    (256, 36, 96, None), (24, 36, 0, None),    # element-wise, H padded
+    (128, 64, 0, 0), (256, 64, 96, 1), (128, 40, 0, 2)])   # unaligned q/k/v
+def test_flash_attention_kernel_matches_tiled_ref(cuda, S, H, window, shift):
+    """bf16 against the plain and the step-wise version, two calls bitwise
+    equal; also H below the tiling's width (40 keeps 16-byte copies and
+    zero-fills the padding columns, 36 loads element by element) and one
+    of q, k, v at an unaligned address (element-wise loads)."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(S * H + window)
+    qkv = [_t(rng, (2, S, 3, H), 0.5, torch.bfloat16, cuda)
+           for _ in range(3)]
+    if shift is not None:
+        qkv[shift] = _offset_copy(qkv[shift])
+    got, want = _both(lambda: ops.flash_attention(*qkv, causal=True,
+                                                  window=window))
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    tiled = ref.flash_attention_tiled_ref(*qkv, causal=True, window=window)
+    torch.testing.assert_close(got.float(), tiled.float(), **TILED_TOL)
+    again = ops.flash_attention(*qkv, causal=True, window=window)
+    assert torch.equal(got, again)          # no atomics: the same bits
+
+
+def _paged_pool(seed, positions, nkv, group, dev, dtype, ps=8, max_kv=512,
+                h=64):
+    """Pages of a served pool: shuffled, non-contiguous, page 0 trash."""
+    rng = np.random.default_rng(seed)
+    n_blk = max_kv // ps
+    num_pages = len(positions) * n_blk + 1
+    q = _t(rng, (len(positions), nkv * group, h), 0.5, dtype, dev)
+    k = _t(rng, (num_pages * ps, nkv, h), 0.5, dtype, dev)
+    v = _t(rng, (num_pages * ps, nkv, h), 1.0, dtype, dev)
+    avail = list(range(1, num_pages))
+    rng.shuffle(avail)
+    rows = [PageTable(ps, max_kv, [avail.pop() for _ in range(p // ps + 1)]
+                      ).row_idx() for p in positions]
+    ri = torch.from_numpy(np.stack(rows)).to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, k, v, ri, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,window,softcap,hd,shift", [
+    (1, 0, 0.0, 64, None), (4, 0, 0.0, 64, None), (1, 60, 30.0, 64, None),
+    (2, 0, 0.0, 36, None),                      # hd not 16-byte wide
+    (2, 0, 0.0, 64, 0), (2, 0, 0.0, 64, 1), (2, 0, 0.0, 32, 2)])  # unaligned
+def test_paged_decode_kernel_warp_split_boundaries(cuda, dtype, group,
+                                                   window, softcap, hd,
+                                                   shift):
+    """Positions that give 1 page, as many pages as warps, one more, and
+    the full 512-token sequence; the kernel against the plain version and
+    against its step-wise version, and two calls bitwise equal.  Also
+    hd = 36 (bf16 loads element by element, f32 keeps 16-byte loads, 9
+    lanes of 16 to a row) and one of q, the K pool or the V pool at an
+    unaligned address (element-wise loads)."""
+    from repro_torch.kernels import ref
+    ps, w = 8, PAGED_WARPS
+    positions = [0, ps - 1, w * ps - 1, w * ps, w * ps + 3, 511]
+    case = list(_paged_pool(group + window, positions, 3, group, cuda, dtype,
+                            h=hd))
+    if shift is not None:
+        case[shift] = _offset_copy(case[shift])
+    kw = dict(page_size=ps, window=window, softcap=softcap)
+    got, want = _both(lambda: ops.paged_decode_attention(*case, **kw))
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    split = ref.paged_decode_attention_split_ref(*case, n_warps=w, **kw)
+    torch.testing.assert_close(got.float(), split.float(), **SPLIT_TOL[dtype])
+    again = ops.paged_decode_attention(*case, **kw)
+    assert torch.equal(got, again)
 
 
 def _paged(seed, positions, nkv, group, dev, h=32, num_pages=24):
