@@ -10,15 +10,19 @@ JAX).  In order it:
    for float32 matrix products and convolutions;
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
    csrc/`` (one ``nvcc`` per source, in parallel), prints the seconds and,
-   for the two attention kernels, each instantiation's registers, shared
-   memory and spills as ``ptxas -v`` reports them;
+   for the two attention kernels and the bf16 tensor-core kernels of the
+   grouped-MLP training forward and dgrad, each instantiation's registers,
+   shared memory and spills as ``ptxas -v`` reports them;
 3. holds each kernel against its plain PyTorch version on the card at
    gpt-moe-s shapes (stated tolerances): the serving kernels at serving
    shapes, the grouped-MLP training forward, dgrad and wgrad at training
-   shapes (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32; and times
-   kernel, plain version and, where one exists, the PyTorch library call
-   computing the same function (CUDA events, median, L2 flushed before
-   each launch): flash attention at each of the four prompt buckets,
+   shapes (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32, and the
+   bf16 dgrad's dx also against its step-wise plain version (dx from dh1
+   split into bf16 hi + lo); and times kernel, plain version and, where one
+   exists, the PyTorch library call computing the same function (CUDA
+   events, median, L2 flushed before each launch), with the training
+   kernels' TFLOP/s and share of their bound: flash attention at each of
+   the four prompt buckets,
    paged decode attention at the served tick and near 512 tokens, both
    also checked bitwise equal over two identical calls;
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
@@ -34,11 +38,13 @@ JAX).  In order it:
    weights and AdamW moments from a seed) through the Hecate loop
    (``train.trainer.train_loop``, ``ep`` plan), batch 8 × seq 2,048 of
    the bytes stream: two identical steps must give bitwise-equal parameters,
-   then 12 steps with the launch counters reset just before: a finite,
-   falling loss, 12 dgrad and 12 wgrad launches per step and no
-   flash-attention launch; one step under the profiler; and one step of
-   full width cut to 2 layers in f32 whose every gradient must match the
-   plain versions';
+   then 12 steps with the launch counters reset just before: a finite
+   loss, 12 dgrad and 12 wgrad launches per step and no flash-attention
+   launch; one step under the profiler (its top kernels by device time);
+   12 steps of the same loop at full width cut to 4 layers, whose loss
+   must fall (at full depth 12 steps from the seeded init do not train:
+   see ``TRAIN_LEARN_LAYERS``); and one step of full width cut to 2 layers
+   in f32 whose every gradient must match the plain versions';
 6. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -80,7 +86,25 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 12
 # at seq 2,048 the loss of random-init gpt-moe-s rose over 12 steps at lr
 # 3e-3 (see PERF.md); 1e-3 is the rate that trains it here
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 3
+# Whether the loop trains is checked at full width cut to 4 layers.  At
+# full depth, 12 steps from the seeded init do not lower the loss: the
+# gradient norm there is ~1.4e7 (4 layers: ~600), every AdamW step moves
+# the model along chaotic directions, and the loss of a fixed batch moves
+# by up to ~0.06 either way over the run, as a 1e-4 perturbation of the
+# initial weights decides, with the first port's FMA kernels as with the
+# tensor-core ones.  At 4 layers it falls by ~4 in 12 steps
+# (tools/train_probe.py; PERF.md).
+TRAIN_LEARN_LAYERS = 4
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
+# bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
+# same products summed in f32 in other orders land on neighbouring bf16
+# values at most: one ulp, 2^-7 of |dx|; as in tests/test_torch_kernels_gpu.py
+SPLIT_DX_TOL = (1e-5, 2 ** -7)
+# ptxas -v lines printed for the grouped-MLP sources: the bf16 tensor-core
+# products gm_tc_kernel<EPI, GATE, ACT, VEC> (EPI 0 h1 = x@wi, 1 y = h@wo,
+# 2 dh = g@woᵀ, 3 dx = (hi + lo)@wiᵀ; the main path's are GATE = false,
+# ACT = 0 gelu, VEC = true) and the zero-row pass
+TC_KERNELS = ("gm_tc_kernel", "gm_zero_invalid_rows")
 SERVE_KERNELS = ("grouped_mlp_fwd", "flash_attention_fwd",
                  "paged_decode_attention")
 TRAIN_KERNELS = ("grouped_mlp_fwd_train", "grouped_mlp_dgrad",
@@ -274,10 +298,12 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
         return (rnd((K, T, D), 0.3), rnd((K, D, Fd), 0.05),
                 rnd((K, Fd, D), 0.05), rnd((K, T, D), 0.1))
 
-    def held(name, labels, got, plain, residuals=()):
+    def held(name, labels, got, plain, residuals=(), tol=None):
         """Kernel outputs ``got`` against ``plain(slots)`` over slot
         chunks; the outputs named in ``residuals`` (h1, h2) only at valid
-        rows, where the next stage reads them."""
+        rows, where the next stage reads them.  Returns the largest error
+        of each output."""
+        atol, rtol = tol or TOL[dname]
         worst, bad = {}, set()
         for k0 in range(0, K, 8):
             sl = slice(k0, k0 + 8)
@@ -301,35 +327,52 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
             if not ok:
                 raise CheckFailed(f"{name} {what}: kernel disagrees with "
                                   f"plain version")
-            errs[name].append(mx)
+        return worst
 
+    split_err = None
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
-        atol, rtol = TOL[dname]
         x, wi, wo, dy = inputs(dt)
         fwd = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
-        held("grouped_mlp_fwd_train", "y,h1,h2", fwd,
-             lambda s: ref.grouped_mlp_fwd_train_ref(
-                 x[s], wi[s], None, wo[s], mask[s], act="gelu"),
-             residuals=("h1", "h2"))
+        stages = [("grouped_mlp_fwd_train", held(
+            "grouped_mlp_fwd_train", "y,h1,h2", fwd,
+            lambda s: ref.grouped_mlp_fwd_train_ref(
+                x[s], wi[s], None, wo[s], mask[s], act="gelu"),
+            residuals=("h1", "h2")))]
         h1 = fwd[1]
         del fwd
         dg = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
                                   act="gelu")
-        held("grouped_mlp_dgrad", "dx,dh1,dh2,h", dg,
-             lambda s: ref.grouped_mlp_dgrad_ref(
-                 dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
-                 act="gelu"))
+        stages.append(("grouped_mlp_dgrad", held(
+            "grouped_mlp_dgrad", "dx,dh1,dh2,h", dg,
+            lambda s: ref.grouped_mlp_dgrad_ref(
+                dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
+                act="gelu"))))
+        if dname == "bfloat16":     # the tensor-core kernel's own rounding
+            split_err = held(
+                "grouped_mlp_dgrad vs step-wise", "dx", dg[:1],
+                lambda s: ref.grouped_mlp_dgrad_split_ref(
+                    dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
+                    act="gelu")[:1], tol=SPLIT_DX_TOL)["dx"]
         dh1, h = dg[1], dg[3]
         del dg
-        held("grouped_mlp_wgrad", "dwi,dwg,dwo",
-             gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
-             lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
-                                                 dh1[s], None, h[s]))
+        stages.append(("grouped_mlp_wgrad", held(
+            "grouped_mlp_wgrad", "dwi,dwg,dwo",
+            gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
+            lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
+                                                dh1[s], None, h[s]))))
+        for name, worst in stages:
+            errs[name].extend(worst.values())
         del x, wi, wo, dy, h1, dh1, h
         torch.cuda.empty_cache()
     # time in bf16
     x, wi, wo, dy = inputs(torch.bfloat16)
+    # the main path builds the bf16 kernels' tile list once per forward
+    # (GroupedMLPFunction) and hands it to B1-train and B2: the two are
+    # timed with it given, and the list on its own (it reads its length
+    # back to the host)
+    tiles = gm.tile_list(mask)
+    tile_ms = time_ms(torch, lambda: gm.tile_list(mask), flush)
     _, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
     _, dh1, _, h = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
                                         act="gelu")
@@ -358,7 +401,7 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
     cases = {
         "grouped_mlp_fwd_train": (
             lambda: gm.grouped_mlp_fwd_train(x, wi, None, wo, mask,
-                                             act="gelu"),
+                                             act="gelu", tiles=tiles),
             lambda: ref.grouped_mlp_fwd_train_ref(x, wi, None, wo, mask,
                                                   act="gelu"),
             lib_fwd,
@@ -368,7 +411,7 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
             rows * (D + Fd) * es + K * T * 4 + wbytes + K * T * D * es),
         "grouped_mlp_dgrad": (
             lambda: gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
-                                         act="gelu"),
+                                         act="gelu", tiles=tiles),
             lambda: ref.grouped_mlp_dgrad_ref(dy, mask, h1, None, wi, None,
                                               wo, act="gelu"),
             lib_dgrad,
@@ -385,11 +428,16 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
     res = {}
     for name, (kern, plain, lib, nbytes) in cases.items():
         b_ms, b_by = bound(nbytes, ops2, "bfloat16")
+        ms = time_ms(torch, kern, flush)
         res[name] = dict(
-            shape=shape + " bf16", ms=time_ms(torch, kern, flush),
+            shape=shape + " bf16", ms=ms,
             plain_ms=time_ms(torch, plain, flush, reps=5, warmup=1),
             library_ms=time_ms(torch, lib, flush, reps=5, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs[name]))
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs[name]),
+            # the function's two products over the valid rows
+            tflops=ops2 / ms / 1e9, bound_share=b_ms / ms)
+    res["grouped_mlp_dgrad"]["split_dx_err"] = split_err
+    res["grouped_mlp_fwd_train"]["tile_list_ms"] = tile_ms
     return res
 
 
@@ -960,8 +1008,8 @@ def train_full_width(torch, ops, dev, card):
           f"{med:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; "
           f"run wall {wall_s:.2f} s; device memory peak {peak_gb:.2f} GB")
     print(f"  launches over {TRAIN_STEPS} steps: {launches}")
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise CheckFailed(f"training loss not finite and falling: {losses}")
+    if not all(map(math.isfinite, losses)):
+        raise CheckFailed(f"training loss not finite: {losses}")
     if any(h["step_ok"] != 1.0 for h in hist):
         raise CheckFailed("the step guard skipped a step")
     n_moe = cfg.num_layers * TRAIN_STEPS
@@ -982,6 +1030,37 @@ def train_full_width(torch, ops, dev, card):
                 launches=launches, profiled_step=prof,
                 dropped_frac=[h.get("dropped_frac") for h in hist],
                 pad_frac=[h.get("pad_frac") for h in hist])
+
+
+def train_cut_depth_learns(torch, ops, dev):
+    """The training loop at full width cut to ``TRAIN_LEARN_LAYERS``, bf16,
+    from the seeded state, with the main run's data and optimizer: the
+    loss must be finite and fall over the 12 steps, through the kernels."""
+    import repro_torch.configs as configs
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    cfg = configs.get("gpt-moe-s").replace(num_layers=TRAIN_LEARN_LAYERS)
+    rt, tc, stream = _train_setup(torch, dev, cfg)
+    state = step_lib.init_state(cfg, 0, device=dev)
+    sched = HecateScheduler(cfg, ep=1, impl="ep", device=str(dev))
+    ops.reset_launch_counts()
+    state, hist = train_loop(cfg, rt, tc, stream, scheduler=sched,
+                             state=state, num_steps=TRAIN_STEPS, log_every=0,
+                             device=dev)
+    launched = ops.launch_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"  full width cut to {cfg.num_layers} layers, {TRAIN_STEPS} "
+          f"steps: losses {[round(x, 4) for x in losses]}; launches "
+          f"{launched}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise CheckFailed(f"{cfg.num_layers}-layer training loss not finite "
+                          f"and falling: {losses}")
+    if launched["grouped_mlp_dgrad"] != cfg.num_layers * TRAIN_STEPS:
+        raise CheckFailed(f"the {cfg.num_layers}-layer run launched "
+                          f"{launched}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, losses=losses, launches=launched)
 
 
 def _profile_train_step(torch, cfg, rt, tc, stream, state, pa, dev,
@@ -1008,7 +1087,7 @@ def _profile_train_step(torch, cfg, rt, tc, stream, state, pa, dev,
                for e in dev_ev) / 1e3
     launches = sum(e.count for e in ev if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:10]
     top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
            for e in top]
     print(f"  [{card}] one train step under the profiler: {launches} kernel "
@@ -1106,13 +1185,19 @@ def main() -> None:
     logs = _build.build_all()
     build_s = time.perf_counter() - t
     for src_name, log in logs.items():
-        if src_name in ("flash_attention", "paged_attention") and log:
-            print(f"  {src_name}.cu, per kernel (ptxas -v):")
-            for kname, info in ptxas_stats(log):
-                print(f"    {kname}: {info}")
+        if not log:
+            print(f"  {src_name}.cu: cached")
             continue
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  {src_name}.cu: {regs[0] if regs else 'cached'}")
+        stats = ptxas_stats(log)
+        if src_name.startswith("grouped_mlp"):
+            regs = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln]
+            print(f"  {src_name}.cu: {regs[0]}")
+            stats = [(k, i) for k, i in stats
+                     if any(t in k for t in TC_KERNELS)]
+        print(f"  {src_name}.cu, per kernel (ptxas -v):")
+        for kname, info in stats:
+            print(f"    {kname}: {info}")
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
@@ -1133,10 +1218,18 @@ def main() -> None:
                          for S, rr in r["buckets"].items()]
             for tag, rr in [("", r)] + extra:
                 if rr:
+                    rate = (f", {rr['tflops']:.1f} TFLOP/s, "
+                            f"{rr['bound_share']:.3f} of the bound"
+                            if "tflops" in rr else "")
+                    if "tile_list_ms" in rr:
+                        rate += (f"; its tile list, built once per forward "
+                                 f"for it and dgrad, {rr['tile_list_ms']:.4f}"
+                                 f" ms")
                     print(f"  [{card_line}] {k} {tag}{rr['shape']}: kernel "
                           f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "
                           f"ms, library {rr['library_ms']:.4f} ms, bound "
-                          f"{rr['bound_ms']:.4f} ms ({rr['bound_by']})")
+                          f"{rr['bound_ms']:.4f} ms ({rr['bound_by']})"
+                          f"{rate}")
         del flush
         print("== 4. serving gpt-moe-s at full width")
         serve = serve_full_width(torch, ops, dev, card_line)
@@ -1144,6 +1237,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         print("== 5. training gpt-moe-s at full width")
         train = train_full_width(torch, ops, dev, card_line)
+        train["learns_cut_depth"] = train_cut_depth_learns(torch, ops, dev)
         train["grads_2_layers_f32"] = train_grads_cut_depth(torch, ops, dev)
     except CheckFailed as e:
         fail(str(e))
@@ -1172,7 +1266,9 @@ def main() -> None:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"], "shape": r["shape"]})
+                      "library_ms": r["library_ms"], "shape": r["shape"],
+                      **{key: r[key] for key in ("tflops", "bound_share")
+                         if key in r}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

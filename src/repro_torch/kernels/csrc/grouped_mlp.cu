@@ -11,12 +11,29 @@
 // What bounds it on an H100: at decode a slot holds a few tokens, so every
 // weight element feeds only a few multiply-adds and the kernel is bound by
 // reading wi/wo (bytes); at prefill and in training a slot holds tens to
-// hundreds of tokens and the products are bound by the FMA rate
-// (operations: these loops run on the FMA units, not the tensor cores).
-// Only slots with a valid row read their weights, once per 16-row
-// sub-tile.
+// hundreds of tokens and the products are bound by operations.  In
+// training the contract's whole y (1.6 GB at gpt-moe-s training shapes,
+// 97% of its rows invalid) is most of the bytes.
 //
-// Design:
+// Training form, bfloat16 (the main path's; grouped_mlp_fwd_train_bf16):
+// the products run on the tensor cores (mma.sync, grouped_mlp_tc.cuh).
+// The wrapper lists the 64-row token tiles that hold a valid row, and
+// blocks are launched over that list only: at world size 1 the capacity is
+// every token of the call, so a grid over all tiles would be 97% blocks
+// that only write zeros.  The FFN is two products, because a fused block's
+// 64 × D f32 accumulator does not fit in registers at D = 768:
+//   1. over (listed tile, 128-wide F tile): h1 = x@wi, written as the
+//      residual, and h = bf16(act(h1)) into a compact scratch of 64 rows
+//      per listed tile; the blocks then write a share each of y's invalid
+//      rows as zeros, which overlaps that bandwidth-bound work with the
+//      other blocks' products;
+//   2. over (listed tile, 128-wide D tile): y = h@wo from the scratch, at
+//      valid rows.
+// h is stored in bf16, exactly the value the TPU kernel feeds its second
+// product (grouped_mlp.py:139); sums are f32 and y is rounded once.
+//
+// The inference form, and the training form in float32, keep the first
+// port's loops on the FMA units:
 // * one block per (slot k, token tile, range of F).  The TPU grid's
 //   sequential F axis becomes a loop inside the block over 64-wide F
 //   chunks, and the (rows × D) partial output accumulates in f32 registers
@@ -26,27 +43,22 @@
 //   atomics: the result does not change from run to run) and rounds to the
 //   input dtype.  Cutting F over blocks puts a decode tick's few active
 //   slots on many SMs instead of one each;
-// * training form: no F split.  Its planes would scale with K × T, and at
-//   world size 1 the capacity is every token of the call (4.8 GB of planes
-//   per call at gpt-moe-s training shapes, 3% of rows valid).  Instead the
-//   token tile is short (GM_BT_TRAIN = 32 rows), so the hundreds of valid
-//   tiles fill the SMs, and the block writes y itself: every row of its
-//   tile, zeros for invalid rows and skipped tiles, so y is defined
-//   everywhere without a separate memset.  h1 and h2 are written only for
-//   the 16-row sub-tiles that hold a valid row (zero on their invalid
-//   rows): elsewhere they stay unwritten, as the TPU kernel leaves the
-//   residuals of its skipped tiles, and dgrad reads them only at valid
-//   rows;
+// * float32 training form: no F split (its planes would scale with K × T).
+//   The token tile is short (GM_BT_TRAIN = 32 rows), and the block writes
+//   y itself: every row of its tile, zeros for invalid rows and skipped
+//   tiles.  h1 and h2 are written only for the 16-row sub-tiles that hold
+//   a valid row (zero on their invalid rows): elsewhere they stay
+//   unwritten, as the TPU kernel leaves the residuals of its skipped tiles,
+//   and dgrad reads them only at valid rows;
 // * the block counts the valid rows of its tile itself (the TPU kernel got
 //   that count by scalar prefetch) and exits when there are none; inside a
-//   tile, 16-row sub-tiles without a valid row are skipped the same way,
-//   so padded capacity costs no arithmetic;
+//   tile, 16-row sub-tiles without a valid row are skipped the same way;
 // * rows are masked on input (zeroed in shared memory) and on output;
 // * h is rounded to the input dtype before the product with wo, as the TPU
 //   kernel does (grouped_mlp.py:139); all sums are f32, and y is rounded
 //   to the input dtype once, at the end;
 // * T and F may be ragged (bounds-checked loads); D <= 1024.
-#include "grouped_mlp.cuh"
+#include "grouped_mlp_tc.cuh"
 
 constexpr int GM_BT = 128;  // token tile of the inference form
 static_assert(GM_BT % GM_R == 0 && GM_BT <= GM_THREADS, "see GM_BT_TRAIN");
@@ -225,8 +237,10 @@ static int run(const FwdArgs& a, int dtype) {
       a.D > GM_MAXJ * GM_THREADS ||
       (!SAVE && (a.f_split <= 0 || a.f_split % GM_BF)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_BF16) return dispatch<__nv_bfloat16, SAVE>(a);
   if (dtype == DTYPE_F32) return dispatch<float, SAVE>(a);
+  // the bf16 training form is grouped_mlp_fwd_train_bf16 (tensor cores)
+  if constexpr (!SAVE)
+    if (dtype == DTYPE_BF16) return dispatch<__nv_bfloat16, SAVE>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -249,11 +263,10 @@ REPRO_EXPORT int grouped_mlp_fwd(const void* x, const void* wi, const void* wg,
   return run<false>(a, dtype);
 }
 
-// Training form: as the inference form, without the F split, and with
-// y: (K, T, D) and h1 (h2 when wg is given): (K, T, F), contiguous, of the
-// input dtype.  y is written in full (zero on invalid rows); h1 and h2 only
-// in the 16-row sub-tiles that hold a valid row (zero on their invalid
-// rows).
+// Training form, float32: as the inference form, without the F split, and
+// with y: (K, T, D) and h1 (h2 when wg is given): (K, T, F), contiguous,
+// float32.  y is written in full (zero on invalid rows); h1 and h2 only in
+// the 16-row sub-tiles that hold a valid row (zero on their invalid rows).
 REPRO_EXPORT int grouped_mlp_fwd_train(const void* x, const void* wi,
                                        const void* wg, const void* wo,
                                        const int* mask, void* y, void* h1,
@@ -266,4 +279,80 @@ REPRO_EXPORT int grouped_mlp_fwd_train(const void* x, const void* wi,
             K,  Tn, D,  F,   swi,  swg,     swo, F,   act,
             (cudaStream_t)stream};
   return run<true>(a, dtype);
+}
+
+// ---------------------------------------------------------------------------
+// Training form, bfloat16, on the tensor cores (grouped_mlp_tc.cuh)
+// ---------------------------------------------------------------------------
+template <bool GATE, int ACT, bool VEC>
+static int fwd_train_tc(const TcParams& ph, const TcParams& py, int n_tiles,
+                        cudaStream_t s) {
+  const int e = launch_tc<TC_FWD_H, GATE, ACT, VEC>(ph, n_tiles, s);
+  if (e) return e;
+  // ACT is not read by y's epilogue: one instantiation serves both
+  return launch_tc<TC_FWD_Y, false, ACT_GELU, VEC>(py, n_tiles, s);
+}
+
+// x: contiguous (K, T, D); wi/wg: (K, D, F) and wo: (K, F, D), each dense
+// within a slot, slot k at element offset k * swi / swg / swo; mask: (K, T)
+// int32; tiles: the n_tiles 64-row token tiles that hold a valid row, as
+// k * ceil(T / 64) + tile, increasing; hs: (n_tiles * 64, F) scratch for
+// h = bf16(act(h1) [⊙ h2]).  Outputs y: (K, T, D), written whole (zero on
+// invalid rows), and h1 [h2]: (K, T, F), written on every row of the listed
+// tiles (zero on their invalid rows).  All bfloat16; wg, h2 NULL without a
+// gate.  act: 0 gelu (tanh form), 1 silu.
+REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
+    const void* x, const void* wi, const void* wg, const void* wo,
+    const int* mask, const int* tiles, int n_tiles, void* hs, void* y,
+    void* h1, void* h2, int K, int Tn, int D, int F, long long swi,
+    long long swg, long long swo, int act, void* stream) {
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || n_tiles < 0 ||
+      (wg != nullptr && h2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = tc_vec({x, wi, wg, wo, hs, y, h1, h2},
+                          {D, F, swi, wg ? swg : 0, swo});
+  const ZeroRows z{{(bf*)y}, {D}, 1};
+  if (n_tiles == 0)
+    return launch_zero_rows(mask, (long long)K * Tn, z, vec, s);
+  const int nt = (Tn + TC_BM - 1) / TC_BM;
+  TcParams ph{};   // h1 = x@wi [, h2 = x@wg] -> h1 [h2], h scratch
+  ph.a[0] = (const bf*)x;
+  ph.b[0] = (const bf*)wi;
+  ph.b[1] = (const bf*)wg;
+  ph.sb[0] = swi;
+  ph.sb[1] = swg;
+  ph.mask = mask;
+  ph.tiles = tiles;
+  ph.o[0] = (bf*)h1;
+  ph.o[1] = (bf*)h2;
+  ph.o[2] = (bf*)hs;
+  ph.T = Tn;
+  ph.nt = nt;
+  ph.Kd = D;
+  ph.N = F;
+  // y's zero rows, beside the products: each product's blocks take half
+  ph.z = z;
+  ph.z_first = 0;
+  ph.z_last = (long long)K * Tn / 2;
+  TcParams py = ph;  // y = h@wo from the scratch
+  py.a[0] = (const bf*)hs;
+  py.b[0] = (const bf*)wo;
+  py.sb[0] = swo;
+  py.o[0] = (bf*)y;
+  py.Kd = F;
+  py.N = D;
+  py.z_first = ph.z_last;
+  py.z_last = (long long)K * Tn;
+#define GM_FWD_TC(G, A)                                  \
+  return vec ? fwd_train_tc<G, A, true>(ph, py, n_tiles, s) \
+             : fwd_train_tc<G, A, false>(ph, py, n_tiles, s)
+  if (wg != nullptr) {
+    if (act == ACT_SILU) GM_FWD_TC(true, ACT_SILU);
+    GM_FWD_TC(true, ACT_GELU);
+  }
+  if (act == ACT_SILU) GM_FWD_TC(false, ACT_SILU);
+  GM_FWD_TC(false, ACT_GELU);
+#undef GM_FWD_TC
 }

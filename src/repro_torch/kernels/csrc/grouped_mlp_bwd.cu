@@ -12,21 +12,35 @@
 // _wgrad): dwi = xᵀ@dh1, dwg = xᵀ@dh2, dwo = hᵀ@g over the valid rows of
 // each slot, summed in f32 and written in the weight dtype.
 //
-// What bounds them on an H100: operations.  At gpt-moe-s training shapes a
-// slot holds ~128 valid rows, so each weight element feeds ~128
-// multiply-adds per product, far above the card's bytes-per-operation
-// line; these simple kernels run on the FMA units (not the tensor cores),
-// so the FMA rate is their ceiling.
+// What bounds them on an H100: dgrad's whole dx, dh1 and h (7.8 GB at
+// gpt-moe-s training shapes, 97% of the rows invalid) are most of its
+// bytes, and at ~128 valid rows per slot its products are far above the
+// card's bytes-per-operation line; wgrad is bound by operations.
 //
-// dgrad design: the forward kernel's loops with the weights transposed.
-// The wrapper passes woᵀ as (K, D, F) and wiᵀ/wgᵀ as (K, F, D), contiguous
-// copies, so that dh = g@woᵀ is the forward's x@wi loop and dx = dh1@wiᵀ
-// its h@wo loop, both with neighbouring threads on neighbouring addresses.
-// One block per (slot, 32-row token tile: GM_BT_TRAIN); it counts its
-// valid rows itself and skips tiles and 16-row sub-tiles without one.  It
-// reads h1 and h2 at valid rows only.  It writes every row
-// of its tile: zeros for invalid rows and skipped tiles, as the TPU
-// kernel's skipped tiles write zeros (grouped_mlp.py:265-272).
+// dgrad, bfloat16 (the main path's; grouped_mlp_dgrad_bf16): a pass that
+// writes the invalid rows of dx, dh1 and h as zeros (measured faster as a
+// pass of its own at full occupancy than shared out to the product
+// blocks), then two tensor-core products (grouped_mlp_tc.cuh) over the
+// 64-row token tiles that hold a valid row:
+//   1. over (listed tile, 128-wide F tile): dh = g@woᵀ, with wo read in the
+//      layout the slot holds it; the epilogue reads h1 at valid rows and
+//      writes dh1 and h there, and lo = bf16(dh1 - bf16(dh1)) into a
+//      compact scratch;
+//   2. over (listed tile, 128-wide D tile): dx = (hi + lo)@wiᵀ at valid
+//      rows, hi being the dh1 output.  A bf16 product cannot take the f32
+//      dh1 that the TPU kernel multiplies (grouped_mlp.py:253-263); the two
+//      terms carry it to ~2^-16, for three products instead of two.
+// No weight is transposed or copied.
+//
+// dgrad, float32: the forward kernel's FMA loops with the weights
+// transposed.  The wrapper passes woᵀ as (K, D, F) and wiᵀ/wgᵀ as
+// (K, F, D), contiguous copies, so that dh = g@woᵀ is the forward's x@wi
+// loop and dx = dh1@wiᵀ its h@wo loop, both with neighbouring threads on
+// neighbouring addresses.  One block per (slot, 32-row token tile:
+// GM_BT_TRAIN); it counts its valid rows itself and skips tiles and 16-row
+// sub-tiles without one.  It reads h1 and h2 at valid rows only.  It
+// writes every row of its tile: zeros for invalid rows and skipped tiles,
+// as the TPU kernel's skipped tiles write zeros (grouped_mlp.py:265-272).
 //
 // wgrad design: one block per (slot, 64-wide D tile, 64-wide F tile), with
 // a 4×4 register tile of each of dwi, dwg and dwo per thread.  The block
@@ -36,7 +50,7 @@
 // one fixed order by one thread: no atomics, so the result is the same
 // from run to run (random-init gpt-moe-s amplifies run-to-run differences
 // into route flips).  A slot without a valid row writes zero gradients.
-#include "grouped_mlp.cuh"
+#include "grouped_mlp_tc.cuh"
 
 // ---------------------------------------------------------------------------
 // dgrad
@@ -194,9 +208,9 @@ static int dispatch_dgrad(const void* dy, const void* woT, const void* wiT,
 #undef GM_DGRAD_ARGS
 }
 
-// dy: (K, T, D); woT: (K, D, F); wiT, wgT: (K, F, D); h1, h2: (K, T, F);
-// mask: (K, T) int32; outputs dx: (K, T, D), dh1, dh2, h: (K, T, F).  All
-// contiguous and of one dtype.  wgT, h2 and dh2 are NULL without a gate.
+// float32.  dy: (K, T, D); woT: (K, D, F); wiT, wgT: (K, F, D); h1, h2:
+// (K, T, F); mask: (K, T) int32; outputs dx: (K, T, D), dh1, dh2, h:
+// (K, T, F).  All contiguous.  wgT, h2 and dh2 are NULL without a gate.
 // h1 and h2 are read at valid rows only.  act: 0 gelu (tanh form), 1 silu.
 REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
                                    const void* wiT, const void* wgT,
@@ -208,14 +222,94 @@ REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
   if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || D > GM_MAXJ * GM_THREADS ||
       (wgT != nullptr && (h2 == nullptr || dh2 == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // bf16 is grouped_mlp_dgrad_bf16 (tensor cores)
+  if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
+  return dispatch_dgrad<float>(dy, woT, wiT, wgT, mask, h1, h2, dx, dh1, dh2,
+                               h, K, Tn, D, F, act, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// dgrad, bfloat16, on the tensor cores (grouped_mlp_tc.cuh)
+// ---------------------------------------------------------------------------
+template <bool GATE, int ACT, bool VEC>
+static int dgrad_tc(const TcParams& ph, const TcParams& px, int n_tiles,
+                    cudaStream_t s) {
+  const int e = launch_tc<TC_DG_DH, GATE, ACT, VEC>(ph, n_tiles, s);
+  if (e) return e;
+  // ACT is not read by dx's epilogue: one instantiation serves both
+  return launch_tc<TC_DG_DX, GATE, ACT_GELU, VEC>(px, n_tiles, s);
+}
+
+// dy: contiguous (K, T, D); wi/wg: (K, D, F) and wo: (K, F, D), each dense
+// within a slot, slot k at element offset k * swi / swg / swo (the layout
+// the forward reads: no transposed copies); h1, h2: (K, T, F), read at valid
+// rows; mask: (K, T) int32; tiles: the n_tiles 64-row token tiles that hold
+// a valid row, as k * ceil(T / 64) + tile, increasing; lo: (n_tiles * 64, F)
+// scratch (twice that with a gate) for dh1 - bf16(dh1) [and dh2 - bf16(dh2)].
+// Outputs dx: (K, T, D), dh1, dh2, h: (K, T, F), contiguous, written whole
+// (zero on invalid rows).  All bfloat16; wg, h2, dh2 NULL without a gate.
+// act: 0 gelu (tanh form), 1 silu.
+REPRO_EXPORT int grouped_mlp_dgrad_bf16(
+    const void* dy, const void* wi, const void* wg, const void* wo,
+    const int* mask, const void* h1, const void* h2, const int* tiles,
+    int n_tiles, void* lo, void* dx, void* dh1, void* dh2, void* h, int K,
+    int Tn, int D, int F, long long swi, long long swg, long long swo,
+    int act, void* stream) {
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || n_tiles < 0 ||
+      (wg != nullptr && (h2 == nullptr || dh2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_BF16)
-    return dispatch_dgrad<__nv_bfloat16>(dy, woT, wiT, wgT, mask, h1, h2, dx,
-                                         dh1, dh2, h, K, Tn, D, F, act, s);
-  if (dtype == DTYPE_F32)
-    return dispatch_dgrad<float>(dy, woT, wiT, wgT, mask, h1, h2, dx, dh1,
-                                 dh2, h, K, Tn, D, F, act, s);
-  return (int)cudaErrorInvalidValue;
+  const bool gate = wg != nullptr;
+  const bool vec = tc_vec({dy, wi, wg, wo, h1, h2, lo, dx, dh1, dh2, h},
+                          {D, F, swi, gate ? swg : 0, swo});
+  // the zero rows first, in a pass of their own at full occupancy: 7.8 GB
+  // at training shapes, most of the call's time (sharing them out to the
+  // product blocks, as the forward does with y's, measured slower here)
+  const ZeroRows z{{(bf*)dx, (bf*)dh1, (bf*)h, (bf*)dh2}, {D, F, F, F},
+                   gate ? 4 : 3};
+  const int e = launch_zero_rows(mask, (long long)K * Tn, z, vec, s);
+  if (e || n_tiles == 0) return e;
+  bf* lo2 = gate ? (bf*)lo + (size_t)n_tiles * TC_BM * F : nullptr;
+  TcParams ph{};  // dh = g@woᵀ -> dh1, h [, dh2], lo [, lo2]
+  ph.a[0] = (const bf*)dy;
+  ph.b[0] = (const bf*)wo;
+  ph.sb[0] = swo;
+  ph.mask = mask;
+  ph.tiles = tiles;
+  ph.e[0] = (const bf*)h1;
+  ph.e[1] = (const bf*)h2;
+  ph.o[0] = (bf*)dh1;
+  ph.o[1] = (bf*)h;
+  ph.o[2] = (bf*)dh2;
+  ph.o[3] = (bf*)lo;
+  ph.o[4] = lo2;
+  ph.T = Tn;
+  ph.nt = (Tn + TC_BM - 1) / TC_BM;
+  ph.Kd = D;
+  ph.N = F;
+  TcParams px = ph;  // dx = (dh1 + lo)@wiᵀ [+ (dh2 + lo2)@wgᵀ]
+  px.a[0] = (const bf*)dh1;
+  px.a[1] = (const bf*)lo;
+  px.a[2] = (const bf*)dh2;
+  px.a[3] = lo2;
+  px.b[0] = (const bf*)wi;
+  px.b[1] = (const bf*)wg;
+  px.sb[0] = swi;
+  px.sb[1] = swg;
+  px.o[0] = (bf*)dx;
+  px.Kd = F;
+  px.N = D;
+#define GM_DGRAD_TC(G, A)                              \
+  return vec ? dgrad_tc<G, A, true>(ph, px, n_tiles, s) \
+             : dgrad_tc<G, A, false>(ph, px, n_tiles, s)
+  if (gate) {
+    if (act == ACT_SILU) GM_DGRAD_TC(true, ACT_SILU);
+    GM_DGRAD_TC(true, ACT_GELU);
+  }
+  if (act == ACT_SILU) GM_DGRAD_TC(false, ACT_SILU);
+  GM_DGRAD_TC(false, ACT_GELU);
+#undef GM_DGRAD_TC
 }
 
 // ---------------------------------------------------------------------------

@@ -8,6 +8,16 @@ form), ``::_dgrad_kernel`` and ``::_wgrad_kernel``.  Each wrapper checks
 and prepares the operands, allocates the outputs, launches on the current
 stream and counts its launches in ``LAUNCHES``; ``kernels/ref.py`` holds
 the plain versions.
+
+In bfloat16 the training forward and dgrad run on the tensor cores
+(``csrc/grouped_mlp_tc.cuh``): each is two tile products launched over the
+64-row token tiles that hold a valid row (``tile_list``); the outputs'
+zero rows are written beside them (by the forward's product blocks, by a
+bandwidth-bound pass of its own in dgrad).  The list's
+length sizes a compact scratch (h for the forward, the low half of dh1 for
+dgrad), so building it reads one count back to the host;
+``GroupedMLPFunction`` builds it once per forward and hands it to dgrad.
+Float32 keeps the FMA loops of the first port.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "silu": 1}
 _BF = 64              # the kernels' F chunk
 _WG_TILE = 32         # token rows per staged tile of wgrad
+TC_TILE = 64          # token rows per tile of the tensor-core kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {
@@ -33,9 +44,13 @@ _SIGS = {
         "grouped_mlp_fwd": [_P] * 7 + [_I] * 4 + [_L] * 3 + [_I] * 3 + [_P],
         "grouped_mlp_fwd_train": ([_P] * 8 + [_I] * 4 + [_L] * 3
                                   + [_I] * 2 + [_P]),
+        "grouped_mlp_fwd_train_bf16": ([_P] * 6 + [_I] + [_P] * 4
+                                       + [_I] * 4 + [_L] * 3 + [_I, _P]),
     },
     "grouped_mlp_bwd": {
         "grouped_mlp_dgrad": [_P] * 11 + [_I] * 6 + [_P],
+        "grouped_mlp_dgrad_bf16": ([_P] * 8 + [_I] + [_P] * 5 + [_I] * 4
+                                   + [_L] * 3 + [_I, _P]),
         "grouped_mlp_wgrad": [_P] * 11 + [_I] * 6 + [_P],
     },
 }
@@ -132,12 +147,15 @@ def grouped_mlp(x, wi, wg, wo, group_sizes=None, row_valid=None, *,
     return y
 
 
-def grouped_mlp_fwd_train(x, wi, wg, wo, mask, *, act: str = "silu_glu"):
+def grouped_mlp_fwd_train(x, wi, wg, wo, mask, *, act: str = "silu_glu",
+                          tiles=None):
     """Training form: ``(y, h1, h2)`` as ``ref.grouped_mlp_fwd_train_ref``
     returns them (h2 None without a gate).  mask: (K, T) CUDA validity.
-    y is written whole; h1 and h2 only in the 16-row sub-tiles that hold a
-    valid row (elsewhere they are left unwritten, as the Pallas kernel
-    leaves its skipped tiles, and dgrad reads them at valid rows only)."""
+    y is written whole.  h1 and h2 are written where the token tile holds
+    a valid row (zero on its invalid rows: 64-row tiles in bfloat16, 16-row
+    sub-tiles in float32) and left unwritten elsewhere, as the Pallas
+    kernel leaves its skipped tiles; dgrad reads them at valid rows only.
+    ``tiles``: ``tile_list(mask)`` if the caller has it (bfloat16)."""
     k_, t_, d, f_ = _check(x, wi, wg, wo, "grouped_mlp_fwd_train")
     mask = _mask_i32(mask, k_, t_)
     x = x.contiguous()
@@ -146,22 +164,36 @@ def grouped_mlp_fwd_train(x, wi, wg, wo, mask, *, act: str = "silu_glu"):
     h1 = torch.empty((k_, t_, f_), dtype=x.dtype, device=x.device)
     h2 = None if wg is None else torch.empty_like(h1)
     lib = _lib("grouped_mlp")
-    code = lib.grouped_mlp_fwd_train(
-        x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-        mask.data_ptr(), y.data_ptr(), h1.data_ptr(), _ptr(h2), k_, t_, d,
-        f_, wi.stride(0), wg.stride(0) if wg is not None else 0,
-        wo.stride(0), _act_code(act), _DTYPES[x.dtype], _stream(x))
+    strides = (wi.stride(0), wg.stride(0) if wg is not None else 0,
+               wo.stride(0))
+    if x.dtype == torch.bfloat16:
+        tiles = _tiles(mask, tiles)
+        hs = torch.empty((tiles.numel() * TC_TILE, f_), dtype=x.dtype,
+                         device=x.device)
+        code = lib.grouped_mlp_fwd_train_bf16(
+            x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+            mask.data_ptr(), tiles.data_ptr(), tiles.numel(), hs.data_ptr(),
+            y.data_ptr(), h1.data_ptr(), _ptr(h2), k_, t_, d, f_, *strides,
+            _act_code(act), _stream(x))
+    else:
+        code = lib.grouped_mlp_fwd_train(
+            x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+            mask.data_ptr(), y.data_ptr(), h1.data_ptr(), _ptr(h2), k_, t_,
+            d, f_, *strides, _act_code(act), _DTYPES[x.dtype], _stream(x))
     _build.check(lib, code, "grouped_mlp_fwd_train")
     LAUNCHES["grouped_mlp_fwd_train"] += 1
     return y, h1, h2
 
 
 def grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo, *,
-                      act: str = "silu_glu"):
+                      act: str = "silu_glu", tiles=None):
     """``(dx, dh1, dh2, h)`` as ``ref.grouped_mlp_dgrad_ref`` returns them.
-    The weights are transposed into contiguous copies here (woᵀ (K, D, F),
-    wiᵀ/wgᵀ (K, F, D)), so that the kernel's loops read them along their
-    rows."""
+    bfloat16 reads the weights in the layout the slots hold them and takes
+    dx from dh1 split into two bfloat16 terms, hi = the dh1 output and
+    lo = dh1 - hi (``ref.grouped_mlp_dgrad_split_ref``); ``tiles`` as for
+    ``grouped_mlp_fwd_train``.  float32 transposes the weights into
+    contiguous copies here (woᵀ (K, D, F), wiᵀ/wgᵀ (K, F, D)), so that its
+    loops read them along their rows."""
     k_, t_, d, f_ = _check(dy, wi, wg, wo, "grouped_mlp_dgrad")
     mask = _mask_i32(mask, k_, t_)
     if h1.shape != (k_, t_, f_) or (wg is not None and (
@@ -172,22 +204,62 @@ def grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo, *,
         raise TypeError("grouped_mlp_dgrad residuals must be of dy's dtype")
     dy, h1 = dy.contiguous(), h1.contiguous()
     h2 = None if wg is None else h2.contiguous()
-    wo_t = wo.transpose(1, 2).contiguous()
-    wi_t = wi.transpose(1, 2).contiguous()
-    wg_t = None if wg is None else wg.transpose(1, 2).contiguous()
     dx = torch.empty_like(dy)
     dh1 = torch.empty_like(h1)
     h = torch.empty_like(h1)
     dh2 = None if wg is None else torch.empty_like(h1)
     lib = _lib("grouped_mlp_bwd")
-    code = lib.grouped_mlp_dgrad(
-        dy.data_ptr(), wo_t.data_ptr(), wi_t.data_ptr(), _ptr(wg_t),
-        mask.data_ptr(), h1.data_ptr(), _ptr(h2), dx.data_ptr(),
-        dh1.data_ptr(), _ptr(dh2), h.data_ptr(), k_, t_, d, f_,
-        _act_code(act), _DTYPES[dy.dtype], _stream(dy))
+    if dy.dtype == torch.bfloat16:
+        _check_slots(wi=wi, wg=wg, wo=wo)
+        tiles = _tiles(mask, tiles)
+        lo = torch.empty(((2 if wg is not None else 1) * tiles.numel()
+                          * TC_TILE, f_), dtype=dy.dtype, device=dy.device)
+        code = lib.grouped_mlp_dgrad_bf16(
+            dy.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+            mask.data_ptr(), h1.data_ptr(), _ptr(h2), tiles.data_ptr(),
+            tiles.numel(), lo.data_ptr(), dx.data_ptr(), dh1.data_ptr(),
+            _ptr(dh2), h.data_ptr(), k_, t_, d, f_, wi.stride(0),
+            wg.stride(0) if wg is not None else 0, wo.stride(0),
+            _act_code(act), _stream(dy))
+    else:
+        wo_t = wo.transpose(1, 2).contiguous()
+        wi_t = wi.transpose(1, 2).contiguous()
+        wg_t = None if wg is None else wg.transpose(1, 2).contiguous()
+        code = lib.grouped_mlp_dgrad(
+            dy.data_ptr(), wo_t.data_ptr(), wi_t.data_ptr(), _ptr(wg_t),
+            mask.data_ptr(), h1.data_ptr(), _ptr(h2), dx.data_ptr(),
+            dh1.data_ptr(), _ptr(dh2), h.data_ptr(), k_, t_, d, f_,
+            _act_code(act), _DTYPES[dy.dtype], _stream(dy))
     _build.check(lib, code, "grouped_mlp_dgrad")
     LAUNCHES["grouped_mlp_dgrad"] += 1
     return dx, dh1, dh2, h
+
+
+def _tile_hits(mask, tile: int):
+    """(K, ceil(T/tile)) bool: which token tiles hold a valid row."""
+    k_, t_ = mask.shape
+    nt = -(-t_ // tile)
+    m = torch.nn.functional.pad(mask.bool(), (0, nt * tile - t_))
+    return m.view(k_, nt, tile).any(-1)
+
+
+def tile_list(mask, tile: int = TC_TILE):
+    """mask (K, T) -> int32 ids ``k * ceil(T/tile) + t`` of the token tiles
+    that hold a valid row, in increasing order: the grid of the tensor-core
+    kernels.  Its length sizes their scratch, so this reads one count back
+    to the host."""
+    return _tile_hits(mask, tile).flatten().nonzero().flatten() \
+        .to(torch.int32)
+
+
+def _tiles(mask, tiles):
+    """``tiles`` as the caller gave it (checked), else ``tile_list(mask)``."""
+    if tiles is None:
+        return tile_list(mask)
+    if tiles.dtype != torch.int32 or tiles.dim() != 1 or not tiles.is_cuda:
+        raise ValueError("tiles must be a 1-D CUDA int32 tensor, as "
+                         "tile_list returns it")
+    return tiles.contiguous()
 
 
 def valid_tiles(mask, tile: int = _WG_TILE):
@@ -195,10 +267,7 @@ def valid_tiles(mask, tile: int = _WG_TILE):
     slot k's token tiles that hold a valid row come first in ``tiles[k]``,
     in increasing order, and ``counts[k]`` says how many there are (a
     stable sort on the device; no host sync)."""
-    k_, t_ = mask.shape
-    nt = -(-t_ // tile)
-    m = torch.nn.functional.pad(mask.bool(), (0, nt * tile - t_))
-    hit = m.view(k_, nt, tile).any(-1)
+    hit = _tile_hits(mask, tile)
     tiles = torch.argsort((~hit).to(torch.uint8), dim=1, stable=True)
     return (tiles.to(torch.int32).contiguous(),
             hit.sum(1).to(torch.int32).contiguous())
@@ -249,9 +318,15 @@ class GroupedMLPFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wi, wg, wo, mask, act, kernel):
-        fwd = grouped_mlp_fwd_train if kernel else \
-            ref.grouped_mlp_fwd_train_ref
-        y, h1, h2 = fwd(x, wi, wg, wo, mask, act=act)
+        ctx.tiles = None
+        if kernel:
+            if x.dtype == torch.bfloat16:       # one host sync, shared
+                ctx.tiles = tile_list(mask)
+            y, h1, h2 = grouped_mlp_fwd_train(x, wi, wg, wo, mask, act=act,
+                                              tiles=ctx.tiles)
+        else:
+            y, h1, h2 = ref.grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask,
+                                                      act=act)
         ctx.save_for_backward(x, wi, wg, wo, mask, h1, h2)
         ctx.act, ctx.kernel = act, kernel
         return y
@@ -259,10 +334,14 @@ class GroupedMLPFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wi, wg, wo, mask, h1, h2 = ctx.saved_tensors
-        dgrad, wgrad = ((grouped_mlp_dgrad, grouped_mlp_wgrad) if ctx.kernel
-                        else (ref.grouped_mlp_dgrad_ref,
-                              ref.grouped_mlp_wgrad_ref))
-        dx, dh1, dh2, h = dgrad(dy, mask, h1, h2, wi, wg, wo, act=ctx.act)
+        if ctx.kernel:
+            dx, dh1, dh2, h = grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo,
+                                                act=ctx.act, tiles=ctx.tiles)
+            wgrad = grouped_mlp_wgrad
+        else:
+            dx, dh1, dh2, h = ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi,
+                                                        wg, wo, act=ctx.act)
+            wgrad = ref.grouped_mlp_wgrad_ref
         dwi, dwg, dwo = wgrad(x, dy, mask, dh1, dh2, h)
         return (dx, dwi.to(wi.dtype), None if wg is None else
                 dwg.to(wg.dtype), dwo.to(wo.dtype), None, None, None)

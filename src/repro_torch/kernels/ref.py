@@ -95,16 +95,10 @@ def grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask, act: str = "silu_glu"):
             None if h2 is None else h2.to(dt))
 
 
-def grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
-                          act: str = "silu_glu"):
-    """Stage 2: returns ``(dx, dh1, dh2, h)`` (dh2 None without a gate).
-
-    ``dh = (mask ⊙ dy) @ woᵀ`` stays f32; dh1 = act'(h1)·dh[·h2],
-    dh2 = dh·act(h1) and h = act(h1)[·h2] are written in dy's dtype, and
-    ``dx = mask ⊙ (dh1 @ wiᵀ [+ dh2 @ wgᵀ])`` is taken from the unrounded
-    f32 dh1/dh2, as the Pallas dgrad kernel does (``grouped_mlp.py:215``).
-    Invalid rows are zero in every output."""
-    dt = dy.dtype
+def _dgrad_elementwise(dy, mask, h1, h2, wo, act):
+    """f32 (dh1, dh2, h) of dgrad, zero on invalid rows (dh2 None without a
+    gate): ``dh = (mask ⊙ dy) @ woᵀ``, dh1 = act'(h1)·dh[·h2],
+    dh2 = dh·act(h1), h = act(h1)[·h2]."""
     g = _rows(mask, dy).float()
     dh = torch.einsum("ktd,kfd->ktf", g, wo.float())
     a, da = act_and_grad(act, h1.float())
@@ -114,12 +108,52 @@ def grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
         dh2 = _rows(mask, dh2)
     else:
         dh1, dh2, h = da * dh, None, a
-    dh1, h = _rows(mask, dh1), _rows(mask, h)
-    dx = torch.einsum("ktf,kdf->ktd", dh1, wi.float())
-    if dh2 is not None:
-        dx = dx + torch.einsum("ktf,kdf->ktd", dh2, wg.float())
+    return _rows(mask, dh1), dh2, _rows(mask, h)
+
+
+def _dgrad_outputs(dt, mask, wi, wg, dh1, dh2, h, a1, a2):
+    """``(dx, dh1, dh2, h)`` in ``dt``, with ``dx = mask ⊙ (a1 @ wiᵀ
+    [+ a2 @ wgᵀ])`` summed in f32."""
+    dx = torch.einsum("ktf,kdf->ktd", a1, wi.float())
+    if a2 is not None:
+        dx = dx + torch.einsum("ktf,kdf->ktd", a2, wg.float())
     return (_rows(mask, dx).to(dt), dh1.to(dt),
             None if dh2 is None else dh2.to(dt), h.to(dt))
+
+
+def grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
+                          act: str = "silu_glu"):
+    """Stage 2: returns ``(dx, dh1, dh2, h)`` (dh2 None without a gate).
+
+    ``dh = (mask ⊙ dy) @ woᵀ`` stays f32; dh1 = act'(h1)·dh[·h2],
+    dh2 = dh·act(h1) and h = act(h1)[·h2] are written in dy's dtype, and
+    ``dx = mask ⊙ (dh1 @ wiᵀ [+ dh2 @ wgᵀ])`` is taken from the unrounded
+    f32 dh1/dh2, as the Pallas dgrad kernel does (``grouped_mlp.py:215``).
+    Invalid rows are zero in every output."""
+    dh1, dh2, h = _dgrad_elementwise(dy, mask, h1, h2, wo, act)
+    return _dgrad_outputs(dy.dtype, mask, wi, wg, dh1, dh2, h, dh1, dh2)
+
+
+def _bf16_split(d):
+    """f32 ``d`` as the f32 sum of two bfloat16 terms, hi = bf16(d) and
+    lo = bf16(d - hi): exact in f32, and within ~2^-16 of |d|."""
+    hi = d.to(torch.bfloat16).float()
+    return hi + (d - hi).to(torch.bfloat16).float()
+
+
+def grouped_mlp_dgrad_split_ref(dy, mask, h1, h2, wi, wg, wo,
+                                act: str = "silu_glu"):
+    """The step-wise plain version of the bfloat16 tensor-core dgrad: as
+    ``grouped_mlp_dgrad_ref``, but dx is taken from the f32 dh1 (and dh2)
+    split into two bfloat16 terms, ``hi = bf16(dh1)`` (the dh1 output) and
+    ``lo = bf16(dh1 - hi)``, which the kernel feeds to two bf16 products
+    with one f32 sum: ``dx = mask ⊙ ((hi + lo) @ wiᵀ [+ ...])``.  A bf16
+    product cannot take the f32 dh1 itself; hi + lo is that value to
+    ~2^-16 of it.  Nothing on the main path calls it."""
+    dh1, dh2, h = _dgrad_elementwise(dy, mask, h1, h2, wo, act)
+    return _dgrad_outputs(dy.dtype, mask, wi, wg, dh1, dh2, h,
+                          _bf16_split(dh1),
+                          None if dh2 is None else _bf16_split(dh2))
 
 
 def grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2, h):

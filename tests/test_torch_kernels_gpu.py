@@ -321,6 +321,130 @@ def test_grouped_mlp_train_kernels_match_plain(cuda, dtype, act):
     assert all(a is None or torch.equal(a, b) for a, b in zip(wgr, again))
 
 
+# bf16 dx of the tensor-core dgrad against its step-wise plain version
+# (``ref.grouped_mlp_dgrad_split_ref``, dx from hi + lo): both sum the same
+# products in f32 in other orders, so they may land on neighbouring bf16
+# values: one ulp, 2^-7 of |dx|
+SPLIT_DX_TOL = dict(atol=1e-5, rtol=2 ** -7)
+
+
+def _tc_weights(rng, K, D, F, act, dev, views):
+    """wi, wg (None without a gate), wo in bf16; with ``views``, as
+    ``core.moe.unpack_chunks`` cuts them from a (K, chunk_len) slot buffer
+    (the main path's layout: a slot's matrices at offsets of one buffer
+    row)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core import moe
+    glu = act.endswith("_glu")
+    if views:
+        cfg = get("gpt-moe-s")
+        cfg = cfg.replace(d_model=D, act=act,
+                          moe=dataclasses.replace(cfg.moe, d_ff=F))
+        buf = _t(rng, (K, moe.chunk_len(cfg)), 0.05, torch.bfloat16, dev)
+        wi, wg, wo = moe.unpack_chunks(cfg, buf)
+        assert wi.stride(0) == buf.shape[1] and not wo.is_contiguous()
+        return wi, wg, wo
+    wi = _t(rng, (K, D, F), 0.05, torch.bfloat16, dev)
+    wg = _t(rng, (K, D, F), 0.05, torch.bfloat16, dev) if glu else None
+    return wi, wg, _t(rng, (K, F, D), 0.05, torch.bfloat16, dev)
+
+
+def _tc_check(x, wi, wg, wo, dy, mask, act):
+    """The bf16 training forward and dgrad against their plain versions
+    (dgrad's dx also against the step-wise split version, tightly); zero
+    rows where invalid; two identical calls give the same bits."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    valid = mask.bool()
+    fwd, n = _launched(lambda: gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask,
+                                                        act=act))
+    assert n == {"grouped_mlp_fwd_train": 1}
+    _close_all(fwd, ref.grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask,
+                                                  act=act), torch.bfloat16,
+               rows=(valid, (1, 2)))
+    again = gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask, act=act)
+    assert torch.equal(fwd[0], again[0])
+    assert all(a is None or torch.equal(a[valid], b[valid])
+               for a, b in zip(fwd[1:], again[1:]))
+    _, h1, h2 = fwd
+    dg, n = _launched(lambda: gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg,
+                                                   wo, act=act))
+    assert n == {"grouped_mlp_dgrad": 1}
+    _close_all(dg, ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
+                                             act=act), torch.bfloat16)
+    split = ref.grouped_mlp_dgrad_split_ref(dy, mask, h1, h2, wi, wg, wo,
+                                            act=act)
+    torch.testing.assert_close(dg[0].float(), split[0].float(),
+                               **SPLIT_DX_TOL)
+    again = gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo, act=act)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(dg, again))
+    inv = ~valid
+    for a in (fwd[0], *dg):
+        assert a is None or (a[inv] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_train_tc_tile_edges(cuda, act):
+    """Full width (D 768, F 1,536), group sizes around the 64-row tile of
+    the tensor-core kernels (0, 1, 63, 64, 65, 127, 128, 129) with a ragged
+    last tile (T = 300), weights as views into a (K, chunk_len) buffer."""
+    rng = np.random.default_rng(31)
+    K, T, D, F = 8, 300, 768, 1536
+    x = _t(rng, (K, T, D), 0.3, torch.bfloat16, cuda)
+    dy = _t(rng, (K, T, D), 0.1, torch.bfloat16, cuda)
+    wi, wg, wo = _tc_weights(rng, K, D, F, act, cuda, views=True)
+    gs = torch.tensor([0, 1, 63, 64, 65, 127, 128, 129], device=cuda)
+    mask = (torch.arange(T, device=cuda)[None] < gs[:, None]).to(torch.int32)
+    _tc_check(x, wi, wg, wo, dy, mask, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_train_tc_scattered_rows(cuda, act):
+    """Full width, a scattered ``row_valid``: 30% of rows, one slot empty,
+    one 64-row tile empty in another, one tile full."""
+    rng = np.random.default_rng(32)
+    K, T, D, F = 4, 256, 768, 1536
+    x = _t(rng, (K, T, D), 0.3, torch.bfloat16, cuda)
+    dy = _t(rng, (K, T, D), 0.1, torch.bfloat16, cuda)
+    wi, wg, wo = _tc_weights(rng, K, D, F, act, cuda, views=False)
+    mask = torch.from_numpy(rng.random((K, T)) < 0.3).to(cuda, torch.int32)
+    mask[0] = 0
+    mask[1, 64:128] = 0
+    mask[2, 128:192] = 1
+    _tc_check(x, wi, wg, wo, dy, mask, act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,F,shift", [(100, 200, 0), (96, 198, 0),
+                                       (96, 200, 1)])
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_train_tc_elementwise_branch(cuda, act, D, F, shift):
+    """The kernels' element-wise branch: D or F not a multiple of 8, or x,
+    dy and the weights at a storage offset that breaks 16-byte alignment
+    (``shift``); such inputs run the kernel, not the plain version."""
+    rng = np.random.default_rng(33 + D + F + shift)
+    K, T = 3, 200
+
+    def shifted(a):                    # a contiguous copy, ``shift`` in
+        if not shift:
+            return a
+        flat = torch.zeros(a.numel() + shift, dtype=a.dtype, device=cuda)
+        flat[shift:] = a.flatten()
+        return flat[shift:].view(a.shape)
+    x = shifted(_t(rng, (K, T, D), 0.3, torch.bfloat16, cuda))
+    dy = shifted(_t(rng, (K, T, D), 0.1, torch.bfloat16, cuda))
+    wi, wg, wo = (None if w is None else shifted(w) for w in
+                  _tc_weights(rng, K, D, F, act, cuda, views=False))
+    mask = torch.zeros((K, T), dtype=torch.int32, device=cuda)
+    mask[0, :70] = 1
+    mask[2, 3:150:2] = 1
+    _tc_check(x, wi, wg, wo, dy, mask, act)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("act", ["silu_glu", "gelu"])
 def test_grouped_mlp_function_matches_autograd_of_plain(cuda, act):

@@ -178,6 +178,53 @@ def test_train_stages_match_pallas(case, act):
             assert (_np(p[name]) == 0).all()
 
 
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_dgrad_split_ref_matches_pallas(case, act):
+    """The step-wise plain version of the bf16 tensor-core dgrad
+    (``ref.grouped_mlp_dgrad_split_ref``: dx from dh1 split into bf16
+    hi + lo) against the Pallas ``_dgrad`` on the JAX chain's residuals,
+    at this file's stage tolerances: hi + lo is the f32 dh1 to ~2^-16."""
+    K, T, D, F, dtype = CASES[case]
+    x, wi, wg, wo, dy = _inputs(zlib.crc32(f"split/{case}/{act}".encode()),
+                                K, T, D, F, act, dtype)
+    mask = _mask(case, K, T)
+    j = _jax_stages(*(_j(a, dtype) for a in (x, wi, wg, wo)),
+                    jnp.asarray(mask, jnp.int32), _j(dy, dtype), act)
+    res = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.array(a, np.float32)).to(getattr(torch, dtype))
+    got = ref.grouped_mlp_dgrad_split_ref(
+        _t(dy, dtype), torch.from_numpy(mask), res(j["h1"]), res(j["h2"]),
+        _t(wi, dtype), _t(wg, dtype), _t(wo, dtype), act=act)
+    tol = BF16 if dtype == "bfloat16" else F32
+    for name, a in zip(("dx", "dh1", "dh2", "h"), got):
+        if a is None:
+            assert j[name] is None
+            continue
+        assert a.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(a), _np(j[name]), **tol)
+    assert (_np(got[0])[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tile_list_is_pallas_skip_table(case):
+    """``tile_list`` (the grid of the bf16 tensor-core kernels, 64-row
+    tiles) lists exactly the tiles whose count in the Pallas kernels' skip
+    table (``_tile_counts`` at bt = 64) is not zero, in increasing order;
+    ``valid_tiles`` (wgrad's per-slot list) agrees with it at 64 rows."""
+    from repro_torch.kernels import grouped_mlp as gm
+    K, T = CASES[case][:2]
+    mask = _mask(case, K, T)
+    counts = np.asarray(jgm._tile_counts(
+        jgm._pad_to(jnp.asarray(mask, jnp.int32), 1, 64), 64))
+    got = gm.tile_list(torch.from_numpy(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.flatnonzero(counts))
+    tiles, n = gm.valid_tiles(torch.from_numpy(mask), 64)
+    per_slot = [tiles[k, :n[k]] + k * tiles.shape[1] for k in range(K)]
+    np.testing.assert_array_equal(torch.cat(per_slot).numpy(), got.numpy())
+
+
 # ---------------------------------------------------------------------------
 # GroupedMLPFunction against jax.grad through the Pallas kernels
 # ---------------------------------------------------------------------------
