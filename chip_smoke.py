@@ -11,18 +11,22 @@ JAX).  In order it:
 2. builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
    csrc/`` (one ``nvcc`` per source, in parallel), prints the seconds and,
    for the two attention kernels and the bf16 tensor-core kernels of the
-   grouped-MLP training forward and dgrad, each instantiation's registers,
-   shared memory and spills as ``ptxas -v`` reports them;
+   grouped MLP (both forms of the forward, dgrad and wgrad), each
+   instantiation's registers, shared memory and spills as ``ptxas -v``
+   reports them;
 3. holds each kernel against its plain PyTorch version on the card at
    gpt-moe-s shapes (stated tolerances): the serving kernels at serving
-   shapes, the grouped-MLP training forward, dgrad and wgrad at training
-   shapes (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32, and the
-   bf16 dgrad's dx also against its step-wise plain version (dx from dh1
-   split into bf16 hi + lo); and times kernel, plain version and, where one
-   exists, the PyTorch library call computing the same function (CUDA
-   events, median, L2 flushed before each launch), with the training
-   kernels' TFLOP/s and share of their bound: flash attention at each of
-   the four prompt buckets,
+   shapes (the grouped-MLP inference form at the decode tick's, 256 and
+   the 512 bucket's rows; its bf16 call also under
+   ``torch.cuda.set_sync_debug_mode("error")``: it reads nothing back),
+   the grouped-MLP training forward, dgrad and wgrad at training shapes
+   (64 slots × 16,384 rows, 32,768 valid), in bf16 and f32, the bf16
+   dgrad's dx also against its step-wise plain version (dx from dh1 split
+   into bf16 hi + lo) and the bf16 wgrad bitwise equal over two calls; and
+   times kernel, plain version and, where one exists, the PyTorch library
+   call computing the same function (CUDA events, median, L2 flushed
+   before each launch), with the grouped-MLP kernels' TFLOP/s and share
+   of their bound: flash attention at each of the four prompt buckets,
    paged decode attention at the served tick and near 512 tokens, both
    also checked bitwise equal over two identical calls;
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
@@ -32,8 +36,10 @@ JAX).  In order it:
    compares one prefill and one decode tick with the plain versions on the
    same tensors, checks that two identical prefills and two identical
    decode ticks give the same bits, profiles one decode tick and one
-   prefill at the 512 bucket, and serves the smoke config in f32 with the
-   kernels and with the plain versions, which must give the same tokens;
+   prefill at the 512 bucket (device time, and the grouped-MLP and
+   attention kernels' shares of it), and serves the smoke config in f32
+   with the kernels and with the plain versions, which must give the same
+   tokens;
 5. trains gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights and AdamW moments from a seed) through the Hecate loop
    (``train.trainer.train_loop``, ``ep`` plan), batch 8 × seq 2,048 of
@@ -102,9 +108,17 @@ GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
 SPLIT_DX_TOL = (1e-5, 2 ** -7)
 # ptxas -v lines printed for the grouped-MLP sources: the bf16 tensor-core
 # products gm_tc_kernel<EPI, GATE, ACT, VEC> (EPI 0 h1 = x@wi, 1 y = h@wo,
-# 2 dh = g@woᵀ, 3 dx = (hi + lo)@wiᵀ; the main path's are GATE = false,
-# ACT = 0 gelu, VEC = true) and the zero-row pass
-TC_KERNELS = ("gm_tc_kernel", "gm_zero_invalid_rows")
+# 2 dh = g@woᵀ, 3 dx = (hi + lo)@wiᵀ, 4 h = act(x@wi) of the inference
+# form; the main path's are GATE = false, ACT = 0 gelu, VEC = true), the
+# zero-row pass, the inference form's tile list and wgrad's products
+# gm_wgrad_tc_kernel<VEC>
+TC_KERNELS = ("gm_tc_kernel", "gm_zero_invalid_rows", "gm_tile_list_kernel",
+              "gm_wgrad_tc_kernel")
+# the serving path's grouped-MLP kernels as the profiler names them: the
+# bf16 tile list and tensor-core products, and the f32 FMA kernel with its
+# plane sum
+B1_SERVE_KERNELS = ("gm_tile_list_kernel", "gm_tc_kernel",
+                    "grouped_mlp_fwd_kernel", "grouped_mlp_reduce_kernel")
 SERVE_KERNELS = ("grouped_mlp_fwd", "flash_attention_fwd",
                  "paged_decode_attention")
 TRAIN_KERNELS = ("grouped_mlp_fwd_train", "grouped_mlp_dgrad",
@@ -140,6 +154,13 @@ def time_ms(torch, fn, flush, reps: int = 15, warmup: int = 3) -> float:
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return statistics.median(ts)
+
+
+def _device_ms(dev_ev, *names):
+    """Device ms of the profiled kernels whose name holds one of
+    ``names``."""
+    return sum(e.self_device_time_total for e in dev_ev
+               if any(n in e.key for n in names)) / 1e3
 
 
 def compare(torch, label, got, want, atol, rtol) -> float:
@@ -208,7 +229,7 @@ def check_grouped_mlp(torch, ops, dev, flush):
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         atol, rtol = TOL[dname]
-        for T in (4, 256):
+        for T in (4, 256, 512):
             x, wi, wo = inputs(T, dt)
             gs = torch.randint(0, T + 1, (K,), generator=g, device=dev,
                                dtype=torch.int32)
@@ -220,12 +241,12 @@ def check_grouped_mlp(torch, ops, dev, flush):
             errs.append(compare(torch, f"grouped_mlp_fwd K={K} T={T} D={D} "
                                 f"F={Fd} {dname} group_sizes", got, want,
                                 atol, rtol))
-        rv = torch.rand((K, 256), generator=g, device=dev) < 0.3
+        rv = torch.rand((K, T), generator=g, device=dev) < 0.3
         rv[3] = False
         got = ops.grouped_mlp(x, wi, None, wo, None, rv, act="gelu")
         with ops.reference_mode():
             want = ops.grouped_mlp(x, wi, None, wo, None, rv, act="gelu")
-        errs.append(compare(torch, f"grouped_mlp_fwd K={K} T=256 {dname} "
+        errs.append(compare(torch, f"grouped_mlp_fwd K={K} T={T} {dname} "
                             f"row_valid", got, want, atol, rtol))
 
     # timing at the decode tick's shape: 4 tokens, top-2 -> 8 slots hold
@@ -233,14 +254,33 @@ def check_grouped_mlp(torch, ops, dev, flush):
     x, wi, wo = inputs(MAX_SLOTS, torch.bfloat16)
     gs = torch.zeros(K, dtype=torch.int32, device=dev)
     gs[torch.randperm(K, generator=g, device=dev)[:2 * MAX_SLOTS]] = 1
+    # the bf16 wrapper reads nothing back to the host (the tick is host
+    # bound): any synchronising call in it raises here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.grouped_mlp(x, wi, None, wo, gs, act="gelu")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  grouped_mlp_fwd bfloat16 decode call under "
+          "set_sync_debug_mode('error'): no host sync")
     res = _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush)
     # and at a prefill of the 300-token prompt (bucket 512): ~1024
     # assignments spread over the 64 slots
     xp, wip, wop = inputs(512, torch.bfloat16)
     cnt = torch.bincount(torch.randint(0, K, (1024,), generator=g,
                                        device=dev), minlength=K)
-    res["prefill"] = _time_grouped_mlp(torch, ops, F, xp, wip, wop,
-                                       cnt.clamp(max=512).to(torch.int32),
+    gsp = cnt.clamp(max=512).to(torch.int32)
+    got = ops.grouped_mlp(xp, wip, None, wop, gsp, act="gelu")
+    with ops.reference_mode():
+        want = ops.grouped_mlp(xp, wip, None, wop, gsp, act="gelu")
+    errs.append(compare(torch, f"grouped_mlp_fwd K={K} T=512 D={D} F={Fd} "
+                        f"bfloat16 timed prefill inputs", got, want,
+                        *TOL["bfloat16"]))
+    if not torch.equal(got, ops.grouped_mlp(xp, wip, None, wop, gsp,
+                                            act="gelu")):
+        raise CheckFailed("two identical grouped_mlp_fwd calls differ")
+    res["prefill"] = _time_grouped_mlp(torch, ops, F, xp, wip, wop, gsp,
                                        flush)
     res["max_abs_err"] = max(errs)
     return res
@@ -264,10 +304,12 @@ def _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush):
     rows = sum(n for _, n in groups)
     nbytes = (rows * D * es + K * T * D * es + K * T * 4
               + len(groups) * 2 * D * Fd * es)
-    b_ms, b_by = bound(nbytes, 2 * rows * D * Fd * 2, "bfloat16")
+    ops2 = 2 * rows * D * Fd * 2          # two products over the valid rows
+    b_ms, b_by = bound(nbytes, ops2, "bfloat16")
     return dict(shape=f"K={K} T={T} D={D} F={Fd} bf16, {rows} valid rows "
                 f"in {len(groups)} slots", ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                tflops=ops2 / ms / 1e9, bound_share=b_ms / ms)
 
 
 def check_grouped_mlp_train(torch, ops, dev, flush):
@@ -356,11 +398,21 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
                     act="gelu")[:1], tol=SPLIT_DX_TOL)["dx"]
         dh1, h = dg[1], dg[3]
         del dg
+        wg1 = gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h)
         stages.append(("grouped_mlp_wgrad", held(
-            "grouped_mlp_wgrad", "dwi,dwg,dwo",
-            gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
+            "grouped_mlp_wgrad", "dwi,dwg,dwo", wg1,
             lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
                                                 dh1[s], None, h[s]))))
+        if dname == "bfloat16":     # no atomics, no split: the same bits
+            wg2 = gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h)
+            if not all(a is None or torch.equal(a, b)
+                       for a, b in zip(wg1, wg2)):
+                raise CheckFailed("two identical grouped_mlp_wgrad calls "
+                                  "differ")
+            print(f"  grouped_mlp_wgrad {shape} bfloat16: two calls "
+                  f"bitwise equal")
+            del wg2
+        del wg1
         for name, worst in stages:
             errs[name].extend(worst.values())
         del x, wi, wo, dy, h1, dh1, h
@@ -368,9 +420,9 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
     # time in bf16
     x, wi, wo, dy = inputs(torch.bfloat16)
     # the main path builds the bf16 kernels' tile list once per forward
-    # (GroupedMLPFunction) and hands it to B1-train and B2: the two are
-    # timed with it given, and the list on its own (it reads its length
-    # back to the host)
+    # (GroupedMLPFunction) and hands it to B1-train, B2 and B3: the three
+    # are timed with it given, and the list on its own (it reads its
+    # length back to the host)
     tiles = gm.tile_list(mask)
     tile_ms = time_ms(torch, lambda: gm.tile_list(mask), flush)
     _, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
@@ -419,7 +471,8 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
             rows * (D + Fd) * es + K * T * 4 + wbytes
             + K * T * (D + 2 * Fd) * es),
         "grouped_mlp_wgrad": (
-            lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h),
+            lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h,
+                                         tiles=tiles),
             lambda: ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, None, h),
             lib_wgrad,
             # x, dy, dh1, h valid rows and mask in; dwi and dwo written
@@ -847,15 +900,17 @@ def _profile_tick(torch, rs, prompts, card):
     dev_ev = [e for e in ev
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
-    paged = sum(e.self_device_time_total for e in dev_ev
-                if "paged_decode" in e.key) / 1e3
+    paged = _device_ms(dev_ev, "paged_decode")
+    b1 = _device_ms(dev_ev, *B1_SERVE_KERNELS)
     rs.run(max_ticks=10)
     print(f"  [{card}] one decode tick under the profiler: {launches} "
           f"kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms "
           f"wall (device idle share {1 - busy / wall:.3f}), "
-          f"paged_decode_attention {paged:.3f} ms of it")
+          f"paged_decode_attention {paged:.3f} ms and grouped_mlp_fwd "
+          f"{b1:.3f} ms of it")
     return dict(launches=launches, device_busy_ms=busy, wall_ms=wall,
-                paged_ms=paged)
+                paged_ms=paged, grouped_mlp_ms=b1)
+
 
 
 def _profile_prefill(torch, prefill_fn, params, pa, premat, prompt, bucket,
@@ -878,13 +933,14 @@ def _profile_prefill(torch, prefill_fn, params, pa, premat, prompt, bucket,
     dev_ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
-    flash = sum(e.self_device_time_total for e in dev_ev
-                if "flash_fwd" in e.key) / 1e3
+    flash = _device_ms(dev_ev, "flash_fwd")
+    b1 = _device_ms(dev_ev, *B1_SERVE_KERNELS)
     print(f"  [{card}] one prefill of the {prompt.size}-token prompt (bucket "
           f"{bucket}) under the profiler: device busy {busy:.3f} ms of "
-          f"{wall:.3f} ms wall, flash_attention_fwd {flash:.3f} ms of it")
+          f"{wall:.3f} ms wall, flash_attention_fwd {flash:.3f} ms and "
+          f"grouped_mlp_fwd {b1:.3f} ms of it")
     return dict(bucket=bucket, device_busy_ms=busy, wall_ms=wall,
-                flash_ms=flash)
+                flash_ms=flash, grouped_mlp_ms=b1)
 
 
 def serve_small_f32(torch, ops, dev):
@@ -1223,8 +1279,8 @@ def main() -> None:
                             if "tflops" in rr else "")
                     if "tile_list_ms" in rr:
                         rate += (f"; its tile list, built once per forward "
-                                 f"for it and dgrad, {rr['tile_list_ms']:.4f}"
-                                 f" ms")
+                                 f"for it, dgrad and wgrad, "
+                                 f"{rr['tile_list_ms']:.4f} ms")
                     print(f"  [{card_line}] {k} {tag}{rr['shape']}: kernel "
                           f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "
                           f"ms, library {rr['library_ms']:.4f} ms, bound "

@@ -32,7 +32,21 @@
 // h is stored in bf16, exactly the value the TPU kernel feeds its second
 // product (grouped_mlp.py:139); sums are f32 and y is rounded once.
 //
-// The inference form, and the training form in float32, keep the first
+// Inference form, bfloat16 (the serving path's; grouped_mlp_fwd_bf16): the
+// same two products, with the h1 product's epilogue writing h alone (no
+// residuals).  The serving tick is bound by the host, so this form reads
+// nothing back and adds no host-side op: a one-block kernel in the same
+// call builds its tile list (gm_tile_list_kernel) at the length the host
+// knows, every tile of the call (K * ceil(T / 64)), the listed tiles first
+// and -1 after them, and the scratch holds 64 rows per entry.  Blocks on
+// a -1 entry only write their share of y's zero rows.  At a decode tick
+// (8 valid rows in 8 of 64 slots) the kernel reads the 8 slots' weights
+// once, one 64-row tile each; at a 512-token prefill (~16 rows in each
+// slot) all 64 slots' weights, still once each.  Each output element is
+// summed over F in one fixed order inside one block's accumulators: the
+// same bits every run.
+//
+// The inference form and the training form in float32 keep the first
 // port's loops on the FMA units:
 // * one block per (slot k, token tile, range of F).  The TPU grid's
 //   sequential F axis becomes a loop inside the block over 64-wide F
@@ -237,17 +251,16 @@ static int run(const FwdArgs& a, int dtype) {
       a.D > GM_MAXJ * GM_THREADS ||
       (!SAVE && (a.f_split <= 0 || a.f_split % GM_BF)))
     return (int)cudaErrorInvalidValue;
+  // bf16 is grouped_mlp_fwd_bf16 and grouped_mlp_fwd_train_bf16 (tensor
+  // cores)
   if (dtype == DTYPE_F32) return dispatch<float, SAVE>(a);
-  // the bf16 training form is grouped_mlp_fwd_train_bf16 (tensor cores)
-  if constexpr (!SAVE)
-    if (dtype == DTYPE_BF16) return dispatch<__nv_bfloat16, SAVE>(a);
   return (int)cudaErrorInvalidValue;
 }
 
-// Inference form.  x: contiguous (K, T, D); wi/wg: (K, D, F) and wo:
-// (K, F, D), each contiguous within a slot, slot k at element offset
-// k * swi / swg / swo; all of one dtype; mask: (K, T) int32.  wg may be
-// NULL (no gate).  y: contiguous (K, T, D) of the input dtype.  The F axis
+// Inference form, float32.  x: contiguous (K, T, D); wi/wg: (K, D, F)
+// and wo: (K, F, D), each contiguous within a slot, slot k at element
+// offset k * swi / swg / swo; mask: (K, T) int32.  wg may be NULL (no
+// gate).  y: contiguous (K, T, D).  The F axis
 // is cut into f_split-wide ranges (a multiple of 64), one block each; part
 // is f32 scratch of (ceil(F / f_split), K, T, D) for their partial sums.
 // act: 0 gelu (tanh form), 1 silu.
@@ -282,42 +295,75 @@ REPRO_EXPORT int grouped_mlp_fwd_train(const void* x, const void* wi,
 }
 
 // ---------------------------------------------------------------------------
-// Training form, bfloat16, on the tensor cores (grouped_mlp_tc.cuh)
+// Both forms, bfloat16, on the tensor cores (grouped_mlp_tc.cuh)
 // ---------------------------------------------------------------------------
-template <bool GATE, int ACT, bool VEC>
-static int fwd_train_tc(const TcParams& ph, const TcParams& py, int n_tiles,
-                        cudaStream_t s) {
-  const int e = launch_tc<TC_FWD_H, GATE, ACT, VEC>(ph, n_tiles, s);
+constexpr int GL_THREADS = 1024;
+
+// The inference form's tile list: the ids k * nt + t of the 64-row token
+// tiles that hold a valid row, increasing, then -1 up to K * nt entries
+// (ref.tile_list_padded is its plain version).  One block; each thread
+// checks one tile per pass, and a block-wide count of the hits before it
+// places the listed ones.
+__global__ void __launch_bounds__(GL_THREADS)
+    gm_tile_list_kernel(const int* __restrict__ mask, int K, int Tn,
+                        int* __restrict__ tiles) {
+  __shared__ int warp_hits[GL_THREADS / 32];
+  const int nt = (Tn + TC_BM - 1) / TC_BM, n = K * nt;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int listed = 0;  // tiles listed by the passes before, in every thread
+  for (int base = 0; base < n; base += GL_THREADS) {
+    const int id = base + threadIdx.x;
+    int hit = 0;
+    if (id < n) {
+      const int k = id / nt, t0 = (id - k * nt) * TC_BM;
+      const int* m = mask + (size_t)k * Tn + t0;
+      const int rows = min(TC_BM, Tn - t0);
+#pragma unroll 16
+      for (int r = 0; r < TC_BM; ++r) hit |= r < rows && m[r] > 0;
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(b);
+    __syncthreads();
+    int at = listed + __popc(b & ((1u << lane) - 1)), total = 0;
+    for (int w = 0; w < GL_THREADS / 32; ++w) {
+      const int c = warp_hits[w];
+      at += w < warp ? c : 0;
+      total += c;
+    }
+    if (hit) tiles[at] = id;
+    listed += total;
+    __syncthreads();  // warp_hits is written again by the next pass
+  }
+  for (int i = listed + threadIdx.x; i < n; i += GL_THREADS) tiles[i] = -1;
+}
+
+template <int EPI, bool GATE, int ACT, bool VEC>
+static int fwd_tc(const TcParams& ph, const TcParams& py, int n_tiles,
+                  cudaStream_t s) {
+  const int e = launch_tc<EPI, GATE, ACT, VEC>(ph, n_tiles, s);
   if (e) return e;
   // ACT is not read by y's epilogue: one instantiation serves both
   return launch_tc<TC_FWD_Y, false, ACT_GELU, VEC>(py, n_tiles, s);
 }
 
-// x: contiguous (K, T, D); wi/wg: (K, D, F) and wo: (K, F, D), each dense
-// within a slot, slot k at element offset k * swi / swg / swo; mask: (K, T)
-// int32; tiles: the n_tiles 64-row token tiles that hold a valid row, as
-// k * ceil(T / 64) + tile, increasing; hs: (n_tiles * 64, F) scratch for
-// h = bf16(act(h1) [⊙ h2]).  Outputs y: (K, T, D), written whole (zero on
-// invalid rows), and h1 [h2]: (K, T, F), written on every row of the listed
-// tiles (zero on their invalid rows).  All bfloat16; wg, h2 NULL without a
-// gate.  act: 0 gelu (tanh form), 1 silu.
-REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
-    const void* x, const void* wi, const void* wg, const void* wo,
-    const int* mask, const int* tiles, int n_tiles, void* hs, void* y,
-    void* h1, void* h2, int K, int Tn, int D, int F, long long swi,
-    long long swg, long long swo, int act, void* stream) {
-  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || n_tiles < 0 ||
-      (wg != nullptr && h2 == nullptr))
-    return (int)cudaErrorInvalidValue;
+template <int EPI>
+static int fwd_bf16(const void* x, const void* wi, const void* wg,
+                    const void* wo, const int* mask, const int* tiles,
+                    int n_tiles, void* hs, void* y, void* h1, void* h2, int K,
+                    int Tn, int D, int F, long long swi, long long swg,
+                    long long swo, int act, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  cudaStream_t s = (cudaStream_t)stream;
   const bool vec = tc_vec({x, wi, wg, wo, hs, y, h1, h2},
                           {D, F, swi, wg ? swg : 0, swo});
   const ZeroRows z{{(bf*)y}, {D}, 1};
   if (n_tiles == 0)
     return launch_zero_rows(mask, (long long)K * Tn, z, vec, s);
-  const int nt = (Tn + TC_BM - 1) / TC_BM;
-  TcParams ph{};   // h1 = x@wi [, h2 = x@wg] -> h1 [h2], h scratch
+  if (EPI == TC_INF_H) {
+    gm_tile_list_kernel<<<1, GL_THREADS, 0, s>>>(mask, K, Tn, (int*)tiles);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  TcParams ph{};   // h1 = x@wi [, h2 = x@wg] -> [h1, h2,] h scratch
   ph.a[0] = (const bf*)x;
   ph.b[0] = (const bf*)wi;
   ph.b[1] = (const bf*)wg;
@@ -329,7 +375,7 @@ REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
   ph.o[1] = (bf*)h2;
   ph.o[2] = (bf*)hs;
   ph.T = Tn;
-  ph.nt = nt;
+  ph.nt = (Tn + TC_BM - 1) / TC_BM;
   ph.Kd = D;
   ph.N = F;
   // y's zero rows, beside the products: each product's blocks take half
@@ -345,9 +391,9 @@ REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
   py.N = D;
   py.z_first = ph.z_last;
   py.z_last = (long long)K * Tn;
-#define GM_FWD_TC(G, A)                                  \
-  return vec ? fwd_train_tc<G, A, true>(ph, py, n_tiles, s) \
-             : fwd_train_tc<G, A, false>(ph, py, n_tiles, s)
+#define GM_FWD_TC(G, A)                                          \
+  return vec ? fwd_tc<EPI, G, A, true>(ph, py, n_tiles, s) \
+             : fwd_tc<EPI, G, A, false>(ph, py, n_tiles, s)
   if (wg != nullptr) {
     if (act == ACT_SILU) GM_FWD_TC(true, ACT_SILU);
     GM_FWD_TC(true, ACT_GELU);
@@ -355,4 +401,45 @@ REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
   if (act == ACT_SILU) GM_FWD_TC(false, ACT_SILU);
   GM_FWD_TC(false, ACT_GELU);
 #undef GM_FWD_TC
+}
+
+// Inference form.  x: contiguous (K, T, D); wi/wg: (K, D, F) and wo:
+// (K, F, D), each dense within a slot, slot k at element offset
+// k * swi / swg / swo; mask: (K, T) int32; tiles: int32 scratch of
+// n_tiles = K * ceil(T / 64) entries, where the call lists the 64-row token
+// tiles that hold a valid row as k * ceil(T / 64) + tile, increasing, then
+// -1; hs: (n_tiles * 64, F) scratch for h = bf16(act(x@wi) [⊙ x@wg]).
+// Output y: (K, T, D), written whole (zero on invalid rows).  All bfloat16;
+// wg NULL without a gate.  act: 0 gelu (tanh form), 1 silu.
+REPRO_EXPORT int grouped_mlp_fwd_bf16(const void* x, const void* wi,
+                                      const void* wg, const void* wo,
+                                      const int* mask, int* tiles,
+                                      int n_tiles, void* hs, void* y, int K,
+                                      int Tn, int D, int F, long long swi,
+                                      long long swg, long long swo, int act,
+                                      void* stream) {
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 ||
+      n_tiles != K * ((Tn + TC_BM - 1) / TC_BM))
+    return (int)cudaErrorInvalidValue;
+  return fwd_bf16<TC_INF_H>(x, wi, wg, wo, mask, tiles, n_tiles, hs, y,
+                            nullptr, nullptr, K, Tn, D, F, swi, swg, swo, act,
+                            (cudaStream_t)stream);
+}
+
+// Training form.  As the inference form, with tiles: the n_tiles 64-row
+// token tiles that hold a valid row (no -1 entries).  Outputs y: (K, T, D),
+// written whole (zero on invalid rows), and h1 [h2]: (K, T, F), written on
+// every row of the listed tiles (zero on their invalid rows).  h2 NULL
+// without a gate.
+REPRO_EXPORT int grouped_mlp_fwd_train_bf16(
+    const void* x, const void* wi, const void* wg, const void* wo,
+    const int* mask, const int* tiles, int n_tiles, void* hs, void* y,
+    void* h1, void* h2, int K, int Tn, int D, int F, long long swi,
+    long long swg, long long swo, int act, void* stream) {
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || n_tiles < 0 ||
+      (wg != nullptr && h2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return fwd_bf16<TC_FWD_H>(x, wi, wg, wo, mask, tiles, n_tiles, hs, y, h1,
+                            h2, K, Tn, D, F, swi, swg, swo, act,
+                            (cudaStream_t)stream);
 }

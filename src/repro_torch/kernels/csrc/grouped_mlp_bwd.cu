@@ -15,7 +15,9 @@
 // What bounds them on an H100: dgrad's whole dx, dh1 and h (7.8 GB at
 // gpt-moe-s training shapes, 97% of the rows invalid) are most of its
 // bytes, and at ~128 valid rows per slot its products are far above the
-// card's bytes-per-operation line; wgrad is bound by operations.
+// card's bytes-per-operation line.  wgrad at those shapes reads 0.3 GB of
+// valid rows and writes 0.3 GB of gradients for 155 GFLOP: its bound is
+// the bytes (0.18 ms) by a little over the operations (0.16 ms).
 //
 // dgrad, bfloat16 (the main path's; grouped_mlp_dgrad_bf16): a pass that
 // writes the invalid rows of dx, dh1 and h as zeros (measured faster as a
@@ -42,14 +44,30 @@
 // writes every row of its tile: zeros for invalid rows and skipped tiles,
 // as the TPU kernel's skipped tiles write zeros (grouped_mlp.py:265-272).
 //
-// wgrad design: one block per (slot, 64-wide D tile, 64-wide F tile), with
-// a 4×4 register tile of each of dwi, dwg and dwo per thread.  The block
-// walks the slot's valid 32-row token tiles, listed by the wrapper in
-// increasing order, stages x, g, dh1, dh2 and h of the tile in shared
-// memory and accumulates the outer products in f32.  Every sum is taken in
-// one fixed order by one thread: no atomics, so the result is the same
-// from run to run (random-init gpt-moe-s amplifies run-to-run differences
-// into route flips).  A slot without a valid row writes zero gradients.
+// wgrad, bfloat16 (the main path's; grouped_mlp_wgrad_bf16): tensor-core
+// products over the token rows.  One block per (128 × 128 output tile,
+// slot, product), the products being dwi = xᵀ@dh1 [, dwg = xᵀ@dh2] and
+// dwo = hᵀ@g.  The grid depends on K, D and F alone: no count is read
+// back.  The block walks its slot's 64-row tiles of the forward's tile
+// list (sorted by k * nt + t; the wrapper finds slot k's range
+// [starts[k], starts[k + 1]) with a device-side searchsorted), one tile
+// per stage of a 3-stage cp.async ring.  Both operands are read as they
+// are stored, as row tiles (rows × 128 columns): the A operand (x or h)
+// through ldmatrix.trans, which gives its transpose, and the B operand
+// (dh1, dh2 or dy) through ldmatrix.trans as the forward reads wi.  A
+// row's validity decides its copy: an invalid row is zero-filled by
+// cp.async (source size 0) in both operands, which masks x and dy as the
+// TPU kernel masks them (grouped_mlp.py:345-346).  Eight warps own 64 × 32
+// of the output each as f32 accumulators; each output element is summed
+// in one fixed order (the list's, then mma's) by one block: no atomics, no
+// split over blocks, the same bits every run.  A slot without a valid tile
+// writes zeros.  VEC = false loads element by element (D or F not a
+// multiple of 8, rows not 16-byte aligned).
+//
+// wgrad, float32: the first port's FMA loops.  One block per (slot,
+// 64-wide D tile, 64-wide F tile), with a 4×4 register tile of each of
+// dwi, dwg and dwo per thread; it walks the same per-slot ranges of the
+// 64-row tile list, in 32-row halves staged in shared memory.
 #include "grouped_mlp_tc.cuh"
 
 // ---------------------------------------------------------------------------
@@ -313,9 +331,9 @@ REPRO_EXPORT int grouped_mlp_dgrad_bf16(
 }
 
 // ---------------------------------------------------------------------------
-// wgrad
+// wgrad, float32 (FMA units)
 // ---------------------------------------------------------------------------
-constexpr int WG_TILE = 32;  // token rows per staged tile
+constexpr int WG_TILE = 32;  // token rows per staged half of a listed tile
 constexpr int WG_B = 64;     // D and F width of a block's output tile
 
 template <typename T, bool GATE>
@@ -327,10 +345,9 @@ __global__ void __launch_bounds__(GM_THREADS)
                              const T* __restrict__ dh2,
                              const T* __restrict__ h,
                              const int* __restrict__ tiles,
-                             const int* __restrict__ ntiles,
+                             const int* __restrict__ starts,
                              T* __restrict__ dwi, T* __restrict__ dwg,
-                             T* __restrict__ dwo, int Tn, int D, int F,
-                             int n_tile) {
+                             T* __restrict__ dwo, int Tn, int D, int F) {
   __shared__ float xs[WG_TILE][WG_B];   // x[t][d0 + c]
   __shared__ float gs[WG_TILE][WG_B];   // g[t][d0 + c]
   __shared__ float d1s[WG_TILE][WG_B];  // dh1[t][f0 + c]
@@ -345,6 +362,7 @@ __global__ void __launch_bounds__(GM_THREADS)
   const int tx = tid % 16;
   const int ty = tid / 16;
   const size_t rk = (size_t)k * Tn;  // first row of slot k
+  const int nt = (Tn + TC_BM - 1) / TC_BM;
 
   float ai[4][4], ag[4][4], ao[4][4];
 #pragma unroll
@@ -352,50 +370,50 @@ __global__ void __launch_bounds__(GM_THREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) ai[i][j] = ag[i][j] = ao[i][j] = 0.0f;
 
-  const int nt = ntiles[k];
-  for (int it = 0; it < nt; ++it) {
-    const int t0 = tiles[(size_t)k * n_tile + it] * WG_TILE;
-    if (tid < WG_TILE) {
-      const int t = t0 + tid;
-      rowv[tid] = (t < Tn) ? (mask[rk + t] > 0) : 0;
-    }
-    __syncthreads();
-    for (int e = tid; e < WG_TILE * WG_B; e += GM_THREADS) {
-      const int r = e / WG_B;
-      const int c = e % WG_B;
-      const size_t row = rk + t0 + r;
-      const bool ok = rowv[r] != 0;
-      const bool dok = ok && d0 + c < D;
-      const bool fok = ok && f0 + c < F;
-      xs[r][c] = dok ? to_f(x[row * D + d0 + c]) : 0.0f;
-      gs[r][c] = dok ? to_f(dy[row * D + d0 + c]) : 0.0f;
-      d1s[r][c] = fok ? to_f(dh1[row * F + f0 + c]) : 0.0f;
-      if (GATE) d2s[r][c] = fok ? to_f(dh2[row * F + f0 + c]) : 0.0f;
-      hs[r][c] = fok ? to_f(h[row * F + f0 + c]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < WG_TILE; ++r) {
-      float xv[4], hv[4], dv[4], d2v[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xv[i] = xs[r][ty + 16 * i];
-        hv[i] = hs[r][ty + 16 * i];
-        dv[i] = d1s[r][tx + 16 * i];
-        d2v[i] = GATE ? d2s[r][tx + 16 * i] : 0.0f;
-        gv[i] = gs[r][tx + 16 * i];
+  for (int it = starts[k]; it < starts[k + 1]; ++it)
+    for (int half = 0; half < TC_BM / WG_TILE; ++half) {
+      const int t0 = (tiles[it] - k * nt) * TC_BM + half * WG_TILE;
+      if (tid < WG_TILE) {
+        const int t = t0 + tid;
+        rowv[tid] = (t < Tn) ? (mask[rk + t] > 0) : 0;
       }
+      __syncthreads();
+      for (int e = tid; e < WG_TILE * WG_B; e += GM_THREADS) {
+        const int r = e / WG_B;
+        const int c = e % WG_B;
+        const size_t row = rk + t0 + r;
+        const bool ok = rowv[r] != 0;
+        const bool dok = ok && d0 + c < D;
+        const bool fok = ok && f0 + c < F;
+        xs[r][c] = dok ? to_f(x[row * D + d0 + c]) : 0.0f;
+        gs[r][c] = dok ? to_f(dy[row * D + d0 + c]) : 0.0f;
+        d1s[r][c] = fok ? to_f(dh1[row * F + f0 + c]) : 0.0f;
+        if (GATE) d2s[r][c] = fok ? to_f(dh2[row * F + f0 + c]) : 0.0f;
+        hs[r][c] = fok ? to_f(h[row * F + f0 + c]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < WG_TILE; ++r) {
+        float xv[4], hv[4], dv[4], d2v[4], gv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ai[i][j] = fmaf(xv[i], dv[j], ai[i][j]);
-          if (GATE) ag[i][j] = fmaf(xv[i], d2v[j], ag[i][j]);
-          ao[i][j] = fmaf(hv[i], gv[j], ao[i][j]);
+        for (int i = 0; i < 4; ++i) {
+          xv[i] = xs[r][ty + 16 * i];
+          hv[i] = hs[r][ty + 16 * i];
+          dv[i] = d1s[r][tx + 16 * i];
+          d2v[i] = GATE ? d2s[r][tx + 16 * i] : 0.0f;
+          gv[i] = gs[r][tx + 16 * i];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ai[i][j] = fmaf(xv[i], dv[j], ai[i][j]);
+            if (GATE) ag[i][j] = fmaf(xv[i], d2v[j], ag[i][j]);
+            ao[i][j] = fmaf(hv[i], gv[j], ao[i][j]);
+          }
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
   // dwi/dwg[k][d][f] with d = d0 + ty + 16 i, f = f0 + tx + 16 j;
   // dwo[k][f][d] with f = f0 + ty + 16 i, d = d0 + tx + 16 j
 #pragma unroll
@@ -413,46 +431,235 @@ __global__ void __launch_bounds__(GM_THREADS)
     }
 }
 
-template <typename T, bool GATE>
-static int launch_wgrad(const void* x, const void* dy, const int* mask,
-                        const void* dh1, const void* dh2, const void* h,
-                        const int* tiles, const int* ntiles, void* dwi,
-                        void* dwg, void* dwo, int K, int Tn, int D, int F,
-                        int n_tile, cudaStream_t stream) {
-  dim3 grid((F + WG_B - 1) / WG_B, (D + WG_B - 1) / WG_B, K);
-  grouped_mlp_wgrad_kernel<T, GATE><<<grid, GM_THREADS, 0, stream>>>(
-      (const T*)x, (const T*)dy, mask, (const T*)dh1, (const T*)dh2,
-      (const T*)h, tiles, ntiles, (T*)dwi, (T*)dwg, (T*)dwo, Tn, D, F,
-      n_tile);
-  return (int)cudaGetLastError();
-}
-
-// x, dy: (K, T, D); dh1, dh2, h: (K, T, F); mask: (K, T) int32; tiles:
-// (K, n_tile) int32, slot k's valid 32-row token tiles in increasing order
-// in its first ntiles[k] entries (ntiles: (K,) int32); outputs dwi, dwg:
-// (K, D, F), dwo: (K, F, D).  All contiguous, one dtype; dh2 and dwg are
-// NULL without a gate.  n_tile = ceil(T / 32).
+// x, dy: (K, T, D); dh1, dh2, h: (K, T, F); mask: (K, T) int32; tiles: the
+// 64-row token tiles that hold a valid row, as k * ceil(T / 64) + tile,
+// increasing; starts: (K + 1,) int32, slot k's tiles being
+// tiles[starts[k]:starts[k + 1]]; outputs dwi, dwg: (K, D, F), dwo:
+// (K, F, D).  All contiguous, float32; dh2 and dwg are NULL without a gate.
 REPRO_EXPORT int grouped_mlp_wgrad(const void* x, const void* dy,
                                    const int* mask, const void* dh1,
                                    const void* dh2, const void* h,
-                                   const int* tiles, const int* ntiles,
+                                   const int* tiles, const int* starts,
                                    void* dwi, void* dwg, void* dwo, int K,
-                                   int Tn, int D, int F, int n_tile,
-                                   int dtype, void* stream) {
+                                   int Tn, int D, int F, int dtype,
+                                   void* stream) {
   if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 ||
-      n_tile != (Tn + WG_TILE - 1) / WG_TILE ||
       (dh2 == nullptr) != (dwg == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+  // bf16 is grouped_mlp_wgrad_bf16 (tensor cores)
+  if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
+  dim3 grid((F + WG_B - 1) / WG_B, (D + WG_B - 1) / WG_B, K);
+  auto kern = dh2 != nullptr ? grouped_mlp_wgrad_kernel<float, true>
+                             : grouped_mlp_wgrad_kernel<float, false>;
+  kern<<<grid, GM_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)dy, mask, (const float*)dh1,
+      (const float*)dh2, (const float*)h, tiles, starts, (float*)dwi,
+      (float*)dwg, (float*)dwo, Tn, D, F);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// wgrad, bfloat16, on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int WT_BM = 128, WT_BN = 128;  // output tile (M × N)
+constexpr int WT_BK = TC_BM;   // token rows of a stage: one listed tile
+constexpr int WT_WARPS = 8;    // 2 (M) × 4 (N), 64 × 32 of the tile each
+constexpr int WT_THREADS = WT_WARPS * 32;
+constexpr int WT_STAGES = 3;
+constexpr int WT_LD = WT_BM + 8;         // smem row stride (elements)
+constexpr int WT_TILE = WT_BK * WT_LD;   // one operand of one stage
+constexpr size_t WT_SMEM = (size_t)WT_STAGES * 2 * WT_TILE * 2;
+static_assert(WT_BM == WT_BN && WT_BK * (WT_BM / 8) == 4 * WT_THREADS,
+              "a stage is 4 16-byte chunks of one row per thread");
+
+struct WgParams {
+  const __nv_bfloat16* a[3];  // per product: A (K, T, M), read transposed
+  const __nv_bfloat16* b[3];  // B (K, T, N)
+  __nv_bfloat16* o[3];        // the product, (K, M, N)
+  int m[3], n[3];
+  const int* mask;    // (K, T) validity
+  const int* tiles;   // the forward's 64-row tile list
+  const int* starts;  // (K + 1,): slot k's range of it
+  int T, nt;
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(WT_THREADS, 2)
+    gm_wgrad_tc_kernel(const WgParams p) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char wt_smem[];
+  bf* sm = reinterpret_cast<bf*>(wt_smem);
+  const int z = blockIdx.z, k = blockIdx.y;
+  // product z's entries, selected without indexing the parameter arrays
+  // (an index unknown at compile time copies them to local memory)
+  auto pick = [z](const auto& v) {
+    return z == 0 ? v[0] : z == 1 ? v[1] : v[2];
+  };
+  const int M = pick(p.m), N = pick(p.n);
+  const int nbn = (N + WT_BN - 1) / WT_BN;
+  const int m0 = (blockIdx.x / nbn) * WT_BM, n0 = (blockIdx.x % nbn) * WT_BN;
+  if (m0 >= M) return;  // (every product has as many tiles; kept safe)
+  const bf* A = pick(p.a) + (size_t)k * p.T * M;
+  const bf* B = pick(p.b) + (size_t)k * p.T * N;
+  const int* mk = p.mask + (size_t)k * p.T;
+  const int lo = p.starts[k], n = p.starts[k + 1] - lo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int lr = tid >> 2, lc = (tid & 3) * 8;  // loader: row, first column
+  const bf zero = __float2bfloat16(0.0f);
+
+  // The stage to issue next (s_next), its tile and this thread's row's
+  // mask entry, and the tile after it: loaded one issue ahead and read at
+  // the next issue, so no copy waits on the list or the mask.
+  auto first_row = [&](int tile) { return (tile - k * p.nt) * WT_BK; };
+  auto row_mask = [&](int tile) {
+    const int t = first_row(tile) + lr;
+    return t < p.T ? mk[t] : 0;
+  };
+  int s_next = 0;
+  int tile_n = n > 0 ? p.tiles[lo] : 0;
+  int tile_nn = n > 1 ? p.tiles[lo + 1] : 0;
+  int mv_n = VEC && n > 0 ? row_mask(tile_n) : 0;
+
+  auto issue = [&]() {
+    bf* as = sm + (s_next % WT_STAGES) * 2 * WT_TILE;
+    bf* bs = as + WT_TILE;
+    const int t0 = first_row(tile_n);
+    if (VEC) {
+      const bf* ar = A + (size_t)(t0 + lr) * M + m0;
+      const bf* br = B + (size_t)(t0 + lr) * N + n0;
+#pragma unroll
+      for (int j = 0; j < WT_BM / 32; ++j) {
+        const int c = lc + 32 * j;
+        const bool ia = mv_n > 0 && m0 + c < M, ib = mv_n > 0 && n0 + c < N;
+        cp_async16(as + lr * WT_LD + c, ia ? ar + c : A, ia);
+        cp_async16(bs + lr * WT_LD + c, ib ? br + c : B, ib);
+      }
+      mv_n = s_next + 1 < n ? row_mask(tile_nn) : 0;
+    } else {
+      for (int e = tid; e < WT_BK * WT_BM; e += WT_THREADS) {
+        const int r = e / WT_BM, c = e % WT_BM, t = t0 + r;
+        const bool ok = t < p.T && mk[t] > 0;
+        as[r * WT_LD + c] =
+            ok && m0 + c < M ? A[(size_t)t * M + m0 + c] : zero;
+        bs[r * WT_LD + c] =
+            ok && n0 + c < N ? B[(size_t)t * N + n0 + c] : zero;
+      }
+    }
+    tile_n = tile_nn;
+    tile_nn = s_next + 2 < n ? p.tiles[lo + s_next + 2] : 0;
+    ++s_next;
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < WT_STAGES - 1; ++s) {
+    if (s < n) issue();
+    cp_async_commit();
+  }
+  const int mi = lane >> 3, r8 = lane & 7;
+  for (int kt = 0; kt < n; ++kt) {
+    cp_async_wait<WT_STAGES - 2>();  // stage kt has landed
+    __syncthreads();                 // ... for every thread; kt - 1 is done
+    if (kt + WT_STAGES - 1 < n) issue();
+    cp_async_commit();
+    const bf* as = sm + (kt % WT_STAGES) * 2 * WT_TILE;
+    const bf* bs = as + WT_TILE;
+#pragma unroll
+    for (int kk = 0; kk < WT_BK / 16; ++kk) {
+      const int kr = kk * 16 + r8;
+      unsigned bfr[4][2];
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        unsigned r4[4];
+        ldsm_x4_t(r4, bs + (kr + (mi & 1) * 8) * WT_LD + wn * 32 + jp * 16 +
+                          (mi >> 1) * 8);
+        bfr[2 * jp][0] = r4[0];
+        bfr[2 * jp][1] = r4[1];
+        bfr[2 * jp + 1][0] = r4[2];
+        bfr[2 * jp + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        // A stored (rows, M): the transposed read gives the (M, rows)
+        // fragment, matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7,
+        // k 8-15), (m 8-15, k 8-15)
+        unsigned af[4];
+        ldsm_x4_t(af, as + (kr + (mi >> 1) * 8) * WT_LD + wm * 64 + mt * 16 +
+                          (mi & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], af, bfr[nt][0], bfr[nt][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // this thread's rows m0 + wm·64 + mt·16 + g (+ 8), columns
+  // n0 + wn·32 + nt·8 + 2·t4 (+ 1)
+  const int g = lane >> 2, t4 = lane & 3;
+  bf* o = pick(p.o) + (size_t)k * M * N;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + wm * 64 + mt * 16 + g + hf * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = n0 + wn * 32 + nt * 8 + 2 * t4;
+        store2<VEC>(o, (size_t)m * N + c, c, N, acc[mt][nt][2 * hf],
+                    acc[mt][nt][2 * hf + 1]);
+      }
+    }
+}
+
+// x, dy: (K, T, D); dh1, dh2, h: (K, T, F); mask, tiles, starts as for
+// grouped_mlp_wgrad; outputs dwi, dwg: (K, D, F), dwo: (K, F, D).  All
+// contiguous, bfloat16; dh2 and dwg are NULL without a gate.
+REPRO_EXPORT int grouped_mlp_wgrad_bf16(const void* x, const void* dy,
+                                        const int* mask, const void* dh1,
+                                        const void* dh2, const void* h,
+                                        const int* tiles, const int* starts,
+                                        void* dwi, void* dwg, void* dwo,
+                                        int K, int Tn, int D, int F,
+                                        void* stream) {
+  if (K <= 0 || K > 65535 || Tn <= 0 || D <= 0 || F <= 0 ||
+      (dh2 == nullptr) != (dwg == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
   const bool gate = dh2 != nullptr;
-#define GM_WGRAD_ARGS x, dy, mask, dh1, dh2, h, tiles, ntiles, dwi, dwg, dwo, \
-                      K, Tn, D, F, n_tile, s
-  if (dtype == DTYPE_BF16)
-    return gate ? launch_wgrad<__nv_bfloat16, true>(GM_WGRAD_ARGS)
-                : launch_wgrad<__nv_bfloat16, false>(GM_WGRAD_ARGS);
-  if (dtype == DTYPE_F32)
-    return gate ? launch_wgrad<float, true>(GM_WGRAD_ARGS)
-                : launch_wgrad<float, false>(GM_WGRAD_ARGS);
-#undef GM_WGRAD_ARGS
-  return (int)cudaErrorInvalidValue;
+  WgParams p{};
+  int np = 0;
+  auto product = [&](const void* a, const void* b, void* o, int m, int n) {
+    p.a[np] = (const bf*)a;
+    p.b[np] = (const bf*)b;
+    p.o[np] = (bf*)o;
+    p.m[np] = m;
+    p.n[np] = n;
+    ++np;
+  };
+  product(x, dh1, dwi, D, F);
+  if (gate) product(x, dh2, dwg, D, F);
+  product(h, dy, dwo, F, D);
+  p.mask = mask;
+  p.tiles = tiles;
+  p.starts = starts;
+  p.T = Tn;
+  p.nt = (Tn + TC_BM - 1) / TC_BM;
+  const bool vec = tc_vec({x, dy, dh1, dh2, h, dwi, dwg, dwo}, {D, F});
+  auto kern = vec ? gm_wgrad_tc_kernel<true> : gm_wgrad_tc_kernel<false>;
+  cudaError_t e = allow_smem(kern, WT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // as many output tiles in dwo (F × D) as in dwi (D × F)
+  dim3 grid(((D + WT_BM - 1) / WT_BM) * ((F + WT_BN - 1) / WT_BN), K, np);
+  kern<<<grid, WT_THREADS, WT_SMEM, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

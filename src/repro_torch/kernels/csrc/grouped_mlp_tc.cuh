@@ -1,19 +1,25 @@
-// Tensor-core tile products of the bf16 grouped-MLP training kernels: B1's
-// training form (grouped_mlp.cu) and B2, dgrad (grouped_mlp_bwd.cu).
+// Tensor-core tile products of the bf16 grouped-MLP kernels: B1's training
+// and inference forms (grouped_mlp.cu) and B2, dgrad (grouped_mlp_bwd.cu).
 //
-// Each of the two kernels is two products, each launched over the list of
+// Each of the three kernels is two products, each launched over the list of
 // 64-row token tiles that hold a valid row (the wrapper builds it on the
 // device), times the N tiles of its output:
 //
 //   TC_FWD_H  h1 = x@wi [, h2 = x@wg]: writes h1 [h2] (zero on invalid rows
 //             of the tile) and h = bf16(act(h1) [⊙ h2]) into a compact
 //             scratch, one 64-row block per listed tile;
+//   TC_INF_H  the same product without the residuals: h alone;
 //   TC_FWD_Y  y = h@wo from that scratch: writes y at valid rows;
 //   TC_DG_DH  dh = g@woᵀ: the epilogue reads h1 [h2] at valid rows and
 //             writes dh1, h [, dh2] there, and dh1 - bf16(dh1) [and the same
 //             of dh2] as bf16 into a compact scratch;
 //   TC_DG_DX  dx = (hi + lo)@wiᵀ [+ (hi2 + lo2)@wgᵀ]: hi is the dh1 output,
 //             lo the scratch; writes dx at valid rows.
+//
+// The inference form's list has a length the host knows without reading
+// the device: every tile of the call, the listed ones first and -1 after
+// them.  A block whose entry is -1 computes nothing; it only writes its
+// share of the zero rows.
 //
 // The outputs that the contract writes whole (y; dx, dh1, h, dh2) also
 // need their invalid rows zeroed: 97% of the rows at training shapes, and
@@ -53,7 +59,12 @@ constexpr int TC_BK = 32;    // reduction depth of one ring stage
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
 
-enum { TC_FWD_H = 0, TC_FWD_Y = 1, TC_DG_DH = 2, TC_DG_DX = 3 };
+enum { TC_FWD_H = 0, TC_FWD_Y = 1, TC_DG_DH = 2, TC_DG_DX = 3, TC_INF_H = 4 };
+
+// h = act(x@wi) [⊙ x@wg]: the training form (residuals too) or inference
+__host__ __device__ constexpr bool tc_h(int epi) {
+  return epi == TC_FWD_H || epi == TC_INF_H;
+}
 
 template <int EPI, bool GATE>
 struct TcShape {
@@ -61,9 +72,9 @@ struct TcShape {
   static constexpr int NA = EPI == TC_DG_DX ? (GATE ? 4 : 2) : 1;
   // B operands: wi [and wg]
   static constexpr int NB =
-      GATE && (EPI == TC_FWD_H || EPI == TC_DG_DX) ? 2 : 1;
-  static constexpr int NACC = GATE && EPI == TC_FWD_H ? 2 : 1;
-  static constexpr bool B_KN = EPI == TC_FWD_H || EPI == TC_FWD_Y;
+      GATE && (tc_h(EPI) || EPI == TC_DG_DX) ? 2 : 1;
+  static constexpr int NACC = GATE && tc_h(EPI) ? 2 : 1;
+  static constexpr bool B_KN = tc_h(EPI) || EPI == TC_FWD_Y;
   static constexpr int BN = NB == 2 ? 64 : 128;
   static constexpr int WN = BN / TC_WARPS;  // columns of one warp
   static constexpr int NT = WN / 8;         // its n8 tiles
@@ -138,9 +149,11 @@ struct TcParams {
   const __nv_bfloat16* b[2];  // B operands at slot 0
   long long sb[2];            // their slot strides (elements)
   const int* mask;            // (K, T) validity
-  const int* tiles;           // listed tiles: k * nt + tile, increasing
+  const int* tiles;           // listed tiles: k * nt + tile, increasing;
+                              // -1 past the end of a padded list
   const __nv_bfloat16* e[2];  // TC_DG_DH: h1, h2
-  // TC_FWD_H: h1, h2, h scratch; TC_FWD_Y: y; TC_DG_DH: dh1, h, dh2,
+  // TC_FWD_H: h1, h2, h scratch; TC_INF_H: -, -, h scratch; TC_FWD_Y: y;
+  // TC_DG_DH: dh1, h, dh2,
   // lo scratch, lo2 scratch; TC_DG_DX: dx
   __nv_bfloat16* o[5];
   int T, nt, Kd, N;  // slot rows, tiles per slot, reduction, output width
@@ -188,6 +201,10 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
   const int i = blockIdx.x / nbn;  // N tiles fastest: they share A
   const int n0 = (blockIdx.x % nbn) * S::BN;
   const int tile = p.tiles[i];
+  if (tile < 0) {  // past the device count of a padded list
+    if (p.z.n > 0) zero_rows_share<VEC>(p.mask, p.z_first, p.z_last, p.z);
+    return;
+  }
   const int k = tile / p.nt;
   const int t0 = (tile % p.nt) * TC_BM;
   const int nrows = min(TC_BM, p.T - t0);
@@ -316,7 +333,7 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
         for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
           for (int nt = 0; nt < S::NT; ++nt) {
-            if constexpr (EPI == TC_FWD_H) {  // x@wi [and x@wg]
+            if constexpr (tc_h(EPI)) {  // x@wi [and x@wg]
 #pragma unroll
               for (int j = 0; j < S::NB; ++j)
                 mma_bf16(acc[j][mt][nt], af[mt], bfr[j][nt][0],
@@ -346,7 +363,7 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
       for (int nt = 0; nt < S::NT; ++nt) {
         const int c = n0 + warp * S::WN + nt * 8 + 2 * t4;
         float v[2] = {acc[0][mt][nt][2 * hf], acc[0][mt][nt][2 * hf + 1]};
-        if (EPI == TC_FWD_H) {
+        if (tc_h(EPI)) {
           float w[2] = {0.0f, 0.0f}, h[2];
           if (GATE) {
             w[0] = acc[S::NACC - 1][mt][nt][2 * hf];
@@ -358,7 +375,7 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
             if (GATE) h[u] *= w[u];
             if (!ok) v[u] = w[u] = h[u] = 0.0f;
           }
-          if (r < nrows) {
+          if (EPI == TC_FWD_H && r < nrows) {  // the residuals
             store2<VEC>(p.o[0], orow + c, c, p.N, v[0], v[1]);
             if (GATE) store2<VEC>(p.o[1], orow + c, c, p.N, w[0], w[1]);
           }

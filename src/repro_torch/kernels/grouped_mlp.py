@@ -9,14 +9,19 @@ and prepares the operands, allocates the outputs, launches on the current
 stream and counts its launches in ``LAUNCHES``; ``kernels/ref.py`` holds
 the plain versions.
 
-In bfloat16 the training forward and dgrad run on the tensor cores
-(``csrc/grouped_mlp_tc.cuh``): each is two tile products launched over the
-64-row token tiles that hold a valid row (``tile_list``); the outputs'
-zero rows are written beside them (by the forward's product blocks, by a
-bandwidth-bound pass of its own in dgrad).  The list's
-length sizes a compact scratch (h for the forward, the low half of dh1 for
-dgrad), so building it reads one count back to the host;
-``GroupedMLPFunction`` builds it once per forward and hands it to dgrad.
+In bfloat16 every stage runs on the tensor cores.  The training forward
+and dgrad (``csrc/grouped_mlp_tc.cuh``) are two tile products each,
+launched over the 64-row token tiles that hold a valid row
+(``tile_list``); the outputs' zero rows are written beside them (by the
+forward's product blocks, by a bandwidth-bound pass of its own in dgrad).
+The list's length sizes a compact scratch (h for the forward, the low half
+of dh1 for dgrad), so building it reads one count back to the host;
+``GroupedMLPFunction`` builds it once per forward and hands it to dgrad and
+wgrad.  wgrad walks each slot's range of that list (``tile_starts``, a
+device-side search).  The inference form runs the forward's two products
+over a tile list of the length the host knows (every tile, -1 past the
+listed ones; ``ref.tile_list_padded``), which its C call builds on the
+device, so the serving path reads nothing back.
 Float32 keeps the FMA loops of the first port.
 """
 from __future__ import annotations
@@ -34,14 +39,15 @@ LAUNCHES = {"grouped_mlp_fwd": 0, "grouped_mlp_fwd_train": 0,
             "grouped_mlp_dgrad": 0, "grouped_mlp_wgrad": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "silu": 1}
-_BF = 64              # the kernels' F chunk
-_WG_TILE = 32         # token rows per staged tile of wgrad
+_BF = 64              # the float32 kernels' F chunk
 TC_TILE = 64          # token rows per tile of the tensor-core kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {
     "grouped_mlp": {
         "grouped_mlp_fwd": [_P] * 7 + [_I] * 4 + [_L] * 3 + [_I] * 3 + [_P],
+        "grouped_mlp_fwd_bf16": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 4
+                                 + [_L] * 3 + [_I, _P]),
         "grouped_mlp_fwd_train": ([_P] * 8 + [_I] * 4 + [_L] * 3
                                   + [_I] * 2 + [_P]),
         "grouped_mlp_fwd_train_bf16": ([_P] * 6 + [_I] + [_P] * 4
@@ -51,7 +57,8 @@ _SIGS = {
         "grouped_mlp_dgrad": [_P] * 11 + [_I] * 6 + [_P],
         "grouped_mlp_dgrad_bf16": ([_P] * 8 + [_I] + [_P] * 5 + [_I] * 4
                                    + [_L] * 3 + [_I, _P]),
-        "grouped_mlp_wgrad": [_P] * 11 + [_I] * 6 + [_P],
+        "grouped_mlp_wgrad": [_P] * 11 + [_I] * 5 + [_P],
+        "grouped_mlp_wgrad_bf16": [_P] * 11 + [_I] * 4 + [_P],
     },
 }
 
@@ -129,19 +136,32 @@ def grouped_mlp(x, wi, wg, wo, group_sizes=None, row_valid=None, *,
     if not x.is_contiguous():
         raise ValueError("grouped_mlp kernel needs a contiguous x")
     _check_slots(wi=wi, wg=wg, wo=wo)
-    # a decode-sized call (one sub-tile of rows per slot) gives every
-    # 64-wide F chunk its own block, a prefill-sized one four chunks; each
-    # F range's partial sums land in its own f32 plane of `part`
-    f_split = _BF * (1 if t_ <= 16 else 4)
-    part = torch.empty((-(-f_ // f_split), k_, t_, d), dtype=torch.float32,
-                       device=x.device)
     y = torch.empty_like(x)
     lib = _lib("grouped_mlp")
-    code = lib.grouped_mlp_fwd(
-        x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-        mask.data_ptr(), part.data_ptr(), y.data_ptr(), k_, t_, d, f_,
-        wi.stride(0), wg.stride(0) if wg is not None else 0, wo.stride(0),
-        f_split, _act_code(act), _DTYPES[x.dtype], _stream(x))
+    strides = (wi.stride(0), wg.stride(0) if wg is not None else 0,
+               wo.stride(0))
+    if x.dtype == torch.bfloat16:
+        # no host sync: the kernel's tile list and the scratch have the
+        # length the host knows, every 64-row tile of the call
+        n = k_ * -(-t_ // TC_TILE)
+        tiles = torch.empty(n, dtype=torch.int32, device=x.device)
+        hs = torch.empty((n * TC_TILE, f_), dtype=x.dtype, device=x.device)
+        code = lib.grouped_mlp_fwd_bf16(
+            x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+            mask.data_ptr(), tiles.data_ptr(), tiles.numel(), hs.data_ptr(),
+            y.data_ptr(), k_, t_, d, f_, *strides, _act_code(act),
+            _stream(x))
+    else:
+        # a decode-sized call (one sub-tile of rows per slot) gives every
+        # 64-wide F chunk its own block, a prefill-sized one four chunks;
+        # each F range's partial sums land in its own f32 plane of `part`
+        f_split = _BF * (1 if t_ <= 16 else 4)
+        part = torch.empty((-(-f_ // f_split), k_, t_, d),
+                           dtype=torch.float32, device=x.device)
+        code = lib.grouped_mlp_fwd(
+            x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+            mask.data_ptr(), part.data_ptr(), y.data_ptr(), k_, t_, d, f_,
+            *strides, f_split, _act_code(act), _DTYPES[x.dtype], _stream(x))
     _build.check(lib, code, "grouped_mlp_fwd")
     LAUNCHES["grouped_mlp_fwd"] += 1
     return y
@@ -235,21 +255,22 @@ def grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo, *,
     return dx, dh1, dh2, h
 
 
-def _tile_hits(mask, tile: int):
-    """(K, ceil(T/tile)) bool: which token tiles hold a valid row."""
-    k_, t_ = mask.shape
-    nt = -(-t_ // tile)
-    m = torch.nn.functional.pad(mask.bool(), (0, nt * tile - t_))
-    return m.view(k_, nt, tile).any(-1)
-
-
 def tile_list(mask, tile: int = TC_TILE):
     """mask (K, T) -> int32 ids ``k * ceil(T/tile) + t`` of the token tiles
     that hold a valid row, in increasing order: the grid of the tensor-core
-    kernels.  Its length sizes their scratch, so this reads one count back
-    to the host."""
-    return _tile_hits(mask, tile).flatten().nonzero().flatten() \
+    training kernels.  Its length sizes their scratch, so this reads one
+    count back to the host."""
+    return ref.tile_hits(mask, tile).flatten().nonzero().flatten() \
         .to(torch.int32)
+
+
+def tile_starts(tiles, k_: int, t_: int, tile: int = TC_TILE):
+    """(K + 1,) int32 for a list as ``tile_list`` returns it: slot k's
+    tiles are ``tiles[starts[k]:starts[k + 1]]`` (the list is sorted by
+    ``k * ceil(T/tile) + t``).  A search on the device; no host sync."""
+    nt = -(-t_ // tile)
+    bounds = torch.arange(k_ + 1, dtype=torch.int32, device=tiles.device)
+    return torch.searchsorted(tiles, bounds * nt, out_int32=True)
 
 
 def _tiles(mask, tiles):
@@ -262,20 +283,10 @@ def _tiles(mask, tiles):
     return tiles.contiguous()
 
 
-def valid_tiles(mask, tile: int = _WG_TILE):
-    """mask (K, T) -> (tiles (K, ceil(T/tile)) int32, counts (K,) int32):
-    slot k's token tiles that hold a valid row come first in ``tiles[k]``,
-    in increasing order, and ``counts[k]`` says how many there are (a
-    stable sort on the device; no host sync)."""
-    hit = _tile_hits(mask, tile)
-    tiles = torch.argsort((~hit).to(torch.uint8), dim=1, stable=True)
-    return (tiles.to(torch.int32).contiguous(),
-            hit.sum(1).to(torch.int32).contiguous())
-
-
-def grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h):
+def grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h, *, tiles=None):
     """``(dwi, dwg, dwo)`` as ``ref.grouped_mlp_wgrad_ref`` returns them,
-    in x's dtype."""
+    in x's dtype.  ``tiles``: ``tile_list(mask)`` if the caller has it, as
+    ``GroupedMLPFunction`` does; else it is built here (one host sync)."""
     k_, t_, d = x.shape
     f_ = dh1.shape[-1]
     ops_ = [x, dy, dh1, h] + ([dh2] if dh2 is not None else [])
@@ -289,16 +300,19 @@ def grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h):
     mask = _mask_i32(mask, k_, t_)
     x, dy, dh1, h = (a.contiguous() for a in (x, dy, dh1, h))
     dh2 = None if dh2 is None else dh2.contiguous()
-    tiles, counts = valid_tiles(mask)
+    tiles = _tiles(mask, tiles)
+    starts = tile_starts(tiles, k_, t_)
     dwi = torch.empty((k_, d, f_), dtype=x.dtype, device=x.device)
     dwg = None if dh2 is None else torch.empty_like(dwi)
     dwo = torch.empty((k_, f_, d), dtype=x.dtype, device=x.device)
     lib = _lib("grouped_mlp_bwd")
-    code = lib.grouped_mlp_wgrad(
-        x.data_ptr(), dy.data_ptr(), mask.data_ptr(), dh1.data_ptr(),
-        _ptr(dh2), h.data_ptr(), tiles.data_ptr(), counts.data_ptr(),
-        dwi.data_ptr(), _ptr(dwg), dwo.data_ptr(), k_, t_, d, f_,
-        tiles.shape[1], _DTYPES[x.dtype], _stream(x))
+    args = (x.data_ptr(), dy.data_ptr(), mask.data_ptr(), dh1.data_ptr(),
+            _ptr(dh2), h.data_ptr(), tiles.data_ptr(), starts.data_ptr(),
+            dwi.data_ptr(), _ptr(dwg), dwo.data_ptr(), k_, t_, d, f_)
+    if x.dtype == torch.bfloat16:
+        code = lib.grouped_mlp_wgrad_bf16(*args, _stream(x))
+    else:
+        code = lib.grouped_mlp_wgrad(*args, _DTYPES[x.dtype], _stream(x))
     _build.check(lib, code, "grouped_mlp_wgrad")
     LAUNCHES["grouped_mlp_wgrad"] += 1
     return dwi, dwg, dwo
@@ -311,6 +325,8 @@ class GroupedMLPFunction(torch.autograd.Function):
     ``apply(x, wi, wg, wo, mask, act, kernel)``: the forward runs the
     training form and saves ``(x, wi, wg, wo, mask, h1, h2)``; the backward
     runs dgrad, then wgrad, and gives invalid rows exactly zero gradient.
+    In bfloat16 the forward builds the tensor-core kernels' tile list once
+    and hands it to all three stages.
     ``kernel`` picks the stages: the CUDA kernels, or the step-wise plain
     versions of ``kernels/ref.py`` (CPU tensors, or ``reference_mode``).
     It is fixed at the forward, because the backward runs on autograd's
@@ -337,11 +353,12 @@ class GroupedMLPFunction(torch.autograd.Function):
         if ctx.kernel:
             dx, dh1, dh2, h = grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo,
                                                 act=ctx.act, tiles=ctx.tiles)
-            wgrad = grouped_mlp_wgrad
+            dwi, dwg, dwo = grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h,
+                                              tiles=ctx.tiles)
         else:
             dx, dh1, dh2, h = ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi,
                                                         wg, wo, act=ctx.act)
-            wgrad = ref.grouped_mlp_wgrad_ref
-        dwi, dwg, dwo = wgrad(x, dy, mask, dh1, dh2, h)
+            dwi, dwg, dwo = ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2,
+                                                      h)
         return (dx, dwi.to(wi.dtype), None if wg is None else
                 dwg.to(wg.dtype), dwo.to(wo.dtype), None, None, None)

@@ -54,6 +54,25 @@ def grouped_mlp_ref(x, wi, wg, wo, act: str = "silu_glu",
     return y
 
 
+def tile_hits(mask, tile: int = 64):
+    """(K, ceil(T/tile)) bool: which ``tile``-row token tiles of the (K, T)
+    validity hold a valid row (the Pallas kernels' skip table, > 0)."""
+    k_, t_ = mask.shape
+    nt = -(-t_ // tile)
+    m = F.pad(mask.bool(), (0, nt * tile - t_))
+    return m.view(k_, nt, tile).any(-1)
+
+
+def tile_list_padded(mask, tile: int = 64):
+    """The plain version of the tile list the bf16 inference form builds
+    on the device (``gm_tile_list_kernel``): the ids ``k * ceil(T/tile) +
+    t`` of the tiles that hold a valid row, increasing, then -1 up to
+    ``K * ceil(T/tile)`` int32 entries, a length the host knows."""
+    hits = tile_hits(mask, tile).flatten()
+    listed = hits.nonzero().flatten().to(torch.int32)
+    return F.pad(listed, (0, hits.numel() - listed.numel()), value=-1)
+
+
 _GELU_K0 = math.sqrt(2.0 / math.pi)
 _GELU_K1 = 0.044715
 

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import grouped_mlp as jgm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.serve.kv_pool import PageTable  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -62,7 +63,7 @@ def _gmlp_inputs(seed, K, T, D, F, act):
 
 
 @pytest.mark.parametrize("K,T,D,F", [(1, 128, 128, 128), (4, 256, 128, 256),
-                                     (3, 96, 64, 200)])
+                                     (3, 96, 64, 200), (8, 4, 64, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["silu_glu", "gelu"])
 def test_grouped_mlp_matches_jax(K, T, D, F, dtype, act):
@@ -105,6 +106,54 @@ def test_grouped_mlp_adversarial_validity(case):
         assert (got == 0).all()
     if case == "row_valid":
         assert (got.numpy()[~rv] == 0).all()
+
+
+def _padded_list_masks():
+    """(K, T) masks for the inference form's tile list: every slot empty,
+    every slot full, T not a multiple of 64 with an empty, a ragged and a
+    full slot, the scattered stripes above, a slot holding only the last
+    row of a ragged tile, the decode tick's (8 of 64 slots hold one row)
+    and a 512-bucket prefill's (~16 rows a slot)."""
+    rng = np.random.default_rng(5)
+    out = {"zero_groups": np.zeros((3, 256), bool),
+           "all_full": np.ones((3, 256), bool),
+           "odd_T": np.arange(96)[None, :] < np.asarray([0, 37, 96])[:, None]}
+    stripes = np.zeros((2, 384), bool)
+    for k, cnt in enumerate([[128, 0, 60], [0, 5, 128]]):
+        for r, c in enumerate(cnt):
+            stripes[k, r * 128:r * 128 + c] = True
+    out["scattered"] = stripes
+    last = rng.random((4, 200)) < 0.1
+    last[0] = False
+    last[1] = np.arange(200) == 199
+    out["last_row"] = last
+    dec = np.zeros((64, 4), bool)
+    dec[rng.permutation(64)[:8], 0] = True
+    out["decode"] = dec
+    cnt = np.bincount(rng.integers(0, 64, 1024), minlength=64)
+    out["prefill"] = np.arange(512)[None, :] < cnt[:, None]
+    return out
+
+
+PADDED_LIST_MASKS = _padded_list_masks()
+
+
+@pytest.mark.parametrize("case", list(PADDED_LIST_MASKS))
+def test_tile_list_padded_is_pallas_skip_table(case):
+    """The bf16 inference form's grid (``ref.tile_list_padded``, the plain
+    version of the list its C call builds on the device): K·ceil(T/64)
+    int32 entries, first the ids k·nt + t of the 64-row tiles whose count
+    in the Pallas skip table (``_tile_counts``) is not zero, increasing,
+    then -1."""
+    mask = PADDED_LIST_MASKS[case]
+    K, T = mask.shape
+    counts = np.asarray(jgm._tile_counts(
+        jgm._pad_to(jnp.asarray(mask, jnp.int32), 1, 64), 64))
+    want = np.flatnonzero(counts)
+    got = ref.tile_list_padded(torch.from_numpy(mask))
+    assert got.dtype == torch.int32 and got.shape == (K * (-(-T // 64)),)
+    np.testing.assert_array_equal(got[:want.size].numpy(), want)
+    assert (got[want.size:] == -1).all()
 
 
 # ---------------------------------------------------------------------------

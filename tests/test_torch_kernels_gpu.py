@@ -475,6 +475,158 @@ def test_grouped_mlp_function_matches_autograd_of_plain(cuda, act):
     assert (g[0][mask == 0] == 0).all()
 
 
+# ---------------------------------------------------------------------------
+# bf16 on the tensor cores: B3 wgrad and B1's inference form
+# ---------------------------------------------------------------------------
+def _wgrad_case(rng, K, T, D, F, act, dev):
+    """B3's arguments (x, dy, mask, dh1, dh2, h) in bf16, dh2 None without
+    a gate; the mask: slot 0
+    empty, slot 1 a ragged prefix with a scattered hole, slot 2 full, slot 3
+    one middle tile and the last row.  Invalid rows hold NaN in every
+    operand, so an unmasked row would show."""
+    x, dy = (_t(rng, (K, T, D), sc, torch.bfloat16, dev) for sc in (.3, .1))
+    dh1, dh2, h = (_t(rng, (K, T, F), sc, torch.bfloat16, dev)
+                   for sc in (.1, .1, .5))
+    if not act.endswith("_glu"):
+        dh2 = None
+    mask = torch.zeros((K, T), dtype=torch.int32, device=dev)
+    mask[1, :min(T, 137)] = 1
+    mask[1, 40:90] = 0
+    mask[2] = 1
+    mask[3, 64:128] = 1
+    mask[3, T - 1] = 1
+    for a in (x, dy, dh1, dh2, h):
+        if a is not None:
+            a[mask == 0] = float("nan")
+    return x, dy, mask, dh1, dh2, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+@pytest.mark.parametrize("T,D,F,shift", [
+    (96, 768, 1536, None), (300, 768, 1536, None),   # full width, ragged T
+    (300, 100, 200, None), (96, 96, 198, None),      # element-wise branch
+    (300, 96, 200, 0), (300, 96, 200, 5)])           # x or h off 16 bytes
+def test_grouped_mlp_wgrad_tc_matches_plain(cuda, act, T, D, F, shift):
+    """B3 in bf16 on the tensor cores against ``ref.grouped_mlp_wgrad_ref``
+    (gated: dwi, dwg, dwo; ungated: dwi, dwo), with the tile list built by
+    the wrapper and given by the caller; the empty slot's gradients are
+    zero; two calls give the same bits."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(T + D + F + (shift or 0))
+    case = list(_wgrad_case(rng, 4, T, D, F, act, cuda))
+    if shift is not None:
+        case[shift] = _offset_copy(case[shift])
+    got, n = _launched(lambda: gm.grouped_mlp_wgrad(*case))
+    assert n == {"grouped_mlp_wgrad": 1}
+    _close_all(got, ref.grouped_mlp_wgrad_ref(*case), torch.bfloat16)
+    assert all(a is None or (a[0] == 0).all() for a in got)
+    tiles = gm.tile_list(case[2])
+    again = gm.grouped_mlp_wgrad(*case, tiles=tiles)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_wgrad_tc_empty_and_scattered(cuda, act):
+    """Every slot empty: zero gradients (an empty tile list).  Full width
+    with a scattered ``row_valid`` (30% of rows, one 64-row tile empty, one
+    full): the plain version's values."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(41)
+    x, dy, _, dh1, dh2, h = _wgrad_case(rng, 4, 256, 768, 1536, act, cuda)
+    x, dy, dh1, h = (torch.nan_to_num(a) for a in (x, dy, dh1, h))
+    dh2 = None if dh2 is None else torch.nan_to_num(dh2)
+    empty = torch.zeros((4, 256), dtype=torch.int32, device=cuda)
+    got = gm.grouped_mlp_wgrad(x, dy, empty, dh1, dh2, h)
+    assert all(a is None or (a == 0).all() for a in got)
+    mask = torch.from_numpy(rng.random((4, 256)) < 0.3).to(cuda, torch.int32)
+    mask[1, 64:128] = 0
+    mask[2, 128:192] = 1
+    got = gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h,
+                               tiles=gm.tile_list(mask))
+    _close_all(got, ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2, h),
+               torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+@pytest.mark.parametrize("T,D,F,views", [(4, 768, 1536, True),
+                                         (300, 768, 1536, True),
+                                         (300, 100, 200, False),
+                                         (4, 96, 198, False)])
+@pytest.mark.parametrize("validity", ["group_sizes", "row_valid"])
+def test_grouped_mlp_tc_inference_no_sync(cuda, act, T, D, F, views,
+                                          validity):
+    """B1's inference form in bf16 on the tensor cores against
+    ``grouped_mlp_ref``: the decode (T = 4) and a ragged prefill (T = 300)
+    at full width with the weights as views into a slot buffer, and the
+    element-wise branch; ``group_sizes`` with zero groups, or a scattered
+    ``row_valid``.  The calls run under ``set_sync_debug_mode("error")``:
+    the wrapper reads nothing back to the host.  Invalid rows are zero and
+    two calls give the same bits."""
+    rng = np.random.default_rng(T * D + F)
+    K = 8
+    x = _t(rng, (K, T, D), 0.3, torch.bfloat16, cuda)
+    wi, wg, wo = _tc_weights(rng, K, D, F, act, cuda, views=views)
+    if validity == "group_sizes":
+        gs = torch.tensor([0, 1, 0, min(63, T), T, 2, 0, min(65, T)],
+                          dtype=torch.int32, device=cuda)
+        kw = dict(group_sizes=gs)
+        valid = torch.arange(T, device=cuda)[None] < gs[:, None]
+    else:
+        valid = torch.from_numpy(rng.random((K, T)) < 0.3).to(cuda)
+        valid[0] = False
+        kw = dict(row_valid=valid)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["grouped_mlp_fwd"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ops.grouped_mlp(x, wi, wg, wo, act=act, **kw)
+        again = ops.grouped_mlp(x, wi, wg, wo, act=act, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["grouped_mlp_fwd"] == before + 2
+    with ops.reference_mode():
+        want = ops.grouped_mlp(x, wi, wg, wo, act=act, **kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    assert (got[~valid] == 0).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_grouped_mlp_function_bf16_shares_tile_list(cuda):
+    """bf16 ``GroupedMLPFunction`` on the card: one launch of each stage,
+    the forward's tile list handed to dgrad and wgrad, and gradients
+    within 2e-2 of each tensor's largest entry of the same function's
+    step-wise plain stages on the same tensors."""
+    from repro_torch.kernels import grouped_mlp as gm
+    rng = np.random.default_rng(42)
+    K, T, D, F = 4, 200, 768, 1536
+    x = _t(rng, (K, T, D), 0.3, torch.bfloat16, cuda)
+    dy = _t(rng, (K, T, D), 0.1, torch.bfloat16, cuda)
+    wi, wg, wo = _tc_weights(rng, K, D, F, "gelu", cuda, views=False)
+    mask = torch.from_numpy(rng.random((K, T)) < 0.4).to(cuda, torch.int32)
+    mask[0] = 0
+
+    def grads(kernel):
+        ts = [a.clone().requires_grad_(True) for a in (x, wi, wo)]
+        y = gm.GroupedMLPFunction.apply(ts[0], ts[1], None, ts[2], mask,
+                                        "gelu", kernel)
+        (y.float() * dy.float()).sum().backward()
+        return [t.grad for t in ts]
+    got, n = _launched(lambda: grads(True))
+    assert n == {"grouped_mlp_fwd_train": 1, "grouped_mlp_dgrad": 1,
+                 "grouped_mlp_wgrad": 1}
+    for a, b in zip(got, grads(False)):
+        assert a.dtype == torch.bfloat16
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+
+
 @pytest.mark.gpu
 def test_flash_attention_kernel_refuses_grad(cuda):
     """The flash kernel has no backward: a grad-requiring CUDA call raises

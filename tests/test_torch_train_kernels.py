@@ -206,23 +206,76 @@ def test_dgrad_split_ref_matches_pallas(case, act):
     assert (_np(got[0])[~mask] == 0).all()
 
 
+def _skip_table(mask, bt=64):
+    """The Pallas kernels' skip table (``_tile_counts``) of a (K, T) bool
+    mask at ``bt``-row tiles, as a (K, ceil(T/bt)) numpy array."""
+    tn = jgm._tile_counts(jgm._pad_to(jnp.asarray(mask, jnp.int32), 1, bt),
+                          bt)
+    return np.asarray(tn).reshape(mask.shape[0], -1)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_tile_list_is_pallas_skip_table(case):
     """``tile_list`` (the grid of the bf16 tensor-core kernels, 64-row
     tiles) lists exactly the tiles whose count in the Pallas kernels' skip
     table (``_tile_counts`` at bt = 64) is not zero, in increasing order;
-    ``valid_tiles`` (wgrad's per-slot list) agrees with it at 64 rows."""
+    ``tile_starts`` (wgrad's per-slot ranges of it) cuts it into the
+    slots' runs, which together are the whole list."""
     from repro_torch.kernels import grouped_mlp as gm
     K, T = CASES[case][:2]
     mask = _mask(case, K, T)
-    counts = np.asarray(jgm._tile_counts(
-        jgm._pad_to(jnp.asarray(mask, jnp.int32), 1, 64), 64))
+    counts = _skip_table(mask).reshape(-1)
     got = gm.tile_list(torch.from_numpy(mask))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.flatnonzero(counts))
-    tiles, n = gm.valid_tiles(torch.from_numpy(mask), 64)
-    per_slot = [tiles[k, :n[k]] + k * tiles.shape[1] for k in range(K)]
-    np.testing.assert_array_equal(torch.cat(per_slot).numpy(), got.numpy())
+    starts = gm.tile_starts(got, K, T).numpy()
+    per_slot = [got.numpy()[starts[k]:starts[k + 1]] for k in range(K)]
+    np.testing.assert_array_equal(np.concatenate(per_slot), got.numpy())
+
+
+def _tile_masks():
+    """Adversarial (K, T) masks for the tile helpers: every case above, and
+    one slot each empty, full, holding only the last row of a ragged tile,
+    scattered, and holding one whole middle tile; the decode tick's (8 of
+    64 slots hold one row) and a 512-bucket prefill's (~16 rows a slot)."""
+    rng = np.random.default_rng(7)
+    out = {c: _mask(c, *CASES[c][:2]) for c in CASES}
+    mixed = np.zeros((5, 200), bool)
+    mixed[1] = True
+    mixed[2, 199] = True
+    mixed[3] = rng.random(200) < 0.2
+    mixed[4, 64:128] = True
+    out["mixed"] = mixed
+    dec = np.zeros((64, 4), bool)
+    dec[rng.permutation(64)[:8], 0] = True
+    out["decode"] = dec
+    cnt = np.bincount(rng.integers(0, 64, 1024), minlength=64)
+    out["prefill"] = np.arange(512)[None, :] < cnt[:, None]
+    return out
+
+
+TILE_MASKS = _tile_masks()
+
+
+@pytest.mark.parametrize("case", list(TILE_MASKS))
+def test_tile_starts_are_pallas_skip_table(case):
+    """Slot k's range ``tiles[starts[k]:starts[k + 1]]`` of the forward's
+    tile list holds exactly slot k's tiles with a non-zero count in the
+    Pallas skip table, in increasing order: the tiles B3's tensor-core
+    kernel walks for slot k; an empty slot gets an empty range."""
+    from repro_torch.kernels import grouped_mlp as gm
+    mask = TILE_MASKS[case]
+    K, T = mask.shape
+    table = _skip_table(mask)
+    nt = table.shape[1]
+    tiles = gm.tile_list(torch.from_numpy(mask))
+    starts = gm.tile_starts(tiles, K, T)
+    assert starts.dtype == torch.int32 and starts.shape == (K + 1,)
+    assert starts[0] == 0 and starts[-1] == tiles.numel()
+    for k in range(K):
+        run = tiles[starts[k]:starts[k + 1]].numpy()
+        np.testing.assert_array_equal(run - k * nt,
+                                      np.flatnonzero(table[k]))
 
 
 # ---------------------------------------------------------------------------

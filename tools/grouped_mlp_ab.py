@@ -1,32 +1,35 @@
 #!/usr/bin/env python3
-"""Time two versions of the grouped-MLP training kernels on one card, in
-turns.
+"""Time two versions of the grouped-MLP kernels on one card, in turns.
 
     python3 tools/grouped_mlp_ab.py --other DIR [--out FILE]
 
-DIR is another checkout of this repository whose bf16 training forward
-(B1-train) and dgrad (B2) are the first port's design, on the FMA units
-(``grouped_mlp_fwd_train`` and ``grouped_mlp_dgrad`` taking bf16): for
-example such a commit unpacked with ``git archive`` into a git-ignored
-directory.  The script builds that tree's ``grouped_mlp.cu`` and
-``grouped_mlp_bwd.cu`` with this tree's ``nvcc`` flags and calls their C
-entry points as that tree's wrapper did (dgrad with the transposed weight
-copies that wrapper made on every call, inside the timing); this tree's
-kernels run through their wrappers (``kernels/grouped_mlp.py``) with the
-tile list given, as the training path hands it to both, and the list is
-timed on its own.  Both are held to the plain PyTorch versions on the first 8
-slots, then timed in the order other, this, this, other (CUDA events,
-median of 15, L2 flushed before each call) at the shapes of
-``chip_smoke.py``'s training check: 64 slots of capacity 16,384, 32,768
-valid rows as a prefix of each slot, D 768, F 1,536, GELU, bf16.  It
-prints the card, one line per kernel with both versions' times and
-TFLOP/s and, as its last line, one JSON object with every time.  Needs
-one CUDA card and ``nvcc``.
+DIR is another checkout of this repository, for example a commit unpacked
+with ``git archive`` into a git-ignored directory.  The script imports that
+tree's ``repro_torch.kernels.grouped_mlp`` under its own package objects
+(this tree's modules are put back afterwards), so each version runs through
+its own wrappers, builds its own CUDA sources with its own flags into its
+own build directory, and pays for what its wrapper does on every call
+(a tile list, transposed weight copies, partial-sum planes).  Where a
+wrapper takes the shared tile list (``tiles=``), it is given, as the
+training path hands it to every stage; the list is timed on its own.
+
+Cases, bf16, GELU: the training forward (B1-train), dgrad (B2) and wgrad
+(B3) at the shapes of ``chip_smoke.py``'s training check (64 slots of
+capacity 16,384, 32,768 valid rows as a prefix of each slot, D 768, F
+1,536), and the inference form (B1) at its decode tick (64 slots of 4
+rows, one valid row in each of 8 slots) and at a 512-bucket prefill (64
+slots of 512 rows, 1,024 valid rows).  Each version is held to the plain
+PyTorch version (training stages on the first 8 slots), then timed in the
+order other, this, this, other (CUDA events, median of 15, L2 flushed
+before each call).  It prints the card, one line per case with both
+versions' times and TFLOP/s and, as its last line, one JSON object with
+every time.  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -38,53 +41,36 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the FMA design's C entry points
-OLD_SIGS = {
-    "grouped_mlp": ("grouped_mlp_fwd_train",
-                    [_P] * 8 + [_I] * 4 + [_L] * 3 + [_I] * 2 + [_P]),
-    "grouped_mlp_bwd": ("grouped_mlp_dgrad", [_P] * 11 + [_I] * 6 + [_P]),
-}
+
+def _port_modules():
+    return [n for n in sys.modules
+            if n == "repro_torch" or n.startswith("repro_torch.")]
 
 
-def build_other(other: str, name: str):
-    """The FMA design's entry point of ``name``.cu in the tree at
-    ``other``, built with this tree's flags into that tree's (git-ignored)
-    build directory."""
-    from repro_torch.kernels import _build
-    kdir = os.path.join(other, "src", "repro_torch", "kernels")
-    os.makedirs(os.path.join(kdir, "build"), exist_ok=True)
-    out = os.path.join(kdir, "build", f"ab_lib{name}.so")
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", out,
-                    os.path.join(kdir, "csrc", f"{name}.cu")], check=True,
-                   capture_output=True, text=True)
-    fn_name, args = OLD_SIGS[name]
-    fn = getattr(ctypes.CDLL(out), fn_name)
-    fn.argtypes, fn.restype = args, ctypes.c_int
-    return fn
+def load_other(other: str):
+    """The other checkout's ``repro_torch.kernels.grouped_mlp``, imported
+    beside this tree's (which must be imported already)."""
+    mine = {n: sys.modules.pop(n) for n in _port_modules()}
+    sys.path.insert(0, os.path.join(os.path.abspath(other), "src"))
+    try:
+        return importlib.import_module("repro_torch.kernels.grouped_mlp")
+    finally:
+        sys.path.pop(0)
+        for n in _port_modules():
+            del sys.modules[n]
+        sys.modules.update(mine)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
-    ap.add_argument("--out", default="", help="also write the JSON here")
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        cs.fail("no CUDA device")
-    from repro_torch.kernels import grouped_mlp as gm
-    from repro_torch.kernels import ref
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card)
-    old_fwd = build_other(args.other, "grouped_mlp")
-    old_dgrad = build_other(args.other, "grouped_mlp_bwd")
-    stream = torch.cuda.current_stream().cuda_stream
+def _call(fn, *args, tiles=None, **kw):
+    """``fn(*args, **kw)``, with ``tiles=`` where the wrapper takes it."""
+    if tiles is not None and "tiles" in inspect.signature(fn).parameters:
+        kw["tiles"] = tiles
+    return fn(*args, **kw)
 
+
+def _train_cases(torch, gms, ref, dev):
+    """B1-train, B2 and B3 at the training shapes: {name: (fns, plain,
+    operations, rows compared only where valid)}."""
     K, T, D, Fd = 64, cs.TRAIN_BATCH * cs.TRAIN_SEQ, 768, 1536
     rows = 2 * T
     g = torch.Generator(device=dev).manual_seed(4)
@@ -98,55 +84,102 @@ def main() -> None:
             .to(torch.bfloat16)
     x, dy = rnd((K, T, D), 0.3), rnd((K, T, D), 0.1)
     wi, wo = rnd((K, D, Fd), 0.05), rnd((K, Fd, D), 0.05)
-    tiles = gm.tile_list(mask)
-    _, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
-
-    def fwd_other():
-        y, hh = torch.empty_like(x), torch.empty_like(h1)
-        code = old_fwd(x.data_ptr(), wi.data_ptr(), None, wo.data_ptr(),
-                       mask.data_ptr(), y.data_ptr(), hh.data_ptr(), None,
-                       K, T, D, Fd, D * Fd, 0, Fd * D, 0, 1, stream)
-        if code:
-            raise RuntimeError(f"grouped_mlp_fwd_train: CUDA error {code}")
-        return y, hh
-
-    def dgrad_other():
-        wo_t = wo.transpose(1, 2).contiguous()
-        wi_t = wi.transpose(1, 2).contiguous()
-        dx, dh1, h = (torch.empty_like(a) for a in (dy, h1, h1))
-        code = old_dgrad(dy.data_ptr(), wo_t.data_ptr(), wi_t.data_ptr(),
-                         None, mask.data_ptr(), h1.data_ptr(), None,
-                         dx.data_ptr(), dh1.data_ptr(), None, h.data_ptr(),
-                         K, T, D, Fd, 0, 1, stream)
-        if code:
-            raise RuntimeError(f"grouped_mlp_dgrad: CUDA error {code}")
-        return dx, dh1, h
-
+    this = gms["this"]
+    tiles = this.tile_list(mask)
+    _, h1, _ = this.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu",
+                                          tiles=tiles)
+    _, dh1, _, h = this.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
+                                          act="gelu", tiles=tiles)
+    s = slice(0, 8)
+    ops2 = 2 * 2 * rows * D * Fd         # each function's two products
     cases = {
         "grouped_mlp_fwd_train": (
-            {"other": fwd_other,
-             "this": lambda: gm.grouped_mlp_fwd_train(
-                 x, wi, None, wo, mask, act="gelu", tiles=tiles)[:2]},
-            ref.grouped_mlp_fwd_train_ref(x[:8], wi[:8], None, wo[:8],
-                                          mask[:8], act="gelu")[:2]),
+            {w: (lambda m=m: _call(m.grouped_mlp_fwd_train, x, wi, None, wo,
+                                   mask, act="gelu", tiles=tiles)[:2])
+             for w, m in gms.items()},
+            ref.grouped_mlp_fwd_train_ref(x[s], wi[s], None, wo[s], mask[s],
+                                          act="gelu")[:2], ops2, (1,)),
         "grouped_mlp_dgrad": (
-            {"other": dgrad_other,
-             "this": lambda: [a for a in gm.grouped_mlp_dgrad(
-                 dy, mask, h1, None, wi, None, wo, act="gelu", tiles=tiles)
-                 if a is not None]},
+            {w: (lambda m=m: [a for a in _call(
+                m.grouped_mlp_dgrad, dy, mask, h1, None, wi, None, wo,
+                act="gelu", tiles=tiles) if a is not None])
+             for w, m in gms.items()},
             [a for a in ref.grouped_mlp_dgrad_ref(
-                dy[:8], mask[:8], h1[:8], None, wi[:8], None, wo[:8],
-                act="gelu") if a is not None]),
+                dy[s], mask[s], h1[s], None, wi[s], None, wo[s], act="gelu")
+             if a is not None], ops2, ()),
+        "grouped_mlp_wgrad": (
+            {w: (lambda m=m: [a for a in _call(
+                m.grouped_mlp_wgrad, x, dy, mask, dh1, None, h, tiles=tiles)
+                if a is not None]) for w, m in gms.items()},
+            [a for a in ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
+                                                  dh1[s], None, h[s])
+             if a is not None], ops2, ()),
     }
+    return cases, mask, tiles
+
+
+def _inference_cases(torch, gms, ref, dev):
+    """B1's inference form at the decode tick and at a 512-bucket
+    prefill, with ``chip_smoke.py``'s timing inputs."""
+    K, D, Fd = 64, 768, 1536
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for tag, T in (("decode", cs.MAX_SLOTS), ("prefill", 512)):
+        x = torch.randn((K, T, D), generator=g, device=dev).mul_(0.3) \
+            .to(torch.bfloat16)
+        wi = torch.randn((K, D, Fd), generator=g, device=dev).mul_(0.05) \
+            .to(torch.bfloat16)
+        wo = torch.randn((K, Fd, D), generator=g, device=dev).mul_(0.05) \
+            .to(torch.bfloat16)
+        if tag == "decode":      # 4 tokens, top-2: 8 slots hold one each
+            gs = torch.zeros(K, dtype=torch.int32, device=dev)
+            gs[torch.randperm(K, generator=g, device=dev)[
+                :2 * cs.MAX_SLOTS]] = 1
+        else:                    # ~1,024 assignments over the 64 slots
+            gs = torch.bincount(torch.randint(0, K, (1024,), generator=g,
+                                              device=dev), minlength=K) \
+                .clamp(max=T).to(torch.int32)
+        rows = int(gs.sum())
+        out[f"grouped_mlp_fwd {tag}"] = (
+            {w: (lambda m=m, x=x, wi=wi, wo=wo, gs=gs: [m.grouped_mlp(
+                x, wi, None, wo, gs, act="gelu")]) for w, m in gms.items()},
+            [ref.grouped_mlp_ref(x, wi, None, wo, act="gelu",
+                                 group_sizes=gs)],
+            2 * 2 * rows * D * Fd, ())
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--out", default="", help="also write the JSON here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device")
+    from repro_torch.kernels import grouped_mlp as this_gm
+    from repro_torch.kernels import ref
+    other_gm = load_other(args.other)
+    gms = {"other": other_gm, "this": this_gm}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    train, mask, tiles = _train_cases(torch, gms, ref, dev)
+    cases = {**train, **_inference_cases(torch, gms, ref, dev)}
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    valid = mask[:8].bool()
-    ops = 2 * 2 * rows * D * Fd          # the function's two products
+    n_cmp = 8
+    valid = mask[:n_cmp].bool()
     out = []
-    for name, (fns, plain) in cases.items():
+    for name, (fns, plain, ops, valid_only) in cases.items():
         for who, fn in fns.items():
             for i, (a, b) in enumerate(zip(fn(), plain)):
-                a = a[:8]
-                if name == "grouped_mlp_fwd_train" and i == 1:  # h1
+                if a.shape != b.shape:           # training: first 8 slots
+                    a = a[:n_cmp]
+                if i in valid_only:              # h1: its valid rows
                     a, b = a[valid], b[valid]
                 cs.compare(torch, f"{name} output {i} {who}", a, b,
                            *cs.TOL["bfloat16"])
@@ -154,15 +187,14 @@ def main() -> None:
         for who in ("other", "this", "this", "other"):
             times[who].append(cs.time_ms(torch, fns[who], flush))
         rate = {w: [ops / t / 1e9 for t in ts] for w, ts in times.items()}
-        print(f"  [{card}] {name} K={K} T={T} D={D} F={Fd} gelu bf16, "
-              f"{rows} valid rows: other {times['other']} ms "
+        print(f"  [{card}] {name} bf16: other {times['other']} ms "
               f"({[round(r, 1) for r in rate['other']]} TFLOP/s), this "
               f"{times['this']} ms "
               f"({[round(r, 1) for r in rate['this']]} TFLOP/s)")
         out.append(dict(kernel=name, other_ms=times["other"],
                         this_ms=times["this"], other_tflops=rate["other"],
                         this_tflops=rate["this"]))
-    tile_ms = cs.time_ms(torch, lambda: gm.tile_list(mask), flush)
+    tile_ms = cs.time_ms(torch, lambda: this_gm.tile_list(mask), flush)
     print(f"  [{card}] tile list ({tiles.numel()} tiles): {tile_ms} ms")
     res = {"device": card, "other": os.path.abspath(args.other),
            "cases": out, "tile_list_ms": tile_ms}
