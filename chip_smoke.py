@@ -51,7 +51,17 @@ JAX).  In order it:
    must fall (at full depth 12 steps from the seeded init do not train:
    see ``TRAIN_LEARN_LAYERS``); and one step of full width cut to 2 layers
    in f32 whose every gradient must match the plain versions';
-6. prints the kernel table as one JSON line, then
+6. drives the dense ``Engine.generate`` path at full width and depth
+   (bf16, 4 prompts of 32 tokens loop-prefilled, 16 greedy tokens: B1's
+   inference form the only kernel, per-step times, bitwise-equal repeat,
+   one profiled step), holds it to the continuous-batching scheduler at 2
+   layers in f32 (same tokens, first-step logits within 1e-3), trains at
+   full width and depth (batch 4 x 2,048, 4 steps) publishing into a live
+   engine every 2 steps while it generates after each step (publish,
+   staged build and promotion times, peak memory; the engine must serve
+   the last published snapshot), and broadcasts one publication to two
+   replicas at 4 layers through a ``PublicationBus``;
+7. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
@@ -101,6 +111,15 @@ TRAIN_LR, TRAIN_WARMUP = 1e-3, 3
 # tensor-core ones.  At 4 layers it falls by ~4 in 12 steps
 # (tools/train_probe.py; PERF.md).
 TRAIN_LEARN_LAYERS = 4
+# phase 6: the dense Engine.generate path (4 prompts of 32 tokens, 16
+# greedy tokens; its loop prefill runs one decode step per prompt token),
+# publication under training at batch 4 x 2,048 (a live and a staged
+# snapshot and their slots come on top of the training state: batch 8
+# would need ~70 GB), and a two-replica fleet at 4 layers
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 32, 16
+PUBLISH_BATCH, PUBLISH_STEPS, PUBLISH_EVERY = 4, 4, 2
+PUBLISH_PROMPT, PUBLISH_NEW = 8, 2
+FLEET_LAYERS = 4
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
@@ -1199,6 +1218,384 @@ def train_grads_cut_depth(torch, ops, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: dense generate, publication under training, a two-replica fleet
+# ---------------------------------------------------------------------------
+def _dense_prompts(vocab: int, n: int, length: int):
+    """(n, length) int32: consecutive slices of the longest served prompt."""
+    import numpy as np
+    text = _prompts(vocab)[-1]
+    return np.stack([text[i * length:(i + 1) * length] for i in range(n)])
+
+
+def _only_launched(launches, *names):
+    """Whether exactly the named kernels launched."""
+    return all((n > 0) == (k in names) for k, n in launches.items())
+
+
+def dense_generate_full_width(torch, ops, dev, card):
+    """``Engine.generate`` of gpt-moe-s at full width and depth, bf16:
+    loop prefill of 4 prompts of 32 tokens, then 16 greedy tokens.  Every
+    decode step is timed (synchronised on both sides) and its logits must
+    be finite; B1's inference form is the only kernel of the run; a second
+    identical call gives the same tokens; one decode step is profiled."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine
+
+    cfg = configs.get("gpt-moe-s")
+    params = mdl.init_params(cfg, 0, dev)
+    pa = _plan(torch, cfg, dev)
+    prompts = _dense_prompts(cfg.vocab_size, DENSE_BATCH, DENSE_PROMPT)
+    eng = Engine(cfg, mdl.Runtime(), params,
+                 max_len=DENSE_PROMPT + DENSE_NEW, pa=pa)
+    step = eng.step_fn
+    times = {"prefill": [], "generate": []}
+
+    def timed(params_, cache, tokens, pos, pa_, premat):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(params_, cache, tokens, pos, pa_, premat)
+        torch.cuda.synchronize()
+        times["prefill" if pos < DENSE_PROMPT else "generate"].append(
+            (time.perf_counter() - t) * 1e3)
+        if not bool(torch.isfinite(out[0]).all()):
+            raise CheckFailed("non-finite logits in the dense generate")
+        return out
+    eng.step_fn = timed
+    eng.generate(prompts[:, :4], steps=2)   # warm-up, outside the count
+    for v in times.values():
+        v.clear()
+    ops.reset_launch_counts()               # the main path's run starts
+    t = time.perf_counter()
+    out = eng.generate(prompts, steps=DENSE_NEW)
+    wall_s = time.perf_counter() - t
+    launches = ops.launch_counts()          # ... and ends
+    n_steps = DENSE_PROMPT + DENSE_NEW
+    pre = statistics.median(times["prefill"])
+    gen = statistics.median(times["generate"])
+    print(f"  gpt-moe-s, {cfg.num_layers} layers, {cfg.dtype}: "
+          f"{DENSE_BATCH} prompts of {DENSE_PROMPT} tokens, loop prefill "
+          f"then {DENSE_NEW} greedy tokens; launches {launches}")
+    print(f"  [{card}] median ms per decode step: loop prefill {pre:.3f} "
+          f"({len(times['prefill'])} steps), generation {gen:.3f} "
+          f"({len(times['generate'])} steps); run wall {wall_s:.3f} s")
+    want = cfg.num_layers * n_steps
+    if not _only_launched(launches, "grouped_mlp_fwd") or \
+            launches["grouped_mlp_fwd"] != want:
+        raise CheckFailed(f"the dense generate launched {launches}; "
+                          f"expected grouped_mlp_fwd x {want} only")
+    out2 = eng.generate(prompts, steps=DENSE_NEW)
+    if not (out == out2).all():
+        raise CheckFailed("two identical dense generates gave different "
+                          "tokens")
+    print("  two identical dense generates: bitwise-equal tokens")
+    tokens = torch.as_tensor(prompts[:, :1], device=dev)
+    prof = _profile_dense_step(torch, step, eng, tokens, card)
+    prof["idle_share_of_median_step"] = 1 - prof["device_busy_ms"] / gen
+    print(f"  its device busy time against the median generation step: "
+          f"idle share {prof['idle_share_of_median_step']:.3f}")
+    eng.close()
+    return dict(prefill_step_ms=times["prefill"][:DENSE_PROMPT],
+                generate_step_ms=times["generate"][:DENSE_NEW],
+                median_prefill_step_ms=pre, median_generate_step_ms=gen,
+                run_wall_s=wall_s, launches=launches, profiled_step=prof)
+
+
+def _profile_dense_step(torch, step, eng, tokens, card):
+    """One dense decode step under torch.profiler: launches, device-busy
+    time, its idle share and B1's part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as mdl
+    params, pa, premat = eng._snapshot()
+    cache = mdl.init_cache(eng.cfg, tokens.shape[0], eng.max_len,
+                           tokens.device)
+    for _ in range(2):                      # the first pass sets CUPTI up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, cache, tokens, DENSE_PROMPT, pa, premat)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    dev_ev = [e for e in ev
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    b1 = _device_ms(dev_ev, *B1_SERVE_KERNELS)
+    print(f"  [{card}] one dense decode step under the profiler: {launches} "
+          f"kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall (device idle share {1 - busy / wall:.3f}), grouped_mlp_fwd "
+          f"{b1:.3f} ms of it")
+    return dict(launches=launches, device_busy_ms=busy, wall_ms=wall,
+                grouped_mlp_ms=b1)
+
+
+def dense_against_paged(torch, ops, dev):
+    """Full width cut to 2 layers, f32: ``Engine.generate`` and the
+    continuous-batching scheduler serve the same 4 prompts to the same 16
+    greedy tokens, and their first-step logits (the loop prefill's last
+    step against the one-shot prefill) agree within 1e-3 of the largest
+    |logit|."""
+    import numpy as np
+
+    import repro_torch.configs as configs
+    from repro_torch.common.params import snapshot
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import DONE, RequestScheduler
+
+    full = configs.get("gpt-moe-s")
+    cfg, params = _cut_depth(full, mdl.init_params(full, 0, dev), 2)
+    params = snapshot(params)               # frees the other 10 layers
+    pa = _plan(torch, cfg, dev)
+    prompts = _dense_prompts(cfg.vocab_size, DENSE_BATCH, DENSE_PROMPT)
+    max_len = DENSE_PROMPT + DENSE_NEW
+    first = {"dense": [], "paged": []}
+    with Engine(cfg, mdl.Runtime(), params, max_len=max_len, pa=pa) as eng:
+        step = eng.step_fn
+
+        def rec_step(params_, cache, tokens, pos, pa_, premat):
+            out = step(params_, cache, tokens, pos, pa_, premat)
+            if pos == DENSE_PROMPT - 1:
+                first["dense"].append(out[0][:, -1].clone())
+            return out
+        eng.step_fn = rec_step
+        ops.reset_launch_counts()
+        dense = eng.generate(prompts, steps=DENSE_NEW)
+        l_dense = ops.launch_counts()
+        with RequestScheduler(eng, max_slots=DENSE_BATCH,
+                              num_pages=-(-max_len // PAGE_SIZE)
+                              * DENSE_BATCH + 1,
+                              page_size=PAGE_SIZE, max_kv=max_len,
+                              default_ttl_s=3600.0) as rs:
+            prefill = rs._prefill_fn
+
+            def rec_prefill(params_, batch, pa_, premat=None):
+                out = prefill(params_, batch, pa_, premat)
+                first["paged"].append(out[0][:, -1].clone())
+                return out
+            rs._prefill_fn = rec_prefill
+            ops.reset_launch_counts()
+            reqs = [rs.submit(p, max_new_tokens=DENSE_NEW) for p in prompts]
+            rs.run(max_ticks=10 * DENSE_NEW)
+            l_paged = ops.launch_counts()
+        if any(r.state != DONE for r in reqs):
+            raise CheckFailed("a scheduled request did not finish")
+        paged = np.stack([r.output() for r in reqs])
+    ld, lp = first["dense"][0], torch.cat(first["paged"])
+    d = float((ld - lp).abs().max())
+    scale = float(lp.abs().max())
+    same = bool((dense == paged).all())
+    print(f"  full width cut to 2 layers, f32: Engine.generate and the "
+          f"scheduler's tokens {'equal' if same else 'DIFFER'} over "
+          f"{DENSE_NEW} greedy steps; first-step max |dlogit| {d:.3e} (max "
+          f"|logit| {scale:.3f}, tolerance 1e-3 of it); launches dense "
+          f"{l_dense}, paged {l_paged}")
+    if not _only_launched(l_dense, "grouped_mlp_fwd") or not \
+            _only_launched(l_paged, *SERVE_KERNELS):
+        raise CheckFailed("the dense or the paged run launched another "
+                          "kernel set than its path's")
+    if not same or not d <= 1e-3 * scale:
+        raise CheckFailed("the dense and the paged paths disagree")
+    return dict(tokens_equal=same, first_step_max_dlogit=d, max_logit=scale,
+                launches_dense=l_dense, launches_paged=l_paged)
+
+
+def publish_under_training(torch, ops, dev, card):
+    """``train_loop(publish_engine=eng, publish_every=2)`` of gpt-moe-s at
+    full width and depth, batch 4 x 2,048, 4 steps, with one
+    ``eng.generate(..., steps=2)`` after each step, so promotions happen
+    at decode boundaries while training runs.  After ``flush`` the engine
+    is at the last published step and serves what a fresh engine on a copy
+    of the final params serves; one more training step, unpublished,
+    leaves its tokens as they were (the published tree is a snapshot)."""
+    import threading
+
+    import numpy as np
+
+    import repro_torch.configs as configs
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.params import snapshot
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+
+    cfg = configs.get("gpt-moe-s")
+    rt, _, _ = _train_setup(torch, dev, cfg)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=PUBLISH_STEPS + 1)
+    stream = make_stream(cfg.vocab_size, TRAIN_SEQ, PUBLISH_BATCH,
+                         kind="bytes", seed=0)
+    pa = _plan(torch, cfg, dev)
+    prompts = _dense_prompts(cfg.vocab_size, DENSE_BATCH, PUBLISH_PROMPT)
+    max_len = PUBLISH_PROMPT + 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = step_lib.init_state(cfg, 0, device=dev)
+    sched = HecateScheduler(cfg, ep=1, impl="ep", device=str(dev))
+    eng = Engine(cfg, mdl.Runtime(), snapshot(state.params), max_len=max_len,
+                 pa=pa)
+    eng.generate(prompts, steps=1)          # the live slots, warm
+    pub_ms, promote_ms, builds, served = [], [], [], []
+    publish, build, promote = (eng.publish_params, eng._build_slots,
+                               eng._promote)
+
+    def timed_publish(params, version=None, **kw):
+        t = time.perf_counter()
+        v = publish(params, version=version, **kw)
+        pub_ms.append((time.perf_counter() - t) * 1e3)
+        return v
+
+    def timed_build(pa_, buf):
+        if not threading.current_thread().name.startswith("engine-build"):
+            return build(pa_, buf)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()                          # on the builder's stream
+        out = build(pa_, buf)
+        b.record()
+        builds.append((a, b))
+        return out
+
+    def timed_promote(st):
+        t = time.perf_counter()
+        promote(st)
+        promote_ms.append((time.perf_counter() - t) * 1e3)
+    eng.publish_params, eng._build_slots, eng._promote = (
+        timed_publish, timed_build, timed_promote)
+
+    def after_step(i, s, m):
+        served.append(eng.generate(prompts, steps=PUBLISH_NEW))
+    ops.reset_launch_counts()               # the main path's run starts
+    t = time.perf_counter()
+    state, hist = train_loop(cfg, rt, tc, stream, scheduler=sched,
+                             state=state, num_steps=PUBLISH_STEPS,
+                             log_every=0, device=dev, callback=after_step,
+                             publish_engine=eng,
+                             publish_every=PUBLISH_EVERY)
+    promoted_in_run = eng.promotions
+    eng.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = ops.launch_counts()          # ... and ends
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    build_ms = [a.elapsed_time(b) for a, b in builds]
+    # the same build with nothing else on the card: the final params once
+    # more (the builds above overlap the training steps on the card)
+    publish(snapshot(state.params), version=PUBLISH_STEPS, wait=True)
+    torch.cuda.synchronize()
+    idle_build_ms = builds[-1][0].elapsed_time(builds[-1][1])
+    eng.flush()
+    losses = [h["loss"] for h in hist]
+    print(f"  full width, {cfg.num_layers} layers: batch {PUBLISH_BATCH} x "
+          f"seq {TRAIN_SEQ}, {PUBLISH_STEPS} steps publishing every "
+          f"{PUBLISH_EVERY}, eng.generate(steps={PUBLISH_NEW}) of "
+          f"{DENSE_BATCH} x {PUBLISH_PROMPT} tokens after each step; losses "
+          f"{[round(x, 4) for x in losses]}; launches {launches}")
+    print(f"  [{card}] publish_params host ms {[round(x, 3) for x in pub_ms]}"
+          f"; staged build device ms {[round(x, 3) for x in build_ms]} "
+          f"(overlapping training), {idle_build_ms:.3f} (card otherwise "
+          f"idle); "
+          f"promotion host ms {[round(x, 3) for x in promote_ms]}; "
+          f"promotions during training {promoted_in_run}, deferred "
+          f"boundaries {eng.deferred_boundaries}; run wall {wall_s:.2f} s; "
+          f"device memory peak {peak_gb:.2f} GB")
+    last = PUBLISH_STEPS - PUBLISH_STEPS % PUBLISH_EVERY
+    if (eng.version, eng.publications, eng.publish_drops) != (
+            last, PUBLISH_STEPS // PUBLISH_EVERY + 1, 0) \
+            or hist[-1]["publish_drops"] or not all(map(math.isfinite,
+                                                        losses)):
+        raise CheckFailed(f"publication under training: version "
+                          f"{eng.version}, {eng.publications} publications, "
+                          f"{eng.publish_drops} drops, losses {losses}")
+    if not _only_launched(launches, "grouped_mlp_fwd", *TRAIN_KERNELS):
+        raise CheckFailed(f"publication under training launched {launches}")
+    out = eng.generate(prompts, steps=4)
+    with Engine(cfg, mdl.Runtime(), snapshot(state.params), max_len=max_len,
+                pa=pa, version=eng.version) as fresh:
+        same_fresh = bool((out == fresh.generate(prompts, steps=4)).all())
+    live = state.params["moe_buffer"]
+    before = live[:64].clone()
+    state, _ = train_loop(cfg, rt, tc, stream, scheduler=sched, state=state,
+                          num_steps=1, log_every=0, device=dev)
+    moved = not torch.equal(live[:64], before)
+    same_after = bool((out == eng.generate(prompts, steps=4)).all())
+    print(f"  after flush: version {eng.version}; tokens equal a fresh engine "
+          f"on a copy of the final params: {same_fresh}; after one more "
+          f"in-place step (params moved: {moved}), unchanged: {same_after}")
+    if not (same_fresh and moved and same_after):
+        raise CheckFailed("the published engine does not serve the "
+                          "published snapshot")
+    eng.close()
+    del state, eng
+    torch.cuda.empty_cache()
+    return dict(losses=losses, publish_params_host_ms=pub_ms,
+                staged_build_device_ms=build_ms,
+                staged_build_idle_device_ms=idle_build_ms,
+                promotion_host_ms=promote_ms, peak_memory_gb=peak_gb,
+                promotions_during_training=promoted_in_run,
+                launches=launches, run_wall_s=wall_s,
+                served_tokens=[np.asarray(x).tolist() for x in served])
+
+
+def fleet_two_replicas(torch, ops, dev, card):
+    """A ``PublicationBus`` with two engines of gpt-moe-s at full width cut
+    to 4 layers: one broadcast promotes both, both serve the same tokens
+    as a fresh engine on the published params, and ``route()`` returns
+    both."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.bus import HEALTHY, PublicationBus
+    from repro_torch.serve.engine import Engine
+
+    cfg = configs.get("gpt-moe-s").replace(num_layers=FLEET_LAYERS)
+    p0, p1 = mdl.init_params(cfg, 0, dev), mdl.init_params(cfg, 1, dev)
+    pa = _plan(torch, cfg, dev)
+    prompts = _dense_prompts(cfg.vocab_size, DENSE_BATCH, PUBLISH_PROMPT)
+    max_len = PUBLISH_PROMPT + 8
+    engines = [Engine(cfg, mdl.Runtime(), p0, max_len=max_len, pa=pa,
+                      name=f"replica-{i}") for i in range(2)]
+    bus = PublicationBus([(e.name, e) for e in engines])
+    try:
+        for e in engines:
+            e.generate(prompts, steps=1)    # live slots before publishing
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        bus.publish_params(p1, version=1, wait=True)
+        torch.cuda.synchronize()
+        bcast_ms = (time.perf_counter() - t) * 1e3
+        states = {n: (h.state, h.version) for n, h in bus.poll().items()}
+        routed = bus.route()
+        outs = [e.generate(prompts, steps=PUBLISH_NEW + 6) for e in routed]
+        launches = ops.launch_counts()
+        with Engine(cfg, mdl.Runtime(), p1, max_len=max_len, pa=pa,
+                    version=1) as fresh:
+            ref = fresh.generate(prompts, steps=PUBLISH_NEW + 6)
+    finally:
+        bus.close()
+        for e in engines:
+            e.close()
+    same = len(outs) == 2 and all((o == ref).all() for o in outs)
+    print(f"  [{card}] two replicas, full width cut to {FLEET_LAYERS} "
+          f"layers: broadcast and promotion {bcast_ms:.3f} ms; states "
+          f"{states}; route() returns {len(routed)}; tokens equal across "
+          f"the replicas and a fresh engine: {same}; launches {launches}")
+    if (len(routed) != 2 or not same
+            or any(s != (HEALTHY, 1) for s in states.values())
+            or not _only_launched(launches, "grouped_mlp_fwd")):
+        raise CheckFailed("the two-replica fleet did not serve the "
+                          "broadcast publication")
+    return dict(broadcast_ms=bcast_ms, states=states, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+T_START = time.perf_counter()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -1295,9 +1692,18 @@ def main() -> None:
         train = train_full_width(torch, ops, dev, card_line)
         train["learns_cut_depth"] = train_cut_depth_learns(torch, ops, dev)
         train["grads_2_layers_f32"] = train_grads_cut_depth(torch, ops, dev)
+        torch.cuda.empty_cache()
+        print("== 6. dense generate, publication under training, a fleet")
+        dense = dense_generate_full_width(torch, ops, dev, card_line)
+        dense["against_paged"] = dense_against_paged(torch, ops, dev)
+        torch.cuda.empty_cache()
+        publication = publish_under_training(torch, ops, dev, card_line)
+        publication["fleet"] = fleet_two_replicas(torch, ops, dev,
+                                                  card_line)
     except CheckFailed as e:
         fail(str(e))
-    results.update(kernels=kern, serving=serve, training=train)
+    results.update(kernels=kern, serving=serve, training=train,
+                   dense_generate=dense, publication=publication)
 
     meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
                                 "src/repro/kernels/grouped_mlp.py:106"),
@@ -1330,7 +1736,8 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print("== 6. kernels")
+    print(f"== 7. kernels (script wall so far "
+          f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(kern))}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

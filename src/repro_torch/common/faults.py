@@ -24,6 +24,33 @@ The sites of the ported serving path (``serve.scheduler``):
     request's pages are freed and it is re-queued for a bounded number of
     retries, then REJECTED with ``finish_reason="prefill_crash"``.
 
+The sites of publication (``serve.engine``, ``serve.bus``):
+
+``engine.publish_build``
+    Fired on an engine's background builder thread before a staged slot
+    build.  Arm with ``exc=...``.  The staged publication is dropped at
+    the next step boundary or ``flush``: the engine keeps serving the
+    previous state, no decode call raises, ``publish_drops`` increments
+    and ``last_publish_error`` holds the exception.
+
+``bus.broadcast_drop``
+    Fired by ``PublicationBus`` once per (publication, replica) send,
+    payload = the replica's name.  Arm with a ``times`` budget for a
+    transient drop: the bus retries with backoff and the replica stays
+    HEALTHY if a retry lands.
+
+``replica.build_hang``
+    Fired on a replica engine's builder thread (payload = the engine's
+    name) before the staged build.  Arm with ``hang_s=...``: the build's
+    age grows past the bus's deadlines (LAGGING, then EVICTED) while no
+    decode step on any replica waits.  ``clear()`` releases the hang.
+
+``replica.crash``
+    Fired in the bus's per-replica send path (payload = the replica's
+    name).  Arm with ``times=None`` for a dead replica: its retries
+    exhaust, it is EVICTED without blocking the fleet, and a later
+    ``rejoin`` catches it up to the newest published version.
+
 The site of the ported training path (``train.trainer.train_loop``):
 
 ``train.nan_grads``

@@ -93,6 +93,15 @@ def stack_params(tree, n: int, axis_name: str = "layers"):
                  init=tree.init, scale=tree.scale, dtype=tree.dtype)
 
 
+def snapshot(tree):
+    """A copy of every tensor of a parameter tree, made on the current
+    stream: ordered after the work already issued that writes the tree
+    and before any issued later."""
+    if isinstance(tree, dict):
+        return {k: snapshot(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
 def params_from_jax(np_tree, device="cuda", dtype=None):
     """The weight bridge: a JAX parameter tree (leaves converted with
     ``np.asarray``) -> the port's nested dict of tensors on ``device``.

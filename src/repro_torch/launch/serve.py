@@ -1,14 +1,16 @@
 """Serving launcher of the port: init a model from a seed and serve prompts
-through the continuous-batching scheduler on one device.
+on one device, through the continuous-batching scheduler
+(``--continuous``) or the fixed-batch ``Engine.generate``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-moe-s \
       --smoke --continuous --prompt "In the beginning " --steps 16
 
-Prompts are byte-encoded (each byte a token).  The device is ``cuda``
-unless ``--device cpu`` is given; with the default device and no GPU the
-launcher fails.  Only ``--continuous`` serving is ported: several replicas
-behind a publication bus, checkpoint restore and fixed-batch generation
-raise "not yet ported".
+Prompts are byte-encoded (each byte a token); the fixed batch pads them
+with zeros to the longest.  ``--replicas N`` serves from N engines behind
+a ``PublicationBus``, which broadcasts the parameters once before serving.
+The device is ``cuda`` unless ``--device cpu`` is given; with the default
+device and no GPU the launcher fails.  Checkpoint restore
+(``--checkpoint-dir``) raises "not yet ported".
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def main(argv=None):
     ap.add_argument("--prompt", action="append", default=None)
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the paged-KV continuous-batching "
-                         "scheduler (the only serving mode ported)")
+                         "scheduler instead of Engine.generate")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -56,14 +58,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.replicas > 1:
-        raise SystemExit("--replicas > 1 is not yet ported to repro_torch")
     if args.checkpoint_dir:
         raise SystemExit("--checkpoint-dir is not yet ported to repro_torch")
-    if not args.continuous:
-        raise SystemExit("fixed-batch Engine.generate serving is not yet "
-                         "ported to repro_torch; pass --continuous")
 
+    import numpy as np
     import torch
 
     import repro_torch.configs as configs
@@ -89,13 +87,50 @@ def main(argv=None):
         pa = moe_core.plan_to_arrays(ep_materialization(sh), device)
 
     prompts = args.prompt or ["Hello world", "The scheduler said"]
-    with Engine(cfg, rt, params, max_len=args.max_len, pa=pa) as eng:
-        rs, out = serve_continuous(eng, prompts, steps=args.steps,
-                                   max_len=args.max_len,
-                                   temperature=args.temperature,
-                                   seed=args.seed)
-    print(f"continuous batching: {rs.decode_ticks} decode ticks for "
-          f"{len(prompts)} requests")
+    enc = [_encode(p, cfg.vocab_size) for p in prompts]
+    batch = np.zeros((len(enc), max(e.size for e in enc)), np.int32)
+    for i, e in enumerate(enc):
+        batch[i, :e.size] = e
+
+    def serve(eng):
+        if args.continuous:
+            rs, out = serve_continuous(eng, prompts, steps=args.steps,
+                                       max_len=args.max_len,
+                                       temperature=args.temperature,
+                                       seed=args.seed)
+            print(f"continuous batching: {rs.decode_ticks} decode ticks "
+                  f"for {len(prompts)} requests")
+            return out
+        out = eng.generate(batch, steps=args.steps,
+                           temperature=args.temperature, seed=args.seed)
+        print(f"fixed batch: {len(prompts)} prompts padded to "
+              f"{batch.shape[1]} tokens, {args.steps} new tokens each")
+        return out
+
+    if args.replicas <= 1:
+        with Engine(cfg, rt, params, max_len=args.max_len, pa=pa) as eng:
+            out = serve(eng)
+    else:
+        from repro_torch.serve.bus import PublicationBus
+        engines = [Engine(cfg, rt, params, max_len=args.max_len, pa=pa,
+                          name=f"replica-{i}")
+                   for i in range(args.replicas)]
+        bus = PublicationBus([(e.name, e) for e in engines])
+        try:
+            # the fleet promotes one bus-published version before serving
+            bus.publish_params(params, version=1, pa=pa, wait=True)
+            fleet = bus.route()     # healthy replicas, least loaded first
+            if not fleet:
+                raise SystemExit("no healthy replicas after broadcast")
+            out = serve(fleet[0])
+            for name, st in sorted(bus.poll().items()):
+                print(f"replica {name}: {st.state.lower()} "
+                      f"version {st.version}")
+            print(f"fleet: {len(fleet)}/{args.replicas} healthy")
+        finally:
+            bus.close()
+            for e in engines:
+                e.close()
     for i, toks in enumerate(out):
         text = bytes(int(t) for t in toks if 0 < t < 128).decode(
             errors="replace")

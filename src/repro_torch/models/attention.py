@@ -1,11 +1,13 @@
-"""GQA attention with RoPE, softcap, sliding window and the block-paged KV
-cache.
+"""GQA attention with RoPE, softcap, sliding window, and the dense and the
+block-paged KV caches.
 
 The plain path is einsum-based; the flash-attention kernel takes over the
 prefill when ``use_pallas`` is set (the JAX package's name for "use the
 hand-written kernels"), and the paged decode-attention kernel does the
-decode reduction.  Layouts are the JAX package's:
-(B, S, N, H) activations, a flat (num_rows, nkv, hd) paged pool.
+paged decode reduction.  The dense decode path is plain PyTorch, as it is
+plain XLA in the JAX package.  Layouts are the JAX package's: (B, S, N, H)
+activations, a (B, max_len, nkv, hd) dense cache, a flat
+(num_rows, nkv, hd) paged pool.
 """
 from __future__ import annotations
 
@@ -114,6 +116,42 @@ def attention(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
 
 
 # ------------------------------------------------------------------ decode
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device):
+    """Dense KV cache for ONE sublayer: ``max_len`` token rows per
+    sequence."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p, cfg: ModelConfig, x, cache, pos: int, *,
+                     kind="attn"):
+    """One-token decode for B sequences at the same position against the
+    dense cache.
+
+    x: (B, 1, D); pos: the position being written, a Python int (the
+    write and the mask need no value from the device).  The new K/V row
+    is written IN PLACE at ``pos``; attention spans cache[0..pos],
+    windowed for ``kind="local"``.  Returns (out, cache)."""
+    _check_rope(cfg)
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x)
+    posb = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    cache["k"][:, pos] = k_new[:, 0]                # in place
+    cache["v"][:, pos] = v_new[:, 0]
+    window = cfg.sliding_window if kind == "local" else 0
+    skv = cache["k"].shape[1]
+    mask = make_mask(1, skv, causal=True, window=window, q_offset=pos,
+                     device=x.device)
+    out = _sdpa(q, cache["k"], cache["v"], mask, cfg.attn_logit_softcap,
+                cfg.head_dim)
+    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache
+
+
 def init_paged_kv_cache(cfg: ModelConfig, num_rows: int, dtype, device):
     """Block-paged KV cache for ONE sublayer: a flat pool of
     ``num_rows = num_pages * page_size`` token rows shared by every

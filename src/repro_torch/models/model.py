@@ -1,5 +1,5 @@
 """Model assembly: config -> params / forward (training and prefill) /
-paged decode.
+dense and paged decode.
 
 A model is a stack of ``num_superblocks`` identical superblocks (one tile
 of ``cfg.layer_pattern``).  Parameters are stacked along a leading
@@ -210,8 +210,20 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
 
 
 # ---------------------------------------------------------------------------
-# Paged decode
+# Decode (one token against a dense or a block-paged cache)
 # ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Dense decode cache: every attention sublayer holds
+    (num_superblocks, batch, max_len, nkv, hd) K and V, as in the JAX
+    package."""
+    _check_ported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    return {f"l{j}": {kv: t.expand(cfg.num_superblocks, *t.shape).clone()
+                      for kv, t in attn.init_kv_cache(
+                          cfg, batch, max_len, dt, device).items()}
+            for j in range(len(cfg.layer_pattern))}
+
+
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_rows: int,
                      device="cuda"):
     """Block-paged decode cache: every attention sublayer owns a flat pool
@@ -231,17 +243,20 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_rows: int,
 def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
                 pa: Optional[PlanArrays] = None, premat=None, *,
                 row_idx=None, page_size=None):
-    """One decode token for B independent sequences against the block-paged
-    cache (``init_paged_cache``).
+    """One decode token for B sequences.
 
-    tokens: (B, 1) int; pos: (B,) int32 per-sequence write positions;
-    row_idx: (B, max_kv) int32 per-token pool rows; page_size: the pool's
-    page size (the paged decode kernel reads one page per step).  The pools
-    are updated IN PLACE.  Returns (logits (B, 1, V) f32, cache)."""
-    if row_idx is None or page_size is None:
-        raise NotImplementedError("the dense-cache decode path is not yet "
-                                  "ported to repro_torch; pass row_idx and "
-                                  "page_size")
+    tokens: (B, 1) int.  Without ``row_idx`` the cache is the dense one
+    (``init_cache``) and ``pos`` is the position every sequence writes, a
+    Python int.  With ``row_idx`` (B, max_kv) int32 per-token pool rows
+    the cache is the block-paged one (``init_paged_cache``), ``pos`` a (B,)
+    int32 tensor of per-sequence write positions, and ``page_size`` the
+    pool's page size (the paged decode kernel reads one page per step).
+    premat: optional (L_moe, 1, K, chunk_len) compute slots
+    (``moe.materialize_chunks``).  The cache is updated IN PLACE.  Returns
+    (logits (B, 1, V) f32, cache)."""
+    if row_idx is not None and page_size is None:
+        raise NotImplementedError("the paged path's gather fallback is not "
+                                  "ported to repro_torch; pass page_size")
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)
@@ -253,11 +268,15 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
         p_sb = _block(params, sb)
         for j, kind in enumerate(cfg.layer_pattern):
             p = p_sb[f"l{j}"]
-            pool = {kv: cache[f"l{j}"][kv][sb] for kv in ("k", "v")}
+            kv_sb = {kv: cache[f"l{j}"][kv][sb] for kv in ("k", "v")}
             h = ly.apply_norm(p["ln1"], x, cfg.norm)
-            y, _ = attn.decode_attention_paged(p["attn"], cfg, h, pool, pos,
-                                               row_idx, kind=kind,
-                                               page_size=page_size)
+            if row_idx is None:
+                y, _ = attn.decode_attention(p["attn"], cfg, h, kv_sb, pos,
+                                             kind=kind)
+            else:
+                y, _ = attn.decode_attention_paged(
+                    p["attn"], cfg, h, kv_sb, pos, row_idx, kind=kind,
+                    page_size=page_size)
             x = x + y
             h = ly.apply_norm(p["ln2"], x, cfg.norm)
             if j in moe_pos:

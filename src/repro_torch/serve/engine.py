@@ -1,25 +1,59 @@
-"""Serving engine: one-shot prefill and batched paged decode steps, and the
-(plan, version) slot cache they read.
+"""Serving engine: loop-prefill ``generate`` over the dense cache, one-shot
+prefill and batched paged decode steps for the request scheduler, and the
+(plan, version) state machine that lets training publish parameters into
+a live engine.
 
 FSSDP keeps the chunk buffer as the single source of truth for every MoE
 parameter; the engine's only derived artifact is the materialized
 compute-slot cache (``moe.materialize_chunks``: every layer's slots in the
-compute dtype).  It is built once per (plan epoch, parameter version,
-buffer) and every prefill and decode step reads it through ``_snapshot``,
-one locked, consistent (params, plan, slots) view.
+compute dtype), built once per (plan, parameter version, buffer).  Every
+decode step reads it through ``_snapshot``, one locked, consistent
+(params, plan, slots) view.
 
-The background publication machinery of the JAX package's engine
-(``publish_params``, staged ``set_plan`` with promotion at step
-boundaries, the background slot-building thread) is not yet ported.
+The (plan, version) state machine, as in the JAX package's engine:
+
+* LIVE: ``(self.pa, self.params, self.version)`` and the slot cache built
+  for them.  Every decode step reads only live state.
+* STAGED: at most one pending ``(pa, params, version)`` triple whose slots
+  a background thread builds (``_staged``).  ``set_plan`` and
+  ``publish_params`` both stage here, and staging composes: the last
+  staged triple carries the newest plan and the newest params.
+
+* ``publish_params`` / ``set_plan`` return once the build is submitted;
+  they never touch the live cache.
+* ``_step_boundary`` (run by every ``_snapshot``, between decode steps)
+  promotes the staged triple atomically, and only once its build has
+  finished: a decode step never waits for a build, and a step that
+  straddles a publication reads old state throughout.
+* ``flush()`` is a boundary that waits for the pending build.
+* A build that raised is dropped at the boundary (``publish_drops``,
+  ``last_publish_error``); the engine keeps serving the previous state and
+  the decode path never raises.
+* ``close()`` joins the builder, then drops the staged state unpromoted.
+
+``publish_params`` does not copy the tree: the caller must not change it
+in place afterwards (``train.trainer.train_loop`` publishes a snapshot).
+
+On a CUDA device the builder runs on a stream of its own.  It waits for an
+event recorded on the publisher's stream when the triple was staged, so it
+reads the published tree as it stood then, and records the build's end;
+``_promote`` makes the promoting thread's stream wait for that event
+before any decode step reads the new slots, and marks the slots as used
+there (``record_stream``), as the builder marks the buffer it reads.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.common import faults
 from repro_torch.common.config import ModelConfig
 from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import PlanArrays
@@ -28,13 +62,41 @@ from repro_torch.models import model as mdl
 
 @dataclasses.dataclass(frozen=True)
 class EngineHealth:
-    """A lock-free snapshot of an engine's state and the load signals an
-    attached request scheduler reports (``attach_load_probe``)."""
+    """A lock-free snapshot of an engine's publication state and of the
+    load signals an attached request scheduler reports
+    (``attach_load_probe``).
+
+    ``staged_version`` / ``staged_pending`` / ``staged_age_s`` describe
+    the pending publication: the version being built, whether its build is
+    still in flight, and for how long (0.0 when done or nothing staged).
+    ``queue_depth`` / ``kv_used_frac`` read 0 when no scheduler is
+    attached."""
     name: str
     version: int
+    staged_version: Optional[int]
+    staged_pending: bool
+    staged_age_s: float
+    publications: int
+    promotions: int
+    deferred_boundaries: int
+    publish_drops: int
+    last_publish_error: Optional[BaseException]
     closed: bool
     queue_depth: int = 0
     kv_used_frac: float = 0.0
+
+
+def build_serve_step(cfg: ModelConfig, rt: mdl.Runtime):
+    """fn(params, cache, tokens:(B,1), pos:int, pa, premat=None) ->
+    (logits (B,1,V), cache): one decode token for B sequences at the same
+    position against the dense cache (``mdl.init_cache``), which it
+    updates in place."""
+    @torch.inference_mode()
+    def serve_step(params, cache, tokens, pos: int,
+                   pa: Optional[PlanArrays], premat=None):
+        return mdl.decode_step(cfg, rt, params, cache, tokens, pos, pa,
+                               premat=premat)
+    return serve_step
 
 
 def build_prefill_step(cfg: ModelConfig, rt: mdl.Runtime):
@@ -75,8 +137,10 @@ def build_paged_serve_step(cfg: ModelConfig, rt: mdl.Runtime,
 
 
 class Engine:
-    """Holds the served model state (config, runtime, parameters, plan,
-    version) and its per-(plan, version) compute-slot cache."""
+    """Batched greedy/sampling decode engine, double-buffered against plan
+    swaps and parameter publications (see the module docstring)."""
+
+    _UNSET = object()           # "not passed" sentinel of publish_params
 
     def __init__(self, cfg: ModelConfig, rt: mdl.Runtime, params,
                  max_len: int = 512, pa: Optional[PlanArrays] = None,
@@ -84,14 +148,31 @@ class Engine:
         self.cfg, self.rt, self.params, self.pa = cfg, rt, params, pa
         self.max_len = max_len
         self.version = version
-        self.name = name
+        self.name = name            # replica identity (bus, fault sites)
+        self.step_fn = build_serve_step(cfg, rt)
         self._premat = None
         self._premat_key = (None, None, None)   # (plan, version, buffer)
+        self._staged = None     # dict: pa, params, version, fut, base, ...
+        self._executor = None
+        # the builder's CUDA stream, made here: making a process's first
+        # side stream waits for the work queued on the card, which must
+        # not happen on the publication path
+        buf = self._buf_of(params)
+        self._stream = (torch.cuda.Stream(device=buf.device)
+                        if buf is not None and buf.is_cuda else None)
         self._lock = threading.Lock()
         self._closed = False
         # load probe installed by an attached request scheduler:
         # () -> (queue_depth, kv_used_frac); read lock-free by health()
         self._load_probe = None
+        # publications staged / boundaries that promoted / boundaries
+        # that found the build in flight / staged builds dropped because
+        # they raised (the exception lands in last_publish_error)
+        self.publications = 0
+        self.promotions = 0
+        self.deferred_boundaries = 0
+        self.publish_drops = 0
+        self.last_publish_error: Optional[BaseException] = None
 
     def _check_open(self):
         if self._closed:
@@ -100,48 +181,183 @@ class Engine:
     def _buf_of(self, params):
         return params.get("moe_buffer") if self.cfg.moe.enabled else None
 
-    def _materialized(self):
-        """The slot cache: (L_moe, 1, K, chunk_len) or None.  Rebuilt when
-        the plan, the version or the buffer object changed since it was
-        built (a direct ``eng.params = ...`` assignment included)."""
-        buf = self._buf_of(self.params)
-        if buf is None or self.pa is None:
+    # ---- background slot builder ----------------------------------------
+    def _build_slots(self, pa, buf):
+        """The slot cache of (pa, buf): (L_moe, 1, K, chunk_len) or None."""
+        if buf is None or pa is None:
             return None
-        key = (self.pa, self.version, buf)
-        old = self._premat_key
-        if (self._premat is None or key[0] is not old[0]
-                or key[1] != old[1] or key[2] is not old[2]):
-            self._premat = None          # free the old slots first
-            with torch.inference_mode():
-                self._premat = moe_core.materialize_chunks(self.cfg, buf,
-                                                           self.pa)
-            self._premat_key = key
-        return self._premat
+        with torch.inference_mode():
+            return moe_core.materialize_chunks(self.cfg, buf, pa)
 
-    def _snapshot(self):
-        """One step's consistent (params, pa, slots) view."""
+    def _pool(self):
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="engine-build")
+        return self._executor
+
+    def _staged_build(self, pa, buf, staged_ev):
+        """The builder thread's body: (slots, event marking their end on
+        the device, or None on the CPU).  The fault sites live here, not
+        in ``_build_slots``, so an injected failure hits the publication
+        path only; ``replica.build_hang`` carries the engine's name so a
+        fleet test can wedge one replica's builder."""
+        faults.fire("engine.publish_build")
+        faults.fire("replica.build_hang", self.name)
+        if staged_ev is None:
+            return self._build_slots(pa, buf), None
+        with torch.cuda.stream(self._stream):
+            self._stream.wait_event(staged_ev)
+            slots = self._build_slots(pa, buf)
+            if buf is not None:
+                buf.record_stream(self._stream)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return slots, done
+
+    # ---- staging: set_plan / publish_params -----------------------------
+    def _stage(self, pa, params, version) -> None:
+        """Submit the triple's slot build and make it the staged state
+        (lock held).  ``_closed`` is re-checked under the lock that
+        ``close`` sets it under, so no build is submitted after close.  A
+        superseded triple's build drains on the builder thread; one that
+        already raised is counted as a drop first."""
+        self._check_open()
+        st = self._staged
+        if (st is not None and st["fut"].done()
+                and st["fut"].exception() is not None):
+            self._drop_failed(st)
+        buf = self._buf_of(params)
+        staged_ev = None
+        if buf is not None and buf.is_cuda:
+            staged_ev = torch.cuda.Event()
+            # the publisher's stream, as of now
+            staged_ev.record(torch.cuda.current_stream(buf.device))
+        fut = self._pool().submit(self._staged_build, pa, buf, staged_ev)
+        self._staged = dict(pa=pa, params=params, version=version, fut=fut,
+                            buf=buf, base=self.params,
+                            staged_at=time.monotonic())
+
+    def set_plan(self, pa: Optional[PlanArrays], *,
+                 defer: bool = True) -> None:
+        """Stage the next materialization plan.
+
+        With a live slot cache (or a pending publication) and ``defer``,
+        the new plan's slots build on the background thread and swap in
+        at the next step boundary; a pending publication's params and
+        version stay staged with it.  Otherwise the plan installs at once
+        (a pending publication with it) and the slots rebuild lazily."""
         self._check_open()
         with self._lock:
-            return self.params, self.pa, self._materialized()
+            st = self._staged
+            if defer and (st is not None or self._live_slots() is not None):
+                params = st["params"] if st is not None else self.params
+                version = st["version"] if st is not None else self.version
+                self._stage(pa, params, version)
+                return
+            self.pa = pa
+            if st is not None:              # the publication survives
+                self.params = st["params"]
+                self.version = st["version"]
+            self._staged = None
 
-    def attach_load_probe(self, probe) -> None:
-        """Install (or clear, with None) the scheduler load probe whose
-        (queue_depth, kv_used_frac) surfaces through :meth:`health`."""
-        self._load_probe = probe
+    def publish_params(self, params, version: Optional[int] = None, *,
+                       pa=_UNSET, wait: bool = False) -> int:
+        """Stage a new parameter tree at ``version`` (default: the last
+        published version + 1).  Its slots build in the background
+        against the current plan (or the staged one), and the whole state
+        swaps at the next step boundary.  ``pa`` stages a new plan with
+        the params as one atomic pair.  ``wait`` blocks until the build
+        has finished (the swap still waits for a boundary).  Returns the
+        staged version."""
+        self._check_open()
+        with self._lock:
+            st = self._staged
+            if version is None:
+                version = (st["version"] if st is not None
+                           else self.version) + 1
+            if pa is Engine._UNSET:
+                pa = st["pa"] if st is not None else self.pa
+            self._stage(pa, params, version)
+            self.publications += 1
+            fut = self._staged["fut"]
+        if wait:
+            fut.result()
+        return version
 
-    def health(self) -> EngineHealth:
-        qd, kv = 0, 0.0
-        probe = self._load_probe
-        if probe is not None:
-            qd, kv = probe()
-        return EngineHealth(name=self.name, version=self.version,
-                            closed=self._closed, queue_depth=int(qd),
-                            kv_used_frac=float(kv))
+    # ---- promotion -------------------------------------------------------
+    def _drop_failed(self, st) -> None:
+        """A staged build raised: drop the triple (lock held).  The live
+        state keeps serving."""
+        self.last_publish_error = st["fut"].exception()
+        self._staged = None
+        self.publish_drops += 1
+
+    def _boundary_locked(self) -> None:
+        st = self._staged
+        if st is None:
+            return
+        if not st["fut"].done():
+            self.deferred_boundaries += 1
+        elif st["fut"].exception() is not None:
+            self._drop_failed(st)
+        else:
+            self._promote(st)
+
+    def _step_boundary(self) -> None:
+        """Promote the staged state if its build has finished; never
+        waits for it."""
+        with self._lock:
+            self._boundary_locked()
+
+    def _promote(self, st) -> None:
+        """Install a staged triple as the live state (lock held).  If
+        ``self.params`` was assigned directly after the triple was staged,
+        the assignment wins: the staged plan installs, the staged params,
+        version and slots are dropped, and slots rebuild lazily."""
+        slots, done = st["fut"].result()
+        if done is not None:
+            stream = torch.cuda.current_stream(st["buf"].device)
+            stream.wait_event(done)
+            if slots is not None:
+                slots.record_stream(stream)
+        self.pa = st["pa"]
+        if self.params is st["base"]:
+            self.params, self.version = st["params"], st["version"]
+            self._premat = slots
+            self._premat_key = (self.pa, self.version, st["buf"])
+        self._staged = None
+        self.promotions += 1
+
+    def flush(self, timeout: Optional[float] = None) -> None:
+        """A boundary that waits: join the pending build and promote it.
+        A build that raised is dropped as at a boundary; only a timeout
+        is raised."""
+        self._check_open()
+        with self._lock:
+            st = self._staged
+            if st is None:
+                return
+            try:
+                st["fut"].result(timeout=timeout)
+            except FuturesTimeout:
+                raise
+            except Exception:
+                self._drop_failed(st)
+                return
+            self._promote(st)
 
     def close(self) -> None:
-        """Drop the slot cache; every later snapshot raises.  Idempotent."""
+        """Join the builder, drop the staged state unpromoted and the slot
+        cache; every later call raises.  Idempotent."""
         with self._lock:
+            if self._closed:
+                return
             self._closed = True
+            ex, self._executor = self._executor, None
+            self._staged = None
+        if ex is not None:
+            ex.shutdown(wait=True)      # joins an in-flight build
+        with self._lock:
             self._premat = None
             self._premat_key = (None, None, None)
 
@@ -150,6 +366,107 @@ class Engine:
 
     def __exit__(self, *exc):
         self.close()
+
+    # ---- the live slot cache --------------------------------------------
+    def _live_slots(self):
+        """The slot cache if it was built for the live (plan, version,
+        buffer), else None."""
+        key, old = (self.pa, self.version, self._buf_of(self.params)), \
+            self._premat_key
+        if (self._premat is not None and key[0] is old[0]
+                and key[1] == old[1] and key[2] is old[2]):
+            return self._premat
+        return None
+
+    def _materialized(self):
+        """The slot cache, rebuilt when the plan, the version or the
+        buffer object changed since it was built (a direct
+        ``eng.params = ...`` assignment included)."""
+        slots = self._live_slots()
+        if slots is None:
+            self._premat = None          # free the old slots first
+            self._premat = self._build_slots(self.pa,
+                                             self._buf_of(self.params))
+            self._premat_key = (self.pa, self.version,
+                                self._buf_of(self.params))
+            slots = self._premat
+        return slots
+
+    def _snapshot(self):
+        """One step's consistent view: run the boundary and read
+        (params, pa, slots) in one locked section."""
+        self._check_open()
+        with self._lock:
+            self._boundary_locked()
+            return self.params, self.pa, self._materialized()
+
+    # ---- health ----------------------------------------------------------
+    def attach_load_probe(self, probe) -> None:
+        """Install (or clear, with None) the scheduler load probe whose
+        (queue_depth, kv_used_frac) surfaces through :meth:`health`."""
+        self._load_probe = probe
+
+    def health(self) -> EngineHealth:
+        """Takes no lock: ``_staged`` is read once (staged dicts are
+        replaced, never changed), so a poller never contends with a decode
+        step; the snapshot may be one transition stale."""
+        st = self._staged
+        staged_version, pending, age = None, False, 0.0
+        if st is not None:
+            staged_version = st["version"]
+            pending = not st["fut"].done()
+            if pending:
+                age = time.monotonic() - st["staged_at"]
+        qd, kv = 0, 0.0
+        probe = self._load_probe
+        if probe is not None:
+            try:
+                qd, kv = probe()
+            except Exception:
+                pass                    # a dead scheduler reads unloaded
+        return EngineHealth(
+            name=self.name, version=self.version,
+            staged_version=staged_version, staged_pending=pending,
+            staged_age_s=age, publications=self.publications,
+            promotions=self.promotions,
+            deferred_boundaries=self.deferred_boundaries,
+            publish_drops=self.publish_drops,
+            last_publish_error=self.last_publish_error,
+            closed=self._closed, queue_depth=int(qd),
+            kv_used_frac=float(kv))
+
+    # ---- fixed-batch generation -------------------------------------------
+    def generate(self, prompts, steps: int, temperature: float = 0.0,
+                 seed: int = 0) -> np.ndarray:
+        """prompts: (B, P) int (left-aligned, no padding).  Prefills one
+        token at a time through the decode step, then decodes ``steps``
+        tokens, greedy or sampled with a ``torch.Generator`` seeded by
+        ``seed``; every step runs a boundary and reads one snapshot.
+        Returns (B, P + steps) int32."""
+        self._check_open()
+        dev = self.params["embed"]["embedding"].device
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
+                               device=dev)
+        b, p = toks.shape
+        gen = None
+        if temperature > 0.0:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+        with torch.inference_mode():
+            cache = mdl.init_cache(self.cfg, b, self.max_len, dev)
+            out, logits = [toks], None
+            for i in range(p):                  # loop prefill
+                params, pa, premat = self._snapshot()
+                logits, cache = self.step_fn(params, cache, toks[:, i:i + 1],
+                                             i, pa, premat)
+            for s in range(steps):
+                params, pa, premat = self._snapshot()
+                nxt = _sample(logits[:, -1], temperature,
+                              gen)[:, None].to(torch.int32)
+                out.append(nxt)
+                logits, cache = self.step_fn(params, cache, nxt, p + s, pa,
+                                             premat)
+            return torch.cat(out, dim=1).cpu().numpy()
 
 
 def _sample(logits, temperature: float, generator=None):

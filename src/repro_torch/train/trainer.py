@@ -7,13 +7,14 @@ iteration's expert loads, the scheduler emits the materialization plan
 counts feed back into the predictor.  At world size 1 the plan is the
 ``ep`` plan (every expert in its own slot), so Algorithm 1, calibration,
 resharding and the plan-ahead thread have nothing to do; they come with
-the distributed layer.  Checkpointing, parameter publication and the
-elastic supervisor are not yet ported: asking for them raises.
+the distributed layer.  Checkpointing and the elastic supervisor are not
+yet ported: asking for them raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.common import faults
 from repro_torch.common.config import ModelConfig, TrainConfig
+from repro_torch.common.params import snapshot
 from repro_torch.core import moe as moe_core
 from repro_torch.core.placement import (MaterializationPlan,
                                         ep_materialization,
@@ -111,13 +113,23 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     robustness counters, and ``dropped_frac`` / ``pad_frac``.  A step the
     guard skipped counts in ``skipped_steps``; ``tc.max_bad_steps``
     consecutive skips abort with ``TrainAbortError``.
-    Checkpointing (``tc.checkpoint_dir``), publication
-    (``publish_engine``), the elastic supervisor and ``metric_logger`` are
-    not yet ported and raise."""
+
+    Training-while-serving: with ``publish_engine`` (a live
+    ``serve.engine.Engine``, or a ``serve.bus.PublicationBus`` with the
+    same surface) and ``publish_every = k``, every k-th step publishes the
+    updated parameters, versioned by the global step.  The optimizer
+    updates the tensors in place, so the loop publishes a snapshot made on
+    the step's stream right after the update and before the next step
+    issues.  Versions rise with the step (nothing here rolls the state
+    back).  A failing engine never stops
+    training: the failure counts in ``publish_drops`` (with the engine's
+    or bus's own drops, and a bus's fleet counters read as deltas), and a
+    closed engine ends publication for the run.  At world size 1 nothing
+    reshards, so the plan is never published with the params.
+    Checkpointing (``tc.checkpoint_dir``), the elastic supervisor and
+    ``metric_logger`` are not yet ported and raise."""
     if tc.checkpoint_dir or tc.checkpoint_every:
         raise _not_ported("checkpointing (tc.checkpoint_dir)")
-    if publish_engine is not None or publish_every:
-        raise _not_ported("training-while-serving publication")
     if supervisor is not None:
         raise _not_ported("the elastic recovery supervisor")
     if metric_logger is not None:
@@ -134,6 +146,14 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     it = iter(stream)
     step_base = int(state.step)
     bad_streak = 0
+    publish_warned = False
+    loop_pub_failures = 0
+    # the engine's or bus's counters are read as deltas from here, so a
+    # pre-used engine's history does not leak into this run's counters
+    eng_drops0 = getattr(publish_engine, "publish_drops", 0) or 0
+    eng_drops = 0
+    fleet = ("replica_evictions", "replica_rejoins", "dedup_hits")
+    fleet0 = {k: getattr(publish_engine, k, 0) or 0 for k in fleet}
     for i in range(num_steps):
         gstep = step_base + i + 1               # global step AFTER i
         raw = next(it)
@@ -147,6 +167,21 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
             pa = scheduler.plan_arrays()
         t0 = time.perf_counter()
         state, metrics = train_step_fn(state, batch, pa)
+        if (publish_engine is not None and publish_every
+                and (i + 1) % publish_every == 0):
+            try:
+                publish_engine.publish_params(snapshot(state.params),
+                                              version=gstep)
+            except Exception as e:
+                loop_pub_failures += 1
+                if not publish_warned:
+                    publish_warned = True
+                    warnings.warn(
+                        f"train_loop: parameter publication failed "
+                        f"({e!r}); training continues unpublished",
+                        RuntimeWarning)
+                if getattr(publish_engine, "_closed", False):
+                    publish_engine = None
         metrics = _to_host(metrics)             # blocks on the step
         dt = time.perf_counter() - t0
         if scheduler is not None and "expert_counts" in metrics:
@@ -158,6 +193,13 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
             bad_streak += 1
         else:
             bad_streak = 0
+        if publish_engine is not None:
+            eng_drops = (getattr(publish_engine, "publish_drops", 0)
+                         or 0) - eng_drops0
+            for k in fleet:
+                setattr(counters, k,
+                        (getattr(publish_engine, k, 0) or 0) - fleet0[k])
+        counters.publish_drops = loop_pub_failures + eng_drops
         rec = {"step": i, "loss": float(metrics["loss"]),
                "xent": float(metrics["xent"]), "time_s": dt,
                "step_ok": float(step_ok), **counters.as_dict()}

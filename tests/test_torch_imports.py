@@ -25,6 +25,7 @@ def _modules():
 def test_every_port_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert "repro_torch.serve.scheduler" in mods and len(mods) >= 17
+    assert "repro_torch.serve.bus" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

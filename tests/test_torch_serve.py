@@ -83,10 +83,22 @@ def test_launcher_serves_on_cpu():
 
 
 def test_launcher_refuses_unported_modes():
+    """Fixed-batch ``Engine.generate`` serving and ``--replicas 2`` behind a
+    publication bus run on the CPU; ``--checkpoint-dir`` is not yet ported
+    and refused."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    for extra in (["--continuous", "--replicas", "2"], []):
+    for extra, want in ((["--continuous", "--replicas", "2"],
+                         "fleet: 2/2 healthy"),
+                        ([], "fixed batch: "),
+                        (["--replicas", "2"], "fleet: 2/2 healthy"),
+                        (["--checkpoint-dir", "ckpt"], None)):
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             "gpt-moe-s", "--smoke", "--device", "cpu", *extra],
+             "gpt-moe-s", "--smoke", "--device", "cpu", "--steps", "4",
+             "--max-len", "32", *extra],
             env=env, capture_output=True, text=True, timeout=300)
-        assert r.returncode != 0 and "not yet ported" in r.stderr
+        if want is None:
+            assert r.returncode != 0 and "not yet ported" in r.stderr
+        else:
+            assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+            assert want in r.stdout, r.stdout

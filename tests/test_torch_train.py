@@ -53,6 +53,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train import step as st  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
@@ -247,6 +248,49 @@ def test_loss_fn_and_grads_match_jax(setup, remat):
     # it reports its real padding fraction; JAX's dense oracle reports 0
     assert 0.0 < float(tm["pad_frac"]) < 1.0
     _close_trees(tg, jax.tree.map(np.asarray, jg), 5e-4)
+
+
+def _full_width_jax_grads(jcfg, jpa, jb):
+    """(loss, params, grads) of JAX's loss at JAX's init, as numpy copies,
+    so that no JAX buffer outlives the call."""
+    jparams = jmdl.init_params(jcfg, jax.random.PRNGKey(0))
+    (jloss, _), jg = jax.value_and_grad(
+        lambda p: jst.loss_fn(jcfg, jmdl.Runtime(), p, jb, jpa),
+        has_aux=True)(jparams)
+    return (float(jloss), jax.tree.map(np.array, jparams),
+            jax.tree.map(np.array, jg))
+
+
+def test_full_width_two_layers_loss_and_grads_match_jax():
+    """gpt-moe-s at full width (d_model 768, 64 experts, vocab 50,304) cut
+    to 2 layers, f32, batch 2 x 128: the loss and every gradient leaf
+    against ``jax.value_and_grad`` of the JAX loss, from JAX's init."""
+    jcfg = jconfigs.get(ARCH).replace(num_layers=2, dtype="float32")
+    cfg = configs.get(ARCH).replace(num_layers=2, dtype="float32")
+    assert (cfg.d_model, cfg.moe.num_experts, cfg.vocab_size) == \
+        (768, 64, 50_304)
+    L = jmoe.num_moe_layers(jcfg)
+    jpa = jmoe.plan_to_arrays(jplacement.ep_materialization(
+        jplacement.homogeneous_sharding(L, jcfg.moe.num_experts, 1)))
+    pa = moe.plan_to_arrays(placement.ep_materialization(
+        placement.homogeneous_sharding(L, cfg.moe.num_experts, 1)), "cpu")
+    jb, tb = _batch(cfg, 12, b=2, s=128)
+    jloss, np_params, jg = _full_width_jax_grads(jcfg, jpa, jb)
+    params = params_from_jax(np_params, "cpu")
+    del np_params
+    tm, tg = st.loss_and_grads(cfg, mdl.Runtime(**TRAIN_RT), params, tb, pa)
+    _close(tm["loss"], jloss, 1e-5)
+    got, want = dict(_flat(tg)), dict(_flat(jg))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        # _close's criterion, a block of rows at a time: the expert buffer's
+        # gradient has 302M entries
+        g, w = _np(got[k]).reshape(-1), w.reshape(-1)
+        scale = max(1e-12, float(np.abs(w).max()))
+        for i in range(0, w.size, 1 << 22):
+            np.testing.assert_allclose(g[i:i + (1 << 22)], w[i:i + (1 << 22)],
+                                       atol=5e-4 * scale, rtol=0,
+                                       err_msg=f"leaf {k}")
 
 
 def test_remat_gives_the_same_gradients(setup):
@@ -448,15 +492,28 @@ def test_launch_train_refuses_unported_flags(flags, capsys):
 
 
 def test_unported_training_features_raise(setup):
+    """Checkpointing and the supervisor are not yet ported and raise;
+    publication into a live engine runs (every step publishes a version)."""
     cfg = setup["cfg"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trainer.HecateScheduler(cfg, impl="ring")
     stream = pipeline.make_stream(cfg.vocab_size, 8, 2, seed=0)
     for kw, tc in ((dict(), TrainConfig(checkpoint_dir="ckpt")),
-                   (dict(supervisor=object()), TrainConfig()),
-                   (dict(publish_engine=object(), publish_every=1),
-                    TrainConfig())):
+                   (dict(supervisor=object()), TrainConfig())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             trainer.train_loop(cfg, mdl.Runtime(**TRAIN_RT), tc, stream,
                                num_steps=1, device="cpu", **kw)
+    params = _params(setup)
+    state = st.TrainState(params, adamw.init(params),
+                          torch.zeros((), dtype=torch.int32))
+    with engine.Engine(cfg, mdl.Runtime(), _params(setup), max_len=16,
+                       pa=setup["pa"]) as eng:
+        _, hist = trainer.train_loop(
+            cfg, mdl.Runtime(**TRAIN_RT), TrainConfig(), stream,
+            scheduler=trainer.HecateScheduler(cfg, device="cpu"),
+            state=state, num_steps=2, log_every=0, device="cpu",
+            publish_engine=eng, publish_every=1)
+        eng.flush()
+        assert (eng.publications, eng.version) == (2, 2)
+    assert hist[-1]["publish_drops"] == 0
     assert sum(ops.launch_counts().values()) == 0
