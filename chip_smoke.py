@@ -61,7 +61,20 @@ JAX).  In order it:
    staged build and promotion times, peak memory; the engine must serve
    the last published snapshot), and broadcasts one publication to two
    replicas at 4 layers through a ``PublicationBus``;
-7. prints the kernel table as one JSON line, then
+7. trains gpt-moe-s at full width and depth through the FSSDP layer
+   across ranks at world size 1 over a real NCCL process group (bf16,
+   batch 8 × 2,048, the ring plan of Algorithm 1 at ep = 1 with
+   ``auto_capacity``, so tokens may drop): two identical steps bitwise
+   equal, 4 steps of the Hecate loop with the launch and collective counts
+   reset just before (B1-train, B2 and B3 over the uncompacted
+   ``row_valid`` layout; dropped and padding fractions), one profiled step
+   (device, NCCL and idle time, memory peak) beside phase 5's step median,
+   and the three training kernels against their plain versions on that
+   layout and on an 8-source one.  Two ranks cannot share the card: NCCL
+   refuses two ranks of one communicator on one device, and gloo refuses
+   the ring's ``batch_isend_irecv`` on CUDA tensors
+   (``tools/gloo_cuda_probe.py``);
+8. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
@@ -120,6 +133,8 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 32, 16
 PUBLISH_BATCH, PUBLISH_STEPS, PUBLISH_EVERY = 4, 4, 2
 PUBLISH_PROMPT, PUBLISH_NEW = 8, 2
 FLEET_LAYERS = 4
+# phase 7: the distributed layer's training loop at world size 1 over NCCL
+FSSDP_STEPS = 4
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
@@ -1593,6 +1608,245 @@ def fleet_two_replicas(torch, ops, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the FSSDP layer across ranks
+# ---------------------------------------------------------------------------
+def _nccl_world():
+    """A real NCCL process group of this one process (world size 1, a
+    ``FileStore`` rendezvous in a temporary directory) and its 1 x 1 grid."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_grid
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(workdir, "store"), 1), rank=0, world_size=1)
+    return make_grid(1, 1)
+
+
+def _nccl_ms(ev):
+    """Device ms of the profiled NCCL kernels."""
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in ev
+               if "nccl" in e.key.lower()) / 1e3
+
+
+def check_row_valid_layout(torch, dev, K, M, C, counts, label):
+    """B1-train, B2 and B3 over the distributed layer's uncompacted
+    (K, M·C, D) layout, where each source's kept tokens fill a prefix of
+    its C-row stripe (``counts`` (M, K)), against their plain versions on
+    the same inputs, bf16 at D 768, F 1,536, GELU.  Their tile list comes
+    from ``tile_list`` as on the main path; ``tile_starts`` walks it on the
+    device."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    D, Fd, dt = 768, 1536, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = torch.arange(M * C, device=dev)
+    mask = ((r % C)[None, :] < counts.T[:, r // C]).to(torch.int32)
+    valid = mask.bool()
+
+    def rnd(shp, sc):
+        return torch.randn(shp, generator=g, device=dev).mul_(sc).to(dt)
+    x, wi, wo, dy = (rnd((K, M * C, D), 0.3), rnd((K, D, Fd), 0.05),
+                     rnd((K, Fd, D), 0.05), rnd((K, M * C, D), 0.1))
+    x = x * valid[..., None].to(dt)
+    tiles = gm.tile_list(mask)
+    starts = gm.tile_starts(tiles, K, M * C)
+    atol, rtol = TOL["bfloat16"]
+    worst = {}
+
+    def held(what, a, b, rows=None):
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        err = (a.float() - b.float()).abs()
+        worst[what] = float(err.max()) if err.numel() else 0.0
+        if not bool(torch.isfinite(a).all()) or bool(
+                (err > atol + rtol * b.float().abs()).any()):
+            raise CheckFailed(f"{label}: {what} disagrees with its plain "
+                              f"version on the row_valid layout")
+
+    y, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu",
+                                        tiles=tiles)
+    ry, rh1, _ = ref.grouped_mlp_fwd_train_ref(x, wi, None, wo, mask,
+                                               act="gelu")
+    held("B1-train y", y, ry)
+    held("B1-train h1", h1, rh1, valid)
+    dx, dh1, _, h = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
+                                         act="gelu", tiles=tiles)
+    rdx, rdh1, _, _ = ref.grouped_mlp_dgrad_ref(dy, mask, h1, None, wi,
+                                                None, wo, act="gelu")
+    held("B2 dx", dx, rdx)
+    held("B2 dh1", dh1, rdh1, valid)
+    dwi, _, dwo = gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h,
+                                       tiles=tiles)
+    rdwi, _, rdwo = ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, None, h)
+    held("B3 dwi", dwi, rdwi)
+    held("B3 dwo", dwo, rdwo)
+    n_valid = int(valid.sum())
+    print(f"  {label}: K={K} slots x (M={M} sources x C={C}) rows, "
+          f"{n_valid} valid, {tiles.numel()} of {K * -(-M * C // 64)} "
+          f"64-row tiles listed, tile_starts {starts[:4].tolist()}...; "
+          f"max|kernel - plain| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (atol {atol:g}, rtol {rtol:g}) ok")
+    return dict(K=K, M=M, C=C, valid_rows=n_valid, tiles=tiles.numel(),
+                max_abs_err=worst)
+
+
+def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
+    """Phase 7(a): full-width, full-depth gpt-moe-s, bf16, batch 8 x 2,048,
+    through the distributed layer at world size 1 over a real NCCL group:
+    the ring plan of Algorithm 1 at ep = 1 (its extra slots have no
+    expert to fetch), ``auto_capacity`` from the config's capacity factor,
+    so tokens may drop."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.core import moe
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+
+    grid = _nccl_world()
+    try:
+        cfg = configs.get("gpt-moe-s")
+        _, tc, stream = _train_setup(torch, dev, cfg)
+        rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+            use_pallas=True, grid=grid, impl="ring"))
+        sched = HecateScheduler(cfg, ep=1, impl="ring", device=str(dev))
+        plan = sched.plan()
+        K = plan.k_total
+        cap = moe.auto_capacity(cfg, TRAIN_BATCH * TRAIN_SEQ, 1, K)
+        print(f"  {dist.get_backend()} world of {dist.get_world_size()}; "
+              f"ring plan of Algorithm 1 at ep=1: m={plan.m}, K={K} slots, "
+              f"auto_capacity {cap} rows per cell (capacity factor "
+              f"{cfg.moe.capacity_factor})")
+        # two identical steps from the seeded state on one batch
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next_batch().items()}
+        step_fn = step_lib.build_train_step(cfg, rt, tc)
+        pa = sched.plan_arrays()
+        first = None
+        for _ in range(2):
+            state = step_lib.init_state(cfg, 0, 1, dev, grid)
+            state, m = step_fn(state, batch, pa)
+            leaves = adamw.leaves(state.params)
+            if first is None:
+                first = ([t.detach().clone() for t in leaves],
+                         float(m["loss"]))
+            elif not all(torch.equal(a, b)
+                         for a, b in zip(first[0], leaves)):
+                raise CheckFailed("two identical FSSDP steps gave different "
+                                  "parameters")
+            del state, m, leaves
+        print(f"  two identical steps: loss {first[1]:.6f}, parameters "
+              f"bitwise equal")
+        del first, batch
+        torch.cuda.empty_cache()
+
+        # the main path: the Hecate loop over the grid
+        state = step_lib.init_state(cfg, 0, 1, dev, grid)
+        sched = HecateScheduler(cfg, ep=1, impl="ring", device=str(dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moe.reset_collective_counts()
+        ops.reset_launch_counts()            # the main path's run starts
+        state, hist = train_loop(cfg, rt, tc, stream, scheduler=sched,
+                                 state=state, num_steps=FSSDP_STEPS,
+                                 log_every=0, device=dev)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()       # ... and ends
+        coll = moe.collective_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["time_s"] * 1e3 for h in hist]
+        med = statistics.median(step_ms)
+        dropped = [h["dropped_frac"] for h in hist]
+        pad = [h["pad_frac"] for h in hist]
+        print(f"  losses: {[round(x, 4) for x in losses]}; dropped_frac "
+              f"{[round(x, 6) for x in dropped]}; pad_frac "
+              f"{[round(x, 4) for x in pad]}")
+        print(f"  [{card}] step ms: {[round(x, 1) for x in step_ms]}; median "
+              f"{med:.1f} ms (slice 2's world-size-1 path in this run: "
+              f"{slice2_median_ms:.1f} ms); device memory peak "
+              f"{peak_gb:.2f} GB")
+        print(f"  launches over {FSSDP_STEPS} steps: {launches}")
+        print(f"  collectives over {FSSDP_STEPS} steps: "
+              + ", ".join(f"{k} {v['calls']}x" for k, v in
+                          sorted(coll.items())))
+        if not all(map(math.isfinite, losses)):
+            raise CheckFailed(f"FSSDP training loss not finite: {losses}")
+        n_moe = cfg.num_layers * FSSDP_STEPS
+        fwd_runs = 2 if cfg.remat else 1    # remat re-runs the forward
+        want = {"grouped_mlp_dgrad": n_moe, "grouped_mlp_wgrad": n_moe,
+                "grouped_mlp_fwd_train": fwd_runs * n_moe,
+                "grouped_mlp_fwd": 0, "flash_attention_fwd": 0,
+                "paged_decode_attention": 0}
+        if launches != want:
+            raise CheckFailed(f"FSSDP launches {launches}, expected {want}")
+        if coll["spag_ring"]["calls"] != fwd_runs * n_moe * plan.m or \
+                coll["sprs_ring"]["calls"] != n_moe * plan.m:
+            raise CheckFailed(f"ring hops {coll}")
+
+        # one step under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next_batch().items()}
+        pa = sched.plan_arrays()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch, pa)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        ev = prof.key_averages()
+        dev_ev = [e for e in ev
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in dev_ev) / 1e3
+        nccl = _nccl_ms(dev_ev)
+        top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"  [{card}] one FSSDP step under the profiler: device busy "
+              f"{busy:.1f} ms of {wall:.1f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}), NCCL kernels {nccl:.2f} ms")
+        for e in top:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"x{e.count:<5d} {e.key[:60]}")
+        del state, batch
+        torch.cuda.empty_cache()
+        # the three training kernels on the row_valid layout: the main
+        # path's shape (one source, a C-row prefix per slot, the 64
+        # experts' slots filled to their mean load, the extra slots
+        # empty) and an 8-rank grid's (8 sources of 2,048 tokens each,
+        # k_local 8 + m 4 slots, random kept counts per source)
+        per_slot = torch.zeros((1, K), dtype=torch.int64, device=dev)
+        per_slot[0, :cfg.moe.num_experts] = min(
+            cap, 2 * TRAIN_BATCH * TRAIN_SEQ // cfg.moe.num_experts)
+        layouts = [check_row_valid_layout(torch, dev, K, 1, cap, per_slot,
+                                          "main path's layout")]
+        g = torch.Generator(device=dev).manual_seed(8)
+        c8 = moe.auto_capacity(cfg, TRAIN_BATCH * TRAIN_SEQ // 8, 8, 12)
+        cnt8 = torch.randint(0, c8 + 1, (8, 12), generator=g, device=dev)
+        layouts.append(check_row_valid_layout(torch, dev, 12, 8, c8, cnt8,
+                                              "8-source layout"))
+        return dict(losses=losses, step_ms=step_ms, median_step_ms=med,
+                    slice2_median_step_ms=slice2_median_ms,
+                    peak_memory_gb=peak_gb, dropped_frac=dropped,
+                    pad_frac=pad, launches=launches, collectives=coll,
+                    capacity=cap, K=K, m=plan.m,
+                    profiled_step=dict(device_busy_ms=busy, wall_ms=wall,
+                                       nccl_ms=nccl),
+                    row_valid_layouts=layouts)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 T_START = time.perf_counter()
 
 
@@ -1700,10 +1954,16 @@ def main() -> None:
         publication = publish_under_training(torch, ops, dev, card_line)
         publication["fleet"] = fleet_two_replicas(torch, ops, dev,
                                                   card_line)
+        torch.cuda.empty_cache()
+        print("== 7. the FSSDP layer across ranks")
+        fssdp = fssdp_world_one(torch, ops, dev, card_line,
+                                train["median_step_ms"])
+        torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
     results.update(kernels=kern, serving=serve, training=train,
-                   dense_generate=dense, publication=publication)
+                   dense_generate=dense, publication=publication,
+                   fssdp=fssdp)
 
     meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
                                 "src/repro/kernels/grouped_mlp.py:106"),
@@ -1725,6 +1985,7 @@ def main() -> None:
                       "replaces": meta[k][1],
                       "launches": (train if k in TRAIN_KERNELS
                                    else serve)["launches"][k],
+                      "launches_fssdp": fssdp["launches"][k],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
@@ -1736,7 +1997,7 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print(f"== 7. kernels (script wall so far "
+    print(f"== 8. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(kern))}")
     print(json.dumps({"kernels": table}))

@@ -19,10 +19,11 @@ compute slots flows back into the f32 chunk buffer through the cast.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import Param, torch_dtype
@@ -60,6 +61,19 @@ def moe_buffer_param(cfg: ModelConfig, ep: int) -> Param:
 def router_param(cfg: ModelConfig) -> Param:
     return Param((num_moe_layers(cfg), cfg.d_model, cfg.moe.num_experts),
                  ("layers", None, None), init="scaled")
+
+
+def shard_buffer(buf, grid):
+    """This rank's shard of the global (rows, chunk_len) buffer: rows over
+    the EP (model) index, columns over the FSDP (data) index, as the JAX
+    package lays the buffer out (``P("model", "data")``).  A copy."""
+    rows = buf.shape[0] // grid.model
+    cols = buf.shape[1] // grid.data
+    if rows * grid.model != buf.shape[0] or cols * grid.data != buf.shape[1]:
+        raise ValueError(f"buffer {tuple(buf.shape)} does not split over a "
+                         f"{grid.data} x {grid.model} grid")
+    return buf[grid.e * rows:(grid.e + 1) * rows,
+               grid.d * cols:(grid.d + 1) * cols].clone()
 
 
 def unpack_chunks(cfg: ModelConfig, chunks):
@@ -120,11 +134,23 @@ def plan_to_arrays(plan: MaterializationPlan, device, r_max: int = 0):
 
 @dataclasses.dataclass
 class MoERuntime:
-    """Context of the MoE layer: the JAX package's ``MoERuntime`` at world
-    size 1 (no mesh, the ``ep`` plan).  ``use_pallas`` runs the grouped
-    expert FFN through ``kernels.ops`` (the CUDA kernels for CUDA tensors);
-    the port defaults it on, where the JAX package defaults it off."""
+    """Context of the MoE layer, the JAX package's ``MoERuntime``.
+
+    Without a ``grid`` the layer runs at world size 1 (no collective, the
+    ``ep`` plan).  With a ``launch.mesh.ProcessGrid`` it runs the FSSDP
+    layer across the grid's ranks: ``impl`` (``ring`` | ``a2a`` |
+    ``dense`` | ``none`` for the ``ep`` plan) picks the SparseAllGather,
+    ``capacity`` the tokens per (source, slot) cell (0 = ``auto_capacity``)
+    and ``local_first`` the §4.4 dispatch rule.  The JAX runtime's ``m``
+    and ``r_max`` must equal the plan's; here the layer reads them from
+    the plan's tables.  ``use_pallas`` runs the grouped expert FFN through
+    ``kernels.ops`` (the CUDA kernels for CUDA tensors); the port defaults
+    it on, where the JAX package defaults it off."""
     use_pallas: bool = True
+    grid: Any = None
+    impl: str = "ring"
+    capacity: int = 0
+    local_first: bool = True
 
 
 class MoEAux(NamedTuple):
@@ -139,13 +165,16 @@ class MoEAux(NamedTuple):
 # ---------------------------------------------------------------------------
 # Gate (GShard top-k)
 # ---------------------------------------------------------------------------
-def gate(cfg: ModelConfig, wr, x, valid):
+def gate(cfg: ModelConfig, wr, x, valid, group=None):
     """x: (T, D); valid: (T,) bool.  Returns (idx:(T,k), vals:(T,k) f32,
     counts:(E,), aux_loss, z_loss).
 
     Top-k is a stable descending sort, so exact ties go to the lower expert
     index as ``jax.lax.top_k`` gives them (``torch.topk`` promises no tie
-    order on CUDA)."""
+    order on CUDA).  With a process ``group`` (the distributed layer) the
+    statistics are summed over its ranks in one all-reduce, as the JAX
+    layer's ``psum``: every rank then holds the global counts, aux and z
+    losses."""
     k = cfg.moe.experts_per_token
     e = cfg.moe.num_experts
     logits = x.float() @ wr.float()
@@ -162,12 +191,19 @@ def gate(cfg: ModelConfig, wr, x, valid):
                       torch.ones(cell.numel(), device=x.device))
     counts = counts[:e]
     prob_sum = (probs * valid[:, None]).sum(0)
-    n_valid = valid.sum().float().clamp_min(1.0)
+    n_valid = valid.sum().float()
+    z_sum = torch.sum(torch.logsumexp(logits, dim=-1) ** 2 * valid)
+    if group is not None:
+        stats = _SumOverRanks.apply(torch.cat(
+            [counts, prob_sum, n_valid[None], z_sum[None]]), group)
+        counts, prob_sum = stats[:e].detach(), stats[e:2 * e]
+        n_valid, z_sum = stats[2 * e].detach(), stats[2 * e + 1]
+    n_valid = n_valid.clamp_min(1.0)
     # the load fraction is a constant of the loss, as the JAX package's
     # stop_gradient makes it
     frac = (counts / counts.sum().clamp_min(1.0)).detach()
     aux = e * torch.sum(frac * (prob_sum / n_valid))
-    z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2 * valid) / n_valid
+    z = z_sum / n_valid
     return idx, vals, counts, aux, z
 
 
@@ -293,6 +329,12 @@ def moe_layer(cfg: ModelConfig, rt, x, wr, buf, pa: PlanArrays, valid=None,
     T, D = x.shape
     if valid is None:
         valid = torch.ones(T, dtype=torch.bool, device=x.device)
+    if getattr(rt, "grid", None) is not None:
+        if premat is not None:
+            raise NotImplementedError(
+                "premat (materialization hoisting) on a process grid is not "
+                "yet ported to repro_torch")
+        return _moe_layer_grid(cfg, rt, x, wr, buf, pa, valid)
     if pa.local_rows.shape[0] != 1:
         raise NotImplementedError("repro_torch runs the MoE layer at world "
                                   "size 1 only")
@@ -349,3 +391,346 @@ def moe_layer_ref(cfg: ModelConfig, x, idx, vals, buf, pa: PlanArrays):
     comb.scatter_add_(1, idx.long(), vals.float())
     y = torch.einsum("te,etd->td", comb.to(dt), y_all)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# The FSSDP layer across ranks
+# ---------------------------------------------------------------------------
+# Every collective the layer issues, by kind: [calls, bytes this rank sent to
+# other ranks].  The forward's kinds are the SparseAllGather's ``spag_ring``
+# (one single hop), ``spag_a2a``, ``spag_dense`` and ``spag_fsdp``, the
+# token all-to-alls ``tokens_out`` and ``tokens_back``, the kept-count
+# all-to-all ``counts`` and the statistics all-reduces ``gate_stats`` and
+# ``dev_loads``; the SparseReduceScatter's are ``sprs_*``, the token
+# all-to-alls' backward ``*_bwd``.
+_COLLECTIVES: dict = {}
+
+
+def collective_counts() -> dict:
+    """{kind: {"calls": n, "bytes": b}} since the last reset."""
+    return {k: {"calls": v[0], "bytes": v[1]}
+            for k, v in _COLLECTIVES.items()}
+
+
+def reset_collective_counts() -> None:
+    _COLLECTIVES.clear()
+
+
+def _record(kind: str, nbytes: float) -> None:
+    c = _COLLECTIVES.setdefault(kind, [0, 0])
+    c[0] += 1
+    c[1] += int(nbytes)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _hop(t, send_to: int, recv_from: int, grid, kind: str):
+    """One single-hop exchange of the ring: send ``t`` to global rank
+    ``send_to`` and receive a tensor like it from ``recv_from``.  A ring
+    offset that lands on this rank (``j + 1`` a multiple of the ring size)
+    moves nothing: the hop is the identity, as a ``ppermute`` onto itself."""
+    if send_to == grid.rank:
+        _record(kind, 0)
+        return t.clone()
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, send_to, grid.ep_group),
+            dist.P2POp(dist.irecv, out, recv_from, grid.ep_group)]):
+        w.wait()
+    _record(kind, _nbytes(t))
+    return out
+
+
+def _a2a(x, group, kind: str):
+    """Equal-split all-to-all over dim 0 of ``x`` (one block per rank)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    g = dist.get_world_size(group)
+    _record(kind, _nbytes(x) * (g - 1) // g)
+    return out
+
+
+def _all_gather(x, group, kind: str, dim: int):
+    """Concatenation of every rank's 2-D ``x`` along ``dim``, in rank
+    order."""
+    g = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((g * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    _record(kind, _nbytes(x) * (g - 1))
+    if dim == 1:
+        out = out.view(g, *x.shape).movedim(0, 1).reshape(
+            x.shape[0], g * x.shape[1])
+    return out
+
+
+def _reduce_scatter(x, group, kind: str, dim: int):
+    """The transpose of ``_all_gather``: sum over ranks, this rank's block
+    of ``dim``."""
+    g = dist.get_world_size(group)
+    if dim == 1:
+        x = x.contiguous().view(x.shape[0], g, x.shape[1] // g).movedim(1, 0)
+        x = x.reshape(-1, x.shape[-1])
+    x = x.contiguous()
+    out = torch.empty((x.shape[0] // g,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    _record(kind, _nbytes(x) * (g - 1) // g)
+    return out
+
+
+def _all_reduce(x, group, kind: str):
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    g = dist.get_world_size(group)
+    _record(kind, 2 * _nbytes(x) * (g - 1) // g)
+    return x
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Sum over the ranks of ``group`` (an all-reduce); the backward is the
+    identity.  Each rank adds the summed statistic to its share of the
+    loss once, and the gradients of replicated parameters are summed over
+    the ranks afterwards, so the identity gives the gradient of the global
+    loss.  It is what JAX's transpose of the gate's ``psum`` gives on the
+    mesh: the router's gradient through the aux and z losses equals the
+    mesh-less one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group, "gate_stats")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The token all-to-all; its backward is the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return _a2a(x, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group, ctx.kind + "_bwd"), None, None
+
+
+def _mask_col(mask, dtype):
+    return mask[:, None].to(dtype)
+
+
+def _spag(buf, pa, grid, impl: str, dt):
+    """SparseAllGather of one layer on this rank: the f32 shard ``buf``
+    (rows_local, chunk_loc) -> (K, chunk_len) compute slots in ``dt``.
+    The rows are taken, then cast, so only they are converted, and every
+    collective moves the compute dtype.  The owned slots are a take of the
+    local rows; the m extra slots come over the EP group (ring, a2a or
+    dense); then the FSDP group all-gathers the column shards."""
+    M, me, ranks = grid.model, grid.e, grid.ep_ranks
+    m = pa.extra_experts.shape[-1]
+    owned = buf[pa.local_rows[me].long()].to(dt) \
+        * _mask_col(pa.local_experts[me] >= 0, dt)
+    slots = [owned]
+    my_e = pa.extra_experts[me].long()
+    if impl == "ring" and m:
+        send = buf[pa.ring_send_rows[me].long()].to(dt)        # (m, chunk)
+        got = torch.stack([_hop(send[j], ranks[(me - j - 1) % M],
+                                ranks[(me + j + 1) % M], grid, "spag_ring")
+                           for j in range(m)])
+        slots.append(got * _mask_col(my_e >= 0, dt))
+    elif impl == "a2a" and m:
+        wanted = pa.extra_experts.long()                       # (M, m)
+        wc = wanted.clamp_min(0)
+        is_mine = (pa.owner_dev[wc] == me) & (wanted >= 0)
+        rows = pa.owner_row[wc].long()
+        send = buf[rows.reshape(-1)].to(dt).view(M, m, buf.shape[1]) \
+            * is_mine[..., None].to(dt)
+        recv = _a2a(send, grid.ep_group, "spag_a2a")           # (M, m, chunk)
+        src = pa.owner_dev[my_e.clamp_min(0)].long()
+        got = recv[src, torch.arange(m, device=buf.device)]
+        slots.append(got * _mask_col(my_e >= 0, dt))
+    elif impl == "dense":
+        # the FSDP baseline moves every row: the whole shard, cast
+        allbuf = _all_gather(buf.to(dt), grid.ep_group, "spag_dense", 0)
+        ec = my_e.clamp_min(0)
+        grow = pa.owner_dev[ec].long() * buf.shape[0] \
+            + pa.owner_row[ec].long()
+        slots.append(allbuf[grow] * _mask_col(my_e >= 0, dt))
+    chunks = torch.cat(slots)                                  # (K, chunk_loc)
+    return _all_gather(chunks, grid.fsdp_group, "spag_fsdp", 1)
+
+
+def _sprs(ct, pa, grid, impl: str, rows_local: int):
+    """SparseReduceScatter, the transpose of ``_spag``, written out: the
+    (K, chunk_len) slot cotangent -> the f32 gradient of this rank's
+    (rows_local, chunk_loc) buffer shard.  The FSDP group reduce-scatters
+    the columns (in f32), the EP group sends each extra slot's cotangent
+    back to the rank it came from, and the cotangents land on the owner's
+    rows.  Every sum runs in a fixed order, with no atomics: the
+    collectives', then one accumulation per ring round or per destination,
+    each a sorted ``index_put_(accumulate=True)`` (a slot with no expert
+    adds its zero cotangent to some row) or an ``index_add_`` onto one
+    row.  The gradient is a tensor of its own, not a view, so autograd
+    sums the layers' gradients in place."""
+    M, me, ranks = grid.model, grid.e, grid.ep_ranks
+    kl = pa.local_rows.shape[-1]
+    m = pa.extra_experts.shape[-1]
+    ct = _reduce_scatter(ct.float(), grid.fsdp_group, "sprs_fsdp", 1)
+    c = ct.shape[1]
+    g = ct.new_zeros((rows_local, c))
+    own = pa.local_experts[me] >= 0
+    g.index_put_((pa.local_rows[me].long(),), ct[:kl] * _mask_col(own, ct.dtype),
+                 accumulate=True)
+    my_e = pa.extra_experts[me].long()
+    ct_x = ct[kl:] * _mask_col(my_e >= 0, ct.dtype)               # (m, chunk)
+    if impl == "ring" and m:
+        sent = pa.ring_send_rows[me].long()
+        for j in range(m):                    # the reverse hop of round j
+            back = _hop(ct_x[j], ranks[(me + j + 1) % M],
+                        ranks[(me - j - 1) % M], grid, "sprs_ring")
+            g.index_add_(0, sent[j:j + 1], back[None])
+    elif impl == "a2a" and m:
+        wanted = pa.extra_experts.long()
+        wc = wanted.clamp_min(0)
+        is_mine = (pa.owner_dev[wc] == me) & (wanted >= 0)
+        rows = pa.owner_row[wc].long()
+        src = pa.owner_dev[my_e.clamp_min(0)].long()
+        ct_recv = ct.new_zeros((M, m, c))
+        ct_recv[src, torch.arange(m, device=ct.device)] = ct_x
+        back = _a2a(ct_recv, grid.ep_group, "sprs_a2a") \
+            * is_mine[..., None].to(ct.dtype)
+        for t in range(M):                    # one destination at a time
+            g.index_put_((rows[t],), back[t], accumulate=True)
+    elif impl == "dense":
+        ec = my_e.clamp_min(0)
+        grow = pa.owner_dev[ec].long() * rows_local + pa.owner_row[ec].long()
+        ct_all = ct.new_zeros((M * rows_local, c))
+        ct_all.index_put_((grow,), ct_x, accumulate=True)
+        g += _reduce_scatter(ct_all, grid.ep_group, "sprs_dense", 0)
+    return g
+
+
+class SparseAllGather(torch.autograd.Function):
+    """``apply(buf, pa, grid, impl, dtype)``: this rank's f32 buffer shard
+    (rows_local, chunk_loc) -> one layer's (K, chunk_len) compute slots in
+    ``dtype``.  The buffer is cast to the compute dtype before the gather;
+    the backward is the hand-written SparseReduceScatter (``_sprs``),
+    whose gradient lands in f32 on the owner's rows."""
+
+    @staticmethod
+    def forward(ctx, buf, pa, grid, impl, dtype):
+        ctx.meta = (pa, grid, impl, buf.shape[0], buf.dtype)
+        return _spag(buf, pa, grid, impl, dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        pa, grid, impl, rows, dtype = ctx.meta
+        return (_sprs(ct, pa, grid, impl, rows).to(dtype), None, None, None,
+                None)
+
+
+def _spread(flat, keep, n: int):
+    """Gather rows for the combine: a kept entry's own cell; a dropped
+    entry reads some cell and is masked out after.  Dropped entries are
+    spread over the cells, not stacked on one: the gather's backward, a
+    sorted accumulation, walks the entries of one index serially."""
+    spread = torch.arange(flat.shape[0], device=flat.device) % n
+    return torch.where(keep, flat, spread)
+
+
+def auto_capacity(cfg: ModelConfig, t_loc: int, ep: int, k_total: int) -> int:
+    """Tokens per (source, slot) cell: the config's capacity factor times
+    the cell's fair share of the rank's ``t_loc · k`` assignments."""
+    want = cfg.moe.capacity_factor * t_loc * cfg.moe.experts_per_token \
+        / max(ep * k_total, 1)
+    return max(1, int(-(-want // 1)))
+
+
+def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
+                    pa: PlanArrays, valid):
+    """The FSSDP MoE layer on this rank: the JAX package's ``_moe_body``.
+
+    x: (T, D) this rank's tokens; buf: this rank's (rows_local, chunk_loc)
+    f32 buffer shard; pa: this layer's tables for the whole grid.  The
+    SparseAllGather comes first (it does not depend on the gate), then the
+    gate with its statistics summed over the world, the sort-based
+    dispatch with ``me`` = this rank's EP index into (M, K, C) cells, the
+    token all-to-all, the grouped FFN over the uncompacted (K, M·C, D)
+    layout whose valid rows are each source's prefix of its C-row stripe
+    (``row_valid``, from a (M, K) all-to-all of the kept counts), the
+    reverse all-to-all and the combine.  Over-capacity entries are dropped
+    by masking them onto a row that is cut off (an ``index_put_`` has no
+    drop mode).  ``dense``: every expert is local, no token moves."""
+    grid = rt.grid
+    M, me = grid.model, grid.e
+    T, D = x.shape
+    E = cfg.moe.num_experts
+    K = pa.local_rows.shape[-1] + pa.extra_experts.shape[-1]
+    cap = rt.capacity or auto_capacity(cfg, T, M, K)
+    chunks = SparseAllGather.apply(buf, pa, grid, rt.impl, x.dtype)
+    idx, vals, counts, aux, z = gate(cfg, wr, x, valid,
+                                     group=grid.world_group)
+    k = idx.shape[1]
+    w_flat = vals.reshape(-1)
+    valid_w = w_flat > 0
+    e_safe = idx.reshape(-1).clamp_min(0).long()
+    xtok = x[:, None, :].expand(T, k, D).reshape(T * k, D)
+    if rt.impl == "dense":
+        # every expert local: cells are slots, the position a per-expert
+        # rank over valid entries only (kept rows stay a slot prefix)
+        cap_eff = M * cap
+        slot = pa.expert_slot[me][e_safe].long()
+        pos = segment_ranks(torch.where(valid_w, e_safe,
+                                        torch.full_like(e_safe, E))).long()
+        keep = valid_w & (pos < cap_eff) & (slot >= 0)
+        gs = torch.bincount(torch.where(keep, slot, torch.full_like(slot, K)),
+                            minlength=K + 1)[:K].to(torch.int32)
+        flat = torch.where(keep, slot.clamp_min(0) * cap_eff + pos,
+                           torch.full_like(pos, K * cap_eff))
+        xr = x.new_zeros((K * cap_eff + 1, D)).index_put_((flat,), xtok)
+        yr = _expert_ffn(cfg, chunks, xr[:-1].view(K, cap_eff, D),
+                         rt.use_pallas, group_sizes=gs)
+        got = yr.reshape(-1, D)[_spread(flat, keep, K * cap_eff)]
+        dev_loads_l = torch.zeros(M, dtype=torch.float32, device=x.device)
+        dev_loads_l[me] = gs.sum().float()
+        rows_per_dev = K * cap_eff
+    else:
+        dest, slot, pos, keep, send_cnt = replica_dispatch(
+            e_safe, valid_w, pa.expert_slot, pa.replicas, pa.n_replicas, me,
+            K, cap, rt.local_first)
+        pos = pos.long()
+        flat = torch.where(keep, (dest * K + slot.clamp_min(0)) * cap + pos,
+                           torch.full_like(pos, M * K * cap))
+        send = x.new_zeros((M * K * cap + 1, D)).index_put_((flat,), xtok)
+        recv = _AllToAll.apply(send[:-1].view(M, K, cap, D), grid.ep_group,
+                               "tokens_out")
+        xr = recv.permute(1, 0, 2, 3).reshape(K, M * cap, D)
+        if rt.use_pallas:
+            # the kept counts ride a (M, K) int all-to-all; each source's
+            # kept tokens fill a prefix of its C-row stripe, so validity is
+            # metadata and the kernels skip the tiles with no valid row
+            recv_cnt = _a2a(send_cnt, grid.ep_group, "counts")    # (M, K)
+            r = torch.arange(M * cap, device=x.device)
+            row_valid = (r % cap)[None, :] < recv_cnt.T[:, r // cap]
+            yr = _expert_ffn(cfg, chunks, xr, True, row_valid=row_valid)
+        else:
+            yr = _expert_ffn(cfg, chunks, xr, False)
+        yback = yr.view(K, M, cap, D).permute(1, 0, 2, 3)
+        ret = _AllToAll.apply(yback, grid.ep_group, "tokens_back")
+        got = ret.reshape(-1, D)[_spread(flat, keep, M * K * cap)]
+        dev_loads_l = send_cnt.sum(1).float()
+        rows_per_dev = K * M * cap
+    dropped = 1.0 - keep.sum() / valid_w.sum().clamp_min(1)
+    got = torch.where(keep[:, None], got, torch.zeros_like(got))
+    y = (got.reshape(T, k, D) * vals.reshape(T, k, 1).to(x.dtype)).sum(1)
+    dev_loads = _all_reduce(dev_loads_l, grid.world_group, "dev_loads")
+    pad_frac = 1.0 - dev_loads.sum() / float(rows_per_dev * grid.size)
+    return y, MoEAux(counts, aux, z, dropped, dev_loads, pad_frac)

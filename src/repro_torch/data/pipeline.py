@@ -1,9 +1,10 @@
 """Data pipeline: deterministic synthetic LM stream + byte-level corpus.
 
 This package's own copy of the JAX package's ``repro/data/pipeline.py``
-(numpy only): the same config and seed give the same batches.  The
-per-host slicing of multi-process launches comes with the distributed
-layer; here one process makes the whole batch.
+(numpy only): the same config and seed give the same batches.  For a
+multi-process launch ``host_slice`` is a rank's rows of the global batch,
+and a stream made with ``process_index`` / ``process_count`` yields only
+one process's rows, from a seed of its own (as the JAX package's does).
 """
 from __future__ import annotations
 
@@ -36,9 +37,12 @@ class DataConfig:
 class LMStream:
     """Yields {tokens:(B,S+1) int32}; targets are tokens shifted by one."""
 
-    def __init__(self, cfg: DataConfig):
+    def __init__(self, cfg: DataConfig, process_index: int = 0,
+                 process_count: int = 1):
+        assert cfg.global_batch % process_count == 0
         self.cfg = cfg
-        self.rng = np.random.default_rng(cfg.seed)
+        self.local_batch = cfg.global_batch // process_count
+        self.rng = np.random.default_rng(cfg.seed + process_index * 100003)
         if cfg.kind == "bytes":
             self.corpus = np.frombuffer(
                 _BUILTIN_CORPUS.encode(), dtype=np.uint8).astype(np.int32)
@@ -50,10 +54,10 @@ class LMStream:
 
     def next_batch(self) -> Dict[str, np.ndarray]:
         c = self.cfg
-        shape = (c.global_batch, c.seq_len + 1)
+        shape = (self.local_batch, c.seq_len + 1)
         if c.kind == "bytes":
             starts = self.rng.integers(
-                0, len(self.corpus) - c.seq_len - 1, c.global_batch)
+                0, len(self.corpus) - c.seq_len - 1, self.local_batch)
             toks = np.stack([self.corpus[s:s + c.seq_len + 1]
                              for s in starts])
         elif c.skew > 0:
@@ -66,8 +70,14 @@ class LMStream:
         return {"tokens": toks.astype(np.int32)}
 
 
+def host_slice(global_batch: int, process_index: int, process_count: int
+               ) -> slice:
+    per = global_batch // process_count
+    return slice(process_index * per, (process_index + 1) * per)
+
+
 def make_stream(vocab_size: int, seq_len: int, global_batch: int,
-                kind: str = "synthetic", seed: int = 0, skew: float = 0.0
-                ) -> LMStream:
+                kind: str = "synthetic", seed: int = 0, skew: float = 0.0,
+                process_index: int = 0, process_count: int = 1) -> LMStream:
     return LMStream(DataConfig(vocab_size, seq_len, global_batch, kind,
-                               seed, skew))
+                               seed, skew), process_index, process_count)

@@ -1,0 +1,90 @@
+"""The process grid: the port's counterpart of the JAX package's
+``repro/launch/mesh.py``.
+
+JAX lays a (data, model) mesh over its devices; the port runs one process
+per device and lays the same grid over the ranks of a ``torch.distributed``
+world, in ``jax.make_mesh((data, model))``'s device order: rank
+``d * model + e`` sits at data index ``d`` and model (expert-parallel)
+index ``e``.  The grid carries the process groups the FSSDP layer talks
+over:
+
+* the **EP group** of a data index ``d``: ranks ``d * model + e`` for
+  every ``e`` (the JAX ``model`` axis: the SparseAllGather of expert
+  chunks and the token all-to-alls);
+* the **FSDP group** of a model index ``e``: ranks ``d * model + e`` for
+  every ``d`` (the JAX ``data`` axis: the all-gather of the sharded chunk
+  columns);
+* the world (the gate statistics, the gradient sum of replicated
+  parameters).
+
+``new_group`` is collective over the world, so every rank creates every
+group, in the same order, and keeps its own two.  A function, not a module
+constant: importing this module touches no process group.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List
+
+import torch.distributed as dist
+
+
+@dataclasses.dataclass
+class ProcessGrid:
+    """A (data, model) grid over the ranks of the default process group."""
+    data: int
+    model: int
+    rank: int
+    ep_group: Any              # this rank's EP group (size ``model``)
+    fsdp_group: Any            # this rank's FSDP group (size ``data``)
+    world_group: Any = None    # the default group
+    ep_ranks: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def d(self) -> int:
+        """This rank's data index."""
+        return self.rank // self.model
+
+    @property
+    def e(self) -> int:
+        """This rank's model (expert-parallel) index."""
+        return self.rank % self.model
+
+
+def make_grid(data: int, model: int) -> ProcessGrid:
+    """The grid over an initialized default group of ``data * model``
+    ranks.  Collective: every rank of the world must call it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_grid needs torch.distributed initialized "
+                           "(launch.distributed.spawn or maybe_initialize)")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a {data} x {model} grid needs {data * model} "
+                         f"ranks, the world has {world}")
+    rank = dist.get_rank()
+    d_me, e_me = rank // model, rank % model
+    ep_group = fsdp_group = ep_ranks = None
+    for d in range(data):                     # every rank, same order
+        ranks = [d * model + e for e in range(model)]
+        g = dist.new_group(ranks=ranks)
+        if d == d_me:
+            ep_group, ep_ranks = g, ranks
+    for e in range(model):
+        ranks = [d * model + e for d in range(data)]
+        g = dist.new_group(ranks=ranks)
+        if e == e_me:
+            fsdp_group = g
+    return ProcessGrid(data, model, rank, ep_group, fsdp_group,
+                       dist.group.WORLD, ep_ranks)
+
+
+def make_debug_mesh(data: int = 2, model: int = 4) -> ProcessGrid:
+    """Small grid for tests (the JAX package's name): the world must
+    already hold ``data * model`` ranks, e.g. under
+    ``launch.distributed.spawn``."""
+    return make_grid(data, model)
+

@@ -1,6 +1,5 @@
-"""Training launcher of the port: train a model from a seed on one device
-through the Hecate loop (``train.trainer.train_loop``) with the ``ep``
-plan.
+"""Training launcher of the port: train a model from a seed through the
+Hecate loop (``train.trainer.train_loop``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-moe-s \
       --steps 50 --data bytes
@@ -10,9 +9,16 @@ The device is ``cuda`` unless ``--device cpu`` is given (``--smoke
 plain versions); with the default device and no GPU the launcher fails.
 Attention runs its plain PyTorch version (the flash kernel has no
 backward); the grouped expert FFN runs its CUDA kernels, forward, dgrad
-and wgrad.  A mesh (``--mesh-data``), another plan than ``--impl ep``,
-checkpointing and the elastic supervisor are not yet ported and are
-refused.
+and wgrad.
+
+With ``--mesh-data D --mesh-model M`` or an Algorithm 1 plan (``--impl
+ring | a2a | dense``) it trains on a D × M process grid of FSSDP ranks,
+``nccl`` on the card and ``gloo`` with ``--device cpu``: either started
+here (``--spawn``: D·M processes of this machine, ``FileStore``
+rendezvous) or one process per rank under ``python -m
+torch.distributed.run --nproc-per-node D·M -m repro_torch.launch.train
+...``.  Rank 0 prints the losses.  Checkpointing and the elastic
+supervisor are not yet ported and are refused.
 """
 from __future__ import annotations
 
@@ -30,10 +36,19 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--impl", default="ep",
                     choices=["ring", "a2a", "dense", "ep"],
-                    help="materialization plan (only ep is ported)")
+                    help="materialization plan")
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="0 = single device, no mesh (the only ported "
-                         "layout)")
+                    help="data ranks of the process grid (0 = one "
+                         "process, no grid)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="expert-parallel ranks of the process grid")
+    ap.add_argument("--spawn", action="store_true",
+                    help="start the grid's ranks on this machine")
+    ap.add_argument("--spawn-timeout", type=float, default=3600.0,
+                    help="seconds before --spawn kills every rank")
+    ap.add_argument("--spawn-dir", default="",
+                    help="directory of --spawn's rendezvous and results "
+                         "(default: a temporary one)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="")
@@ -51,18 +66,43 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh_data:
-        raise SystemExit("--mesh-data (a device mesh) is not yet ported to "
-                         "repro_torch; it trains on one device")
-    if args.impl != "ep":
-        raise SystemExit(f"--impl {args.impl} is not yet ported to "
-                         f"repro_torch; pass --impl ep")
     if args.checkpoint_dir or args.checkpoint_every:
         raise SystemExit("--checkpoint-dir / --checkpoint-every are not yet "
                          "ported to repro_torch")
     if args.elastic:
         raise SystemExit("--elastic is not yet ported to repro_torch")
 
+    grid = (max(args.mesh_data, 1), args.mesh_model)
+    if args.mesh_data or args.mesh_model > 1 or args.impl != "ep":
+        return _launch_grid(args, grid)
+    return _train(args, None)
+
+
+def _launch_grid(args, grid):
+    """The multi-rank launch: ``--spawn`` starts the ranks here; under
+    ``torch.distributed.run`` this process is one of them."""
+    from repro_torch.launch import distributed
+    if args.spawn:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            return distributed.spawn(_rank_main, grid, args.device,
+                                     workdir=args.spawn_dir or tmp,
+                                     args=(args,),
+                                     timeout=args.spawn_timeout)[0]
+    if not distributed.maybe_initialize(args.device):
+        raise SystemExit(
+            f"a {grid[0]} x {grid[1]} grid with --impl {args.impl} runs one "
+            f"process per rank: pass --spawn, or launch under python -m "
+            f"torch.distributed.run")
+    from repro_torch.launch.mesh import make_grid
+    return _rank_main(make_grid(*grid), args)
+
+
+def _rank_main(grid, args):
+    return _train(args, grid)
+
+
+def _train(args, grid):
     import torch
 
     import repro_torch.configs as configs
@@ -78,7 +118,9 @@ def main(argv=None):
                          "CPU with the kernels' plain versions")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
-    rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(use_pallas=True))
+    impl = {"ep": "none"}.get(args.impl, args.impl)
+    rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+        use_pallas=True, grid=grid, impl=impl))
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1), seed=args.seed,
                      microbatch=args.microbatch,
@@ -88,15 +130,18 @@ def main(argv=None):
                          kind=args.data, seed=args.seed, skew=args.skew)
     scheduler = None
     if cfg.moe.enabled:
-        scheduler = HecateScheduler(cfg, ep=1, impl="ep",
-                                    device=str(device))
+        scheduler = HecateScheduler(cfg, ep=grid.model if grid else 1,
+                                    impl=args.impl, device=str(device))
+    rank0 = grid is None or grid.rank == 0
     state, history = train_loop(cfg, rt, tc, stream, scheduler=scheduler,
-                                num_steps=args.steps, device=device)
-    if args.log_json:
-        with open(args.log_json, "w") as f:
-            json.dump(history, f)
-    print(f"final loss: {history[-1]['loss']:.4f} "
-          f"(start {history[0]['loss']:.4f})")
+                                num_steps=args.steps, device=device,
+                                log_every=10 if rank0 else 0)
+    if rank0:
+        if args.log_json:
+            with open(args.log_json, "w") as f:
+                json.dump(history, f)
+        print(f"final loss: {history[-1]['loss']:.4f} "
+              f"(start {history[0]['loss']:.4f})", flush=True)
     return history
 
 

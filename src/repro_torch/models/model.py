@@ -39,6 +39,13 @@ class Runtime:
     use_pallas: bool = True
     moe: MoERuntime = dataclasses.field(default_factory=MoERuntime)
 
+    @property
+    def grid(self):
+        """The process grid (``launch.mesh.ProcessGrid``) or None.  On a
+        grid each rank runs the whole model on its own rows of the batch,
+        and only the MoE layer communicates."""
+        return self.moe.grid
+
 
 def _moe_positions(cfg: ModelConfig) -> Tuple[int, ...]:
     """Positions within a superblock that carry an MoE FFN (must be
@@ -94,9 +101,22 @@ def param_decls(cfg: ModelConfig, ep: int = 1):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                ep: int = 1):
-    """Parameters from a seeded ``torch.Generator`` on ``device``."""
-    return init_tree(param_decls(cfg, ep), seed, cfg.param_dtype, device)
+                ep: int = 1, grid=None):
+    """Parameters from a seeded ``torch.Generator`` on ``device``.  With a
+    process ``grid`` every rank makes the same tree and keeps its shard of
+    the chunk buffer (``shard_params``)."""
+    params = init_tree(param_decls(cfg, ep), seed, cfg.param_dtype, device)
+    return params if grid is None else shard_params(params, grid)
+
+
+def shard_params(params, grid):
+    """The tree a rank of ``grid`` holds: every parameter replicated but
+    the chunk buffer, of which it keeps its (rows / model, chunk_len /
+    data) shard."""
+    if "moe_buffer" not in params:
+        return params
+    return dict(params, moe_buffer=moe_core.shard_buffer(
+        params["moe_buffer"], grid))
 
 
 def _block(params, sb: int):
@@ -114,7 +134,8 @@ def _block(params, sb: int):
 def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
              premat=None):
     """x: (B, S, D) -> (y, MoEAux): flatten the tokens and run the MoE
-    layer over all of them (world size 1: no padding to a device count)."""
+    layer over all of them (no padding to a device count: on a grid each
+    rank holds whole rows of the batch, which are its token slice)."""
     b, s, d = x.shape
     y, aux = moe_core.moe_layer(cfg, rt.moe, x.reshape(b * s, d), wr, buf,
                                 pa, premat=premat)

@@ -61,7 +61,7 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads, state: OptState, params, tc: TrainConfig, *,
-           skip_nonfinite: bool = False, extra_ok=None):
+           skip_nonfinite: bool = False, extra_ok=None, gnorm=None):
     """Returns (params, new_state, metrics); ``params`` and the moments
     are updated in place.
 
@@ -69,8 +69,11 @@ def update(grads, state: OptState, params, tc: TrainConfig, *,
     global norm (or a false ``extra_ok``) every parameter and moment is
     where-selected back to its old value and ``count`` does not advance:
     the update is skipped bit-exactly, never by multiplying.
-    ``metrics["step_ok"]`` (0.0/1.0) reports it."""
-    gnorm = global_norm(grads)
+    ``metrics["step_ok"]`` (0.0/1.0) reports it.  ``gnorm``: the gradient
+    norm to clip and guard with, when ``grads`` is a shard of the model's
+    (a rank of a process grid); else ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     ok = None
     if skip_nonfinite:
         ok = torch.isfinite(gnorm)

@@ -8,12 +8,21 @@ returned, not accumulated into ``.grad``), and gradient accumulation over
 microbatches sums them in f32 in microbatch order, as the JAX step's scan
 does.  The materialization hoisting of the JAX step needs a mesh and is
 not ported.
+
+On a process grid (``rt.grid``) every rank runs the step on its own rows
+of the global batch: the loss is the mean over every rank's tokens, the
+gradients of the replicated parameters (embedding, attention, norms,
+router) are summed over the world in one all-reduce per dtype, the chunk
+buffer's gradient stays on the rank that owns the shard (the
+SparseReduceScatter put it there), the clipping norm is the global one,
+and AdamW runs on each rank's parameters.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig, TrainConfig
@@ -32,8 +41,8 @@ class TrainState(NamedTuple):
 
 
 def init_state(cfg: ModelConfig, seed: int, ep: int = 1,
-               device="cuda") -> TrainState:
-    params = mdl.init_params(cfg, seed, device, ep)
+               device="cuda", grid=None) -> TrainState:
+    params = mdl.init_params(cfg, seed, device, ep, grid)
     return TrainState(params=params, opt=adamw.init(params),
                       step=torch.zeros((), dtype=torch.int32,
                                        device=device))
@@ -55,6 +64,14 @@ def chunked_xent(cfg: ModelConfig, embed_params, hidden, labels,
     logits never exist (the backward recomputes one chunk's logits at a
     time).  Chunk sums are added in order, as the JAX package's scan
     adds them."""
+    nll, cnt = chunked_nll(cfg, embed_params, hidden, labels, n_chunks,
+                           ignore)
+    return nll / cnt.clamp_min(1.0)
+
+
+def chunked_nll(cfg: ModelConfig, embed_params, hidden, labels,
+                n_chunks: int = 8, ignore: int = -1):
+    """(summed negative log-likelihood, token count) of ``chunked_xent``."""
     b, s, d = hidden.shape
     while s % n_chunks:
         n_chunks -= 1
@@ -74,7 +91,7 @@ def chunked_xent(cfg: ModelConfig, embed_params, hidden, labels,
         a, m = checkpoint(body, hidden[:, sl], labels[:, sl],
                           use_reentrant=False)
         nll, cnt = nll + a, cnt + m
-    return nll / cnt.clamp_min(1.0)
+    return nll, cnt
 
 
 def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
@@ -85,8 +102,20 @@ def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
     hidden, aux = mdl.forward(cfg, rt, params, toks[:, :-1], pa=pa,
                               causal=causal, return_hidden=True)
     labels = toks[:, 1:]
-    loss = chunked_xent(cfg, params["embed"], hidden, labels)
-    metrics = {"xent": loss}
+    grid = getattr(rt, "grid", None)
+    if grid is None:
+        loss = chunked_xent(cfg, params["embed"], hidden, labels)
+        metrics = {"xent": loss}
+    else:
+        # this rank's share of the global mean: its summed NLL over the
+        # token count of the whole world
+        nll, cnt = chunked_nll(cfg, params["embed"], hidden, labels)
+        tot = torch.stack([nll.detach(), cnt])
+        dist.all_reduce(tot, group=grid.world_group)
+        n = tot[1].clamp_min(1.0)
+        loss = nll / n
+        metrics = {"xent": tot[0] / n}
+    loss_x = loss
     if aux:
         aux_l = cfg.moe.aux_loss_weight * torch.stack(
             [a.aux_loss for a in aux]).sum()
@@ -102,6 +131,10 @@ def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
             # the grouped kernels skip (mean over layers)
             pad_frac=torch.stack([a.pad_frac for a in aux]).mean().detach())
     metrics["loss"] = loss
+    if grid is not None:
+        # the aux and z terms are global already (the gate sums its
+        # statistics over the world): the reported loss is the global one
+        metrics["loss"] = metrics["xent"] + (loss - loss_x).detach()
     return loss, metrics
 
 
@@ -120,10 +153,45 @@ def loss_and_grads(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, rt, params, batch, pa, causal)
         gs = torch.autograd.grad(loss, ts, allow_unused=True)
+    gs = [torch.zeros_like(t) if g is None else g for t, g in zip(ts, gs)]
+    grid = getattr(rt, "grid", None)
+    if grid is not None:
+        sum_replicated_grads(gs, [p[0] != "moe_buffer" for p in paths],
+                             grid.world_group)
     grads = {}
-    for path, t, g in zip(paths, ts, gs):
-        _set(grads, path, torch.zeros_like(t) if g is None else g)
+    for path, g in zip(paths, gs):
+        _set(grads, path, g)
     return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def sum_replicated_grads(gs, replicated, group) -> None:
+    """Sum the gradients flagged ``replicated`` over the ranks of
+    ``group``, in place: one all-reduce of a flat bucket per dtype, the
+    leaves in the tree's sorted key order."""
+    by_dtype = {}
+    for g, rep in zip(gs, replicated):
+        if rep:
+            by_dtype.setdefault(g.dtype, []).append(g)
+    for leaves in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in leaves])
+        dist.all_reduce(flat, group=group)
+        at = 0
+        for g in leaves:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
+
+def global_grad_norm(grads, grid):
+    """The clipping norm of the whole model's gradient on a grid: the
+    replicated leaves' squares (the same on every rank) plus the buffer
+    shards' squares summed over the world."""
+    sq = sum(torch.sum(g.float() ** 2) for path, g in _leaves(grads)
+             if path[0] != "moe_buffer")
+    if "moe_buffer" in grads:
+        buf_sq = torch.sum(grads["moe_buffer"].float() ** 2)
+        dist.all_reduce(buf_sq, group=grid.world_group)
+        sq = sq + buf_sq
+    return torch.sqrt(sq)
 
 
 def _tree_map(fn, *trees):
@@ -144,6 +212,11 @@ def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
     With ``tc.step_guard`` a non-finite loss or gradient norm skips the
     update bit-exactly (``adamw.update``)."""
     n = max(tc.microbatch, 1)
+    grid = getattr(rt, "grid", None)
+    if grid is not None and n > 1:
+        raise NotImplementedError(
+            "gradient accumulation on a process grid (materialization "
+            "hoisting) is not yet ported to repro_torch")
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    pa: Optional[PlanArrays]):
@@ -177,7 +250,8 @@ def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
             else None
         params, opt, opt_metrics = adamw.update(
             grads, state.opt, state.params, tc,
-            skip_nonfinite=tc.step_guard, extra_ok=extra_ok)
+            skip_nonfinite=tc.step_guard, extra_ok=extra_ok,
+            gnorm=None if grid is None else global_grad_norm(grads, grid))
         metrics.update(opt_metrics)
         return TrainState(params, opt, state.step + 1), metrics
 

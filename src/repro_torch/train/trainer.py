@@ -1,14 +1,16 @@
-"""Hecate training loop at world size 1: the port of the JAX package's
+"""Hecate training loop: the port of the JAX package's
 ``repro/train/trainer.py`` control loop.
 
 Per iteration (paper Fig. 5): the predictor estimates the next
 iteration's expert loads, the scheduler emits the materialization plan
-(runtime tables), the train step runs, and the observed per-layer expert
-counts feed back into the predictor.  At world size 1 the plan is the
-``ep`` plan (every expert in its own slot), so Algorithm 1, calibration,
-resharding and the plan-ahead thread have nothing to do; they come with
-the distributed layer.  Checkpointing and the elastic supervisor are not
-yet ported: asking for them raises.
+(runtime tables; Algorithm 1 for the ``ring``, ``a2a`` and ``dense``
+plans, run synchronously every step), the train step runs, and the
+observed per-layer expert counts feed back into the predictor.  On a
+process grid every rank runs this loop on its rows of each global batch;
+the counts are summed over the world inside the step, so every rank plans
+the same (``launch.distributed.assert_scheduler_coherence`` checks it).
+Calibration, resharding and the plan-ahead thread, checkpointing and the
+elastic supervisor are not yet ported: asking for them raises.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ from repro_torch.core import moe as moe_core
 from repro_torch.core.placement import (MaterializationPlan,
                                         ep_materialization,
                                         homogeneous_sharding)
-from repro_torch.core.schedule import LoadPredictor
+from repro_torch.core.schedule import LoadPredictor, sparse_materialization
+from repro_torch.data.pipeline import host_slice
+from repro_torch.launch.distributed import assert_scheduler_coherence
 from repro_torch.train import metrics as metrics_lib
 from repro_torch.train import step as step_lib
 
@@ -53,26 +57,33 @@ def _not_ported(what: str):
 @dataclasses.dataclass
 class HecateScheduler:
     """Owns the sharding plan and the load predictor, and hands the train
-    step its plan tables.  Only ``impl="ep"`` at ``ep=1`` is ported."""
+    step its plan tables: the JAX package's scheduler with
+    ``async_plan=False, calibrate=False`` and no resharding.  ``impl``:
+    ``ep`` (every expert in its owner's slots), or Algorithm 1's ``ring``,
+    ``a2a`` or ``dense`` plan over ``ep`` expert-parallel ranks with
+    overlap degree ``t`` and ``cfg.moe.slots_per_device`` extra slots."""
 
     cfg: ModelConfig
     ep: int = 1
     impl: str = "ep"
+    t: int = 8
     window: int = 5
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.impl != "ep":
-            raise _not_ported(f"HecateScheduler impl={self.impl!r}")
-        if self.ep != 1:
-            raise _not_ported(f"HecateScheduler at ep={self.ep}")
+        if self.impl not in ("ep", "ring", "a2a", "dense"):
+            raise ValueError(f"HecateScheduler impl={self.impl!r}")
         L = moe_core.num_moe_layers(self.cfg)
         E = self.cfg.moe.num_experts
         self.predictor = LoadPredictor(L, E, self.window)
         self.sharding = homogeneous_sharding(L, E, self.ep)
 
     def plan(self) -> MaterializationPlan:
-        return ep_materialization(self.sharding)
+        if self.impl == "ep":
+            return ep_materialization(self.sharding)
+        return sparse_materialization(
+            self.sharding, self.predictor.predict(), t=self.t,
+            m=self.cfg.moe.slots_per_device, impl=self.impl)
 
     def plan_arrays(self) -> moe_core.PlanArrays:
         return moe_core.plan_to_arrays(self.plan(), self.device)
@@ -127,7 +138,18 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     closed engine ends publication for the run.  At world size 1 nothing
     reshards, so the plan is never published with the params.
     Checkpointing (``tc.checkpoint_dir``), the elastic supervisor and
-    ``metric_logger`` are not yet ported and raise."""
+    ``metric_logger`` are not yet ported and raise.
+
+    On a process grid (``rt.grid``) every rank runs this loop: ``stream``
+    yields the global batch and each rank takes its rows
+    (``data.pipeline.host_slice``); the state is made from the seed and
+    sharded (``models.model.shard_params``); the expert counts every rank
+    observes are checked equal across ranks.  Publication from a grid of
+    more than one rank is not yet ported and raises."""
+    grid = getattr(rt, "grid", None)
+    if grid is not None and grid.size > 1 and publish_engine is not None:
+        raise _not_ported("publication into a live engine from a process "
+                          "grid")
     if tc.checkpoint_dir or tc.checkpoint_every:
         raise _not_ported("checkpointing (tc.checkpoint_dir)")
     if supervisor is not None:
@@ -139,7 +161,7 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     if state is None:
         state = step_lib.init_state(cfg, tc.seed,
                                     scheduler.ep if scheduler else 1,
-                                    device)
+                                    device, grid)
     if train_step_fn is None:
         train_step_fn = step_lib.build_train_step(cfg, rt, tc)
     history = []
@@ -157,6 +179,9 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     for i in range(num_steps):
         gstep = step_base + i + 1               # global step AFTER i
         raw = next(it)
+        if grid is not None:
+            raw = {k: v[host_slice(v.shape[0], grid.rank, grid.size)]
+                   for k, v in raw.items()}
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in raw.items()}
         # chaos site: tests arm this with faults.poison_grads to make
@@ -185,7 +210,11 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
         metrics = _to_host(metrics)             # blocks on the step
         dt = time.perf_counter() - t0
         if scheduler is not None and "expert_counts" in metrics:
-            scheduler.observe(metrics["expert_counts"])
+            counts = metrics["expert_counts"]
+            if grid is not None:
+                counts = assert_scheduler_coherence(counts,
+                                                    grid.world_group)
+            scheduler.observe(counts)
         # ---- step-health skip policy (rides the readback above) ----
         step_ok = float(metrics.get("step_ok", 1.0)) >= 0.5
         if not step_ok:

@@ -46,3 +46,20 @@ def test_no_port_source_imports_jax_or_repro():
         text = path.read_text()
         assert not pat.search(text), path
         assert "from repro." not in text, path
+
+
+def test_distributed_modules_import_without_jax_or_repro():
+    """The modules of the distributed layer, each imported alone in a
+    fresh interpreter, load no ``jax*`` and no ``repro.*`` module."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for mod in ("repro_torch.core.schedule", "repro_torch.launch.mesh",
+                "repro_torch.launch.distributed"):
+        assert (PORT / (mod.split(".", 1)[1].replace(".", "/") + ".py")
+                ).exists(), mod
+        code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+                "print('BAD', sorted(m for m in sys.modules if m.split('.')"
+                "[0] in ('jax', 'jaxlib', 'repro')))\n")
+        r = subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        assert "BAD []" in r.stdout, (mod, r.stdout)

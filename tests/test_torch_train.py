@@ -484,19 +484,51 @@ def test_launch_train_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--impl", "ring"],
                                    ["--checkpoint-dir", "x"],
                                    ["--elastic"]])
-def test_launch_train_refuses_unported_flags(flags, capsys):
+def test_launch_train_refuses_unported_flags(flags, monkeypatch):
+    """A grid (``--mesh-data``) or an Algorithm 1 plan (``--impl ring``)
+    reaches the multi-rank launch: with ``--spawn`` it hands the grid and
+    the flags to ``launch.distributed.spawn`` (recorded here, not run), and
+    without a process group or ``--spawn`` it says how to start the ranks.
+    Checkpointing and the elastic supervisor are still refused."""
+    from repro_torch.launch import distributed
+    calls = []
+    monkeypatch.setattr(distributed, "spawn",
+                        lambda fn, grid, device, **kw: calls.append(
+                            (fn, grid, device, kw["args"][0])) or [[]])
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", *flags]
+    if flags[0] in ("--checkpoint-dir", "--elastic"):
+        with pytest.raises(SystemExit) as ei:
+            launch_train.main(argv + ["--spawn"])
+        assert "not yet ported" in str(ei.value)
+        assert not calls
+        return
     with pytest.raises(SystemExit) as ei:
-        launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           *flags])
-    assert "not yet ported" in str(ei.value)
+        launch_train.main(argv)
+    assert "--spawn" in str(ei.value) and "torch.distributed.run" in \
+        str(ei.value)
+    launch_train.main(argv + ["--spawn"])
+    (fn, grid, device, args), = calls
+    assert fn is launch_train._rank_main and device == "cpu"
+    assert grid == ((2, 1) if flags[0] == "--mesh-data" else (1, 1))
+    assert args.impl == ("ring" if flags[0] == "--impl" else "ep")
 
 
 def test_unported_training_features_raise(setup):
-    """Checkpointing and the supervisor are not yet ported and raise;
-    publication into a live engine runs (every step publishes a version)."""
+    """Checkpointing, the supervisor and publication from a process grid
+    of more than one rank are not yet ported and raise; the Algorithm 1
+    scheduler is ported; publication into a live engine at world size 1
+    runs (every step publishes a version)."""
     cfg = setup["cfg"]
+    sched = trainer.HecateScheduler(cfg, ep=4, impl="ring", device="cpu")
+    assert sched.plan().impl == "ring"
+    assert sched.plan_arrays().local_rows.shape[1] == 4
+    from repro_torch.launch.mesh import ProcessGrid
+    grid_rt = mdl.Runtime(use_pallas=False, moe=moe.MoERuntime(
+        grid=ProcessGrid(2, 2, 0, None, None)))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        trainer.HecateScheduler(cfg, impl="ring")
+        trainer.train_loop(cfg, grid_rt, TrainConfig(), iter([]),
+                           num_steps=1, device="cpu", publish_engine=object(),
+                           publish_every=1)
     stream = pipeline.make_stream(cfg.vocab_size, 8, 2, seed=0)
     for kw, tc in ((dict(), TrainConfig(checkpoint_dir="ckpt")),
                    (dict(supervisor=object()), TrainConfig())):
