@@ -68,13 +68,28 @@ JAX).  In order it:
    equal, 4 steps of the Hecate loop with the launch and collective counts
    reset just before (B1-train, B2 and B3 over the uncompacted
    ``row_valid`` layout; dropped and padding fractions), one profiled step
-   (device, NCCL and idle time, memory peak) beside phase 5's step median,
+   (device, NCCL and idle time, memory peak, the memory held before the
+   loop once the garbage collector ran) beside phase 5's step median,
    and the three training kernels against their plain versions on that
    layout and on an 8-source one.  Two ranks cannot share the card: NCCL
    refuses two ranks of one communicator on one device, and gloo refuses
    the ring's ``batch_isend_irecv`` on CUDA tensors
    (``tools/gloo_cuda_probe.py``);
-8. prints the kernel table as one JSON line, then
+8. trains the same model, bf16, batch 8 × 2,048, at world size 1 over
+   NCCL in each remat mode of the grid path (``save``: the one-layer-ahead
+   SparseAllGather with the slots kept; ``gather``: no slots kept, the
+   backward re-gathers one layer ahead; ``block``: the superblock
+   checkpoint): two identical steps bitwise equal, one loop step that
+   warms the allocator, then 5 steps of the Hecate loop (plan-ahead and
+   calibration on) with the launch counts, the collective record and the
+   event log reset just before: ring hops
+   per step against each mode's law, one forward gather per layer and
+   step, B1-train, B2 and B3 launches, step median and memory peak; one
+   profiled save step (NCCL kernel ms and the ms it ran beside compute);
+   a hoisted step of two microbatches (one gather per layer); a forced
+   row-permuting reshard (``apply_reshard`` on the card) that leaves the
+   loss unchanged; no plan-ahead fallback;
+9. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
@@ -83,6 +98,7 @@ a CUDA device, or without the repository around it, it fails.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -135,6 +151,10 @@ PUBLISH_PROMPT, PUBLISH_NEW = 8, 2
 FLEET_LAYERS = 4
 # phase 7: the distributed layer's training loop at world size 1 over NCCL
 FSSDP_STEPS = 4
+# phase 8: counted steps per remat mode, and each mode's ring hops per step
+# in units of m·L (the reference's laws)
+OVERLAP_STEPS = 5
+REMAT_LAW = {"save": 2, "gather": 3, "block": 3}
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
@@ -1695,6 +1715,19 @@ def check_row_valid_layout(torch, dev, K, M, C, counts, label):
                 max_abs_err=worst)
 
 
+def _held_gb(torch):
+    """(GB held just before a measured run, GB the cyclic garbage
+    collector freed just before it): a state discarded by an earlier check
+    can sit in a reference cycle until the collector runs, and would count
+    in the run's peak."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    return held / 1e9, (before - held) / 1e9
+
+
 def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
     """Phase 7(a): full-width, full-depth gpt-moe-s, bf16, batch 8 x 2,048,
     through the distributed layer at world size 1 over a real NCCL group:
@@ -1751,7 +1784,7 @@ def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
         # the main path: the Hecate loop over the grid
         state = step_lib.init_state(cfg, 0, 1, dev, grid)
         sched = HecateScheduler(cfg, ep=1, impl="ring", device=str(dev))
-        torch.cuda.synchronize()
+        held_gb, freed_gb = _held_gb(torch)
         torch.cuda.reset_peak_memory_stats()
         moe.reset_collective_counts()
         ops.reset_launch_counts()            # the main path's run starts
@@ -1773,7 +1806,9 @@ def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
         print(f"  [{card}] step ms: {[round(x, 1) for x in step_ms]}; median "
               f"{med:.1f} ms (slice 2's world-size-1 path in this run: "
               f"{slice2_median_ms:.1f} ms); device memory peak "
-              f"{peak_gb:.2f} GB")
+              f"{peak_gb:.2f} GB, {held_gb:.2f} GB of it held before the "
+              f"loop (the garbage collector freed {freed_gb:.2f} GB "
+              f"just before it)")
         print(f"  launches over {FSSDP_STEPS} steps: {launches}")
         print(f"  collectives over {FSSDP_STEPS} steps: "
               + ", ".join(f"{k} {v['calls']}x" for k, v in
@@ -1788,7 +1823,9 @@ def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
                 "paged_decode_attention": 0}
         if launches != want:
             raise CheckFailed(f"FSSDP launches {launches}, expected {want}")
-        if coll["spag_ring"]["calls"] != fwd_runs * n_moe * plan.m or \
+        # the default save mode keeps each layer's slots for the backward:
+        # one gather and one SparseReduceScatter per layer and step
+        if coll["spag_ring"]["calls"] != n_moe * plan.m or \
                 coll["sprs_ring"]["calls"] != n_moe * plan.m:
             raise CheckFailed(f"ring hops {coll}")
 
@@ -1836,12 +1873,314 @@ def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
                                               "8-source layout"))
         return dict(losses=losses, step_ms=step_ms, median_step_ms=med,
                     slice2_median_step_ms=slice2_median_ms,
-                    peak_memory_gb=peak_gb, dropped_frac=dropped,
+                    peak_memory_gb=peak_gb, held_before_gb=held_gb,
+                    freed_by_gc_gb=freed_gb,
+                    dropped_frac=dropped,
                     pad_frac=pad, launches=launches, collectives=coll,
                     capacity=cap, K=K, m=plan.m,
                     profiled_step=dict(device_busy_ms=busy, wall_ms=wall,
                                        nccl_ms=nccl),
                     row_valid_layouts=layouts)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: overlap and re-materialization on the process grid
+# ---------------------------------------------------------------------------
+class _PermuteRows:
+    """A resharding policy that permutes the chunk buffer's rows once, at
+    step ``at``: at EP size 1 no expert changes owner, but the rows of the
+    parameters and of both AdamW moments move (``apply_reshard``)."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def maybe_reshard(self, step, current, predictor):
+        import dataclasses
+
+        import numpy as np
+        if step != self.at:
+            return current, False
+        perm = np.random.default_rng(0).permutation(
+            current.rows_per_device).astype(np.int32)
+        return dataclasses.replace(current,
+                                   owner_row=perm[current.owner_row]), True
+
+
+def _union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_ms(torch, prof):
+    """(NCCL kernel ms, ms in which an NCCL kernel and a compute kernel ran
+    at once, {NCCL kernel: [count, ms]}) of a profiled window, from the
+    kernels' device intervals."""
+    nccl, comp, names = [], [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        if "memcpy" in name or "memset" in name:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if "nccl" in name:
+            nccl.append(iv)
+            c = names.setdefault(e.name[:48], [0, 0.0])
+            c[0] += 1
+            c[1] += (iv[1] - iv[0]) / 1e3
+        else:
+            comp.append(iv)
+    a, b = _union(nccl), _union(comp)
+    both, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        both += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return sum(y - x for x, y in a) / 1e3, both / 1e3, names
+
+
+def overlap_world_one(torch, ops, dev, card):
+    """Phase 8: full-width, full-depth gpt-moe-s, bf16, batch 8 x 2,048,
+    through the FSSDP layer at world size 1 over NCCL (ring plan at ep =
+    1) in each remat mode, the hoisted two-microbatch step, one profiled
+    save step, and a forced row-permuting reshard; the scheduler plans
+    ahead and calibrates throughout."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.core import moe
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import (HecateScheduler, apply_reshard,
+                                           train_loop)
+
+    grid = _nccl_world()
+    try:
+        base = configs.get("gpt-moe-s")
+        _, tc, stream = _train_setup(torch, dev, base)
+        rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+            use_pallas=True, grid=grid, impl="ring"))
+        L = moe.num_moe_layers(base)
+        scheds = []
+
+        def sched(**kw):
+            scheds.append(HecateScheduler(base, ep=1, impl="ring",
+                                          device=str(dev), **kw))
+            return scheds[-1]
+
+        def with_mode(mode):
+            return base.replace(moe=dataclasses.replace(
+                base.moe, rematerialize=mode))
+
+        def batch_of(st):
+            return {k: torch.as_tensor(v, device=dev)
+                    for k, v in st.next_batch().items()}
+
+        def counted(fn):
+            """Run ``fn`` with the launch counts, the collective record
+            and the event log reset just before and read just after."""
+            held["gb"], held["freed"] = _held_gb(torch)
+            torch.cuda.reset_peak_memory_stats()
+            moe.reset_collective_counts()
+            moe.enable_event_log()
+            ops.reset_launch_counts()
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+                return out, ops.launch_counts(), moe.collective_counts(), \
+                    moe.event_log(), torch.cuda.max_memory_allocated() / 1e9
+            finally:
+                moe.enable_event_log(False)
+
+        def hops(coll):
+            return sum(coll.get(k, {"calls": 0})["calls"]
+                       for k in ("spag_ring", "sprs_ring"))
+
+        held = {}
+        res = {"modes": {}}
+        m = None
+        for mode in ("save", "gather", "block"):
+            cfg = with_mode(mode)
+            step_fn = step_lib.build_train_step(cfg, rt, tc)
+            s = sched()
+            pa = s.plan_arrays()
+            m = int(pa.extra_experts.shape[-1])
+            batch = batch_of(stream)
+            # two identical steps from the seeded state
+            first = None
+            for rep in range(2):
+                state = step_lib.init_state(cfg, 0, 1, dev, grid)
+                state, met = step_fn(state, batch, pa)
+                leaves = adamw.leaves(state.params)
+                if rep == 0:
+                    first = [t.detach().clone() for t in leaves]
+                    del state, met, leaves
+                    torch.cuda.empty_cache()
+                elif not all(torch.equal(a, b)
+                             for a, b in zip(first, leaves)):
+                    raise CheckFailed(f"{mode}: two identical steps gave "
+                                      f"different parameters")
+            del first, leaves, met, batch
+            torch.cuda.empty_cache()
+            # one loop step on the counted scheduler warms the allocator
+            # after the cache was emptied; it is not counted
+            state, _ = train_loop(cfg, rt, tc, stream, scheduler=s,
+                                  state=state, num_steps=1, log_every=0,
+                                  device=dev)
+            (state, hist), launches, coll, ev, peak = counted(
+                lambda: train_loop(cfg, rt, tc, stream, scheduler=s,
+                                   state=state, num_steps=OVERLAP_STEPS,
+                                   log_every=0, device=dev))
+            step_ms = [h["time_s"] * 1e3 for h in hist]
+            per_step = hops(coll) / OVERLAP_STEPS
+            fwd_gathers = sum(e[0] == "spag" and e[2] == "fwd"
+                              for e in ev) / OVERLAP_STEPS
+            n = L * OVERLAP_STEPS
+            want = {"grouped_mlp_fwd_train": 2 * n, "grouped_mlp_dgrad": n,
+                    "grouped_mlp_wgrad": n, "grouped_mlp_fwd": 0,
+                    "flash_attention_fwd": 0, "paged_decode_attention": 0}
+            losses = [h["loss"] for h in hist]
+            res["modes"][mode] = dict(
+                losses=losses, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms),
+                peak_memory_gb=peak, held_before_gb=held["gb"],
+                freed_by_gc_gb=held["freed"],
+                ring_hops_per_step=per_step,
+                forward_gathers_per_step=fwd_gathers, launches=launches)
+            print(f"  {mode}: losses {[round(x, 4) for x in losses]}; ring "
+                  f"hops per step {per_step:g} (law {REMAT_LAW[mode]}·m·L = "
+                  f"{REMAT_LAW[mode] * m * L}); forward gathers per step "
+                  f"{fwd_gathers:g}")
+            print(f"  [{card}] {mode}: step ms "
+                  f"{[round(x, 1) for x in step_ms]}, median "
+                  f"{statistics.median(step_ms):.1f} ms; device memory peak "
+                  f"{peak:.2f} GB ({held['gb']:.2f} GB held before the "
+                  f"loop, {held['freed']:.2f} GB freed by the garbage "
+                  f"collector just before it); launches {launches}")
+            if not all(map(math.isfinite, losses)):
+                raise CheckFailed(f"{mode}: loss not finite: {losses}")
+            if per_step != REMAT_LAW[mode] * m * L or fwd_gathers != L:
+                raise CheckFailed(f"{mode}: {per_step} ring hops and "
+                                  f"{fwd_gathers} forward gathers per step")
+            if launches != want:
+                raise CheckFailed(f"{mode}: launches {launches}, expected "
+                                  f"{want}")
+            if mode == "save":
+                # one step under the profiler: the NCCL kernels and their
+                # overlap with compute (at world size 1 NCCL copies only)
+                from torch.profiler import ProfilerActivity, profile
+                batch, pa = batch_of(stream), s.plan_arrays()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    step_fn(state, batch, pa)
+                    torch.cuda.synchronize()
+                nccl_ms, both_ms, names = _overlap_ms(torch, prof)
+                res["profiled_save_step"] = dict(nccl_ms=nccl_ms,
+                                                 overlapped_nccl_ms=both_ms,
+                                                 nccl_kernels=names)
+                print(f"  [{card}] one profiled save step: NCCL kernels "
+                      f"{nccl_ms:.3f} ms, of which {both_ms:.3f} ms ran "
+                      f"beside a compute kernel; " + ", ".join(
+                          f"{k} x{c} {t:.3f} ms" for k, (c, t) in
+                          sorted(names.items(), key=lambda kv: -kv[1][1])))
+                del batch, prof
+            del state
+            torch.cuda.empty_cache()
+
+        # the hoisted step: two microbatches, every layer's slots built
+        # once at the head of the step
+        cfg = with_mode("save")
+        tc2 = dataclasses.replace(tc, microbatch=2)
+        s = sched()
+        state = step_lib.init_state(cfg, 0, 1, dev, grid)
+        state, _ = train_loop(cfg, rt, tc2, stream, scheduler=s, state=state,
+                              num_steps=1, log_every=0, device=dev)
+        (state, hist), launches, coll, ev, peak = counted(
+            lambda: train_loop(cfg, rt, tc2, stream, scheduler=s,
+                               state=state, num_steps=1, log_every=0,
+                               device=dev))
+        fwd_gathers = sum(e[0] == "spag" and e[2] == "fwd" for e in ev)
+        res["hoisted"] = dict(loss=hist[0]["loss"],
+                              step_ms=hist[0]["time_s"] * 1e3,
+                              peak_memory_gb=peak, ring_hops=hops(coll),
+                              forward_gathers=fwd_gathers, launches=launches)
+        print(f"  [{card}] hoisted save step, 2 microbatches of "
+              f"{TRAIN_BATCH // 2} x {TRAIN_SEQ:,}: "
+              f"loss {hist[0]['loss']:.4f}, {hist[0]['time_s'] * 1e3:.1f} "
+              f"ms, {fwd_gathers} forward gathers, {hops(coll)} ring hops, "
+              f"device memory peak {peak:.2f} GB")
+        if fwd_gathers != L or hops(coll) != 2 * m * L:
+            raise CheckFailed(f"hoisted step: {fwd_gathers} gathers, "
+                              f"{hops(coll)} ring hops")
+        del state
+        torch.cuda.empty_cache()
+
+        # a forced row-permuting reshard before the second step
+        losses = {}
+        for tag, policy in (("plain", None), ("permuted", _PermuteRows(1))):
+            s = sched(resharding=policy)
+            state = step_lib.init_state(cfg, 0, 1, dev, grid)
+            state, hist = train_loop(
+                cfg, rt, tc, make_stream(cfg.vocab_size, TRAIN_SEQ,
+                                         TRAIN_BATCH, kind="bytes", seed=1),
+                scheduler=s, state=state, num_steps=2, log_every=0,
+                device=dev)
+            losses[tag] = [h["loss"] for h in hist]
+            if tag == "permuted":
+                # apply_reshard on the card moves the rows of the
+                # parameters and both moments (a column slice checked)
+                ts = (state.params["moe_buffer"], state.opt.mu["moe_buffer"],
+                      state.opt.nu["moe_buffer"])
+                before = [t[:, :4096].clone() for t in ts]
+                perm = np.random.default_rng(1).permutation(
+                    ts[0].shape[0]).astype(np.int32)
+                apply_reshard(state, perm, grid)
+                idx = torch.as_tensor(perm, device=dev).long()
+                if not all(torch.equal(t[:, :4096], b[idx])
+                           for t, b in zip(ts, before)) or not bool(
+                               (before[1] != 0).any()):
+                    raise CheckFailed("apply_reshard moved the wrong rows")
+                del before, ts
+            del state
+            torch.cuda.empty_cache()
+        res["reshard"] = losses
+        print(f"  forced row-permuting reshard before step 2: losses "
+              f"{losses['permuted']} against unpermuted {losses['plain']}; "
+              f"apply_reshard moved the parameters and both moments")
+        if losses["permuted"][0] != losses["plain"][0] or abs(
+                losses["permuted"][1] - losses["plain"][1]) \
+                > 1e-5 * abs(losses["plain"][1]):
+            raise CheckFailed(f"reshard changed the loss: {losses}")
+
+        hits = sum(x.plan_ahead_hits for x in scheds)
+        calib = sum(x.calibration_events for x in scheds)
+        fallbacks = sum(x.plan_fallbacks for x in scheds)
+        res["scheduler"] = dict(plan_ahead_hits=hits,
+                                calibration_events=calib,
+                                plan_fallbacks=fallbacks)
+        print(f"  scheduler over phase 8: plan_ahead_hits {hits}, "
+              f"calibration_events {calib}, plan_fallbacks {fallbacks}")
+        if fallbacks or not hits:
+            raise CheckFailed(f"plan-ahead: {hits} hits, {fallbacks} "
+                              f"fallbacks")
+        return res
     finally:
         dist.destroy_process_group()
 
@@ -1959,11 +2298,14 @@ def main() -> None:
         fssdp = fssdp_world_one(torch, ops, dev, card_line,
                                 train["median_step_ms"])
         torch.cuda.empty_cache()
+        print("== 8. overlap and re-materialization on the process grid")
+        overlap = overlap_world_one(torch, ops, dev, card_line)
+        torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
     results.update(kernels=kern, serving=serve, training=train,
                    dense_generate=dense, publication=publication,
-                   fssdp=fssdp)
+                   fssdp=fssdp, overlap=overlap)
 
     meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
                                 "src/repro/kernels/grouped_mlp.py:106"),
@@ -1986,6 +2328,9 @@ def main() -> None:
                       "launches": (train if k in TRAIN_KERNELS
                                    else serve)["launches"][k],
                       "launches_fssdp": fssdp["launches"][k],
+                      "launches_overlap": {
+                          mode: r8["launches"][k]
+                          for mode, r8 in overlap["modes"].items()},
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
@@ -1997,7 +2342,7 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print(f"== 8. kernels (script wall so far "
+    print(f"== 9. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(kern))}")
     print(json.dumps({"kernels": table}))

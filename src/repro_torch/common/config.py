@@ -1,7 +1,8 @@
 """Configuration schema of the PyTorch port: its own copy of the JAX
-package's ``MoEConfig``, ``SSMConfig``, ``ModelConfig`` and ``TrainConfig``,
-field for field, so that one configuration describes the same model and
-the same training run in both packages.
+package's ``MoEConfig``, ``SSMConfig``, ``ModelConfig``, ``TrainConfig`` and
+``HardwareConfig``, field for field, so that one configuration describes
+the same model and the same training run in both packages.  The port's
+hardware model is the card it runs on (``H100``), not the JAX package's.
 """
 from __future__ import annotations
 
@@ -274,3 +275,21 @@ class TrainConfig:
     # Auto-resume from the newest INTACT checkpoint when train_loop is
     # started without an explicit state.
     auto_resume: bool = True
+
+
+# Roofline constants of one accelerator, the fields of the JAX package's
+# ``HardwareConfig``.  ``ici_bw`` is the rate of one device's link to its
+# peers in one direction (NVLink on the H100).
+@dataclass(frozen=True)
+class HardwareConfig:
+    name: str
+    peak_flops_bf16: float              # dense, per device
+    hbm_bw: float                       # bytes/s per device
+    ici_bw: float                       # bytes/s per link direction
+    hbm_bytes: float                    # device memory
+
+
+# NVIDIA H100 SXM, from NVIDIA's data sheet: 989 TFLOP/s dense bf16,
+# 3.35 TB/s HBM3, 900 GB/s NVLink (450 GB/s per direction), 80 GB.
+H100 = HardwareConfig(name="h100_sxm", peak_flops_bf16=989e12,
+                      hbm_bw=3.35e12, ici_bw=450e9, hbm_bytes=80e9)

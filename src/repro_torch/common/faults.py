@@ -62,6 +62,25 @@ The site of the ported training path (``train.trainer.train_loop``):
     increments and training continues; after ``tc.max_bad_steps``
     consecutive bad steps ``train_loop`` aborts (``TrainAbortError``).
 
+The sites of the plan-ahead worker (``train.trainer.HecateScheduler``):
+
+``scheduler.plan_job``
+    Fired at the head of every background Algorithm 1 job.  Arm with
+    ``exc=...`` (or nothing, for :class:`FaultError`): the job raises,
+    ``plan()`` answers synchronously with the identical plan (Algorithm 1
+    on the job's own snapshot of the prediction), ``plan_fallbacks``
+    increments and plan-ahead stays on.
+
+``scheduler.plan_job_hang``
+    Fired right after ``scheduler.plan_job``.  Arm with ``hang_s=...``:
+    the job hangs, ``plan()`` waits at most ``plan_timeout_s`` before it
+    plans synchronously from the job's snapshot, the background thread is
+    off for the scheduler's life (the worker is wedged; each later plan is
+    made on the caller's thread from the snapshot ``plan_ahead()`` takes,
+    so it is still the prefetched plan), and ``close()`` returns without
+    joining it.
+    ``clear()`` releases the hang.
+
 Usage::
 
     from repro_torch.common import faults

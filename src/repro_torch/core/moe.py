@@ -15,11 +15,23 @@ The layer is differentiable end to end: the dispatch scatter and the
 combine gather pass gradients, the grouped FFN carries its own backward
 (``kernels.grouped_mlp.GroupedMLPFunction``), and the gradient of the
 compute slots flows back into the f32 chunk buffer through the cast.
+
+Across the ranks of a process grid (``_moe_layer_grid``) the slots come
+from the SparseAllGather, whose backward is the hand-written
+SparseReduceScatter.  ``materialize_layer`` issues one layer's gather
+without waiting for it (on CUDA from the grid's own stream) so the model
+can run it one layer ahead of its consumer; ``materialize_stack`` issues
+every layer's at once (step-level hoisting); ``moe_layer_regather`` and
+``moe_layer_regather_pipelined`` are the layer of the ``gather`` remat
+mode, which keeps no slots and re-gathers them in the backward.  An event
+log (``enable_event_log``) records the order of gathers, grouped FFNs and
+SparseReduceScatters for the tests of those schedules.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -262,19 +274,32 @@ def replica_dispatch(e_safe, valid, expert_slot, replicas, n_replicas, me,
 # Expert compute over K slots
 # ---------------------------------------------------------------------------
 def _expert_ffn(cfg: ModelConfig, chunks, xr, use_pallas: bool,
-                group_sizes=None, row_valid=None):
+                group_sizes=None, row_valid=None, layer: int = -1,
+                train: bool = False):
     """chunks: (K, chunk_len); xr: (K, T, D). Returns (K, T, D).  With
     ``use_pallas`` the grouped FFN goes through ``kernels.ops`` (the CUDA
-    kernel for CUDA tensors), else through its plain version."""
+    kernel for CUDA tensors; ``train``: its training form even without
+    grad), else through its plain version.  With the event log on, the
+    call logs ``ffn``, and its backward logs ``ffn_bwd`` just before its
+    dgrad and wgrad and ``ffn_bwd_end`` after them."""
     wi, wg, wo = unpack_chunks(cfg, chunks)
     dt = xr.dtype
     wi, wo = wi.to(dt), wo.to(dt)
     wg = None if wg is None else wg.to(dt)
+    logged = _EVENTS is not None
+    if logged:
+        _event("ffn", layer)
+        if xr.requires_grad:
+            xr = _Mark.apply(xr, "ffn_bwd_end", layer)
     if use_pallas:
-        return kops.grouped_mlp(xr, wi, wg, wo, group_sizes, row_valid,
-                                act=cfg.act)
-    return grouped_mlp_ref(xr, wi, wg, wo, act=cfg.act,
-                           group_sizes=group_sizes, row_valid=row_valid)
+        y = kops.grouped_mlp(xr, wi, wg, wo, group_sizes, row_valid,
+                             act=cfg.act, train=train)
+    else:
+        y = grouped_mlp_ref(xr, wi, wg, wo, act=cfg.act,
+                            group_sizes=group_sizes, row_valid=row_valid)
+    if logged and y.requires_grad:
+        y = _Mark.apply(y, "ffn_bwd", layer)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -306,15 +331,18 @@ def materialize_chunks(cfg: ModelConfig, buf, pa: PlanArrays, dtype=None):
 # The MoE layer
 # ---------------------------------------------------------------------------
 def moe_layer(cfg: ModelConfig, rt, x, wr, buf, pa: PlanArrays, valid=None,
-              premat=None):
+              premat=None, layer: int = -1):
     """The FSSDP MoE layer at world size 1.
 
     x: (T, D) tokens; wr: (D, E) this layer's router; buf: the flat chunk
     buffer (rows, chunk_len); pa: this layer's PlanArrays slice; premat:
     optional (1, K, chunk_len) compute slots from ``materialize_chunks``
     (else this layer's slots are built from ``buf``).  ``rt``: a
-    ``MoERuntime`` (only ``use_pallas`` is read).  Returns
-    (y: (T, D), MoEAux).
+    ``MoERuntime`` (only ``use_pallas`` is read).  ``layer``: the MoE
+    layer's index, which only the event log reads.  Returns
+    (y: (T, D), MoEAux).  On a process grid (``rt.grid``) the layer is
+    ``_moe_layer_grid``, and ``premat`` may also be a ``Slots`` handle of
+    ``materialize_layer`` still in flight.
 
     Gate, then the sort-based dispatch with ``me = 0`` into a (K, C, D)
     buffer, the grouped FFN with per-slot group sizes (kernel B1), and the
@@ -330,11 +358,7 @@ def moe_layer(cfg: ModelConfig, rt, x, wr, buf, pa: PlanArrays, valid=None,
     if valid is None:
         valid = torch.ones(T, dtype=torch.bool, device=x.device)
     if getattr(rt, "grid", None) is not None:
-        if premat is not None:
-            raise NotImplementedError(
-                "premat (materialization hoisting) on a process grid is not "
-                "yet ported to repro_torch")
-        return _moe_layer_grid(cfg, rt, x, wr, buf, pa, valid)
+        return _moe_layer_grid(cfg, rt, x, wr, buf, pa, valid, premat, layer)
     if pa.local_rows.shape[0] != 1:
         raise NotImplementedError("repro_torch runs the MoE layer at world "
                                   "size 1 only")
@@ -360,7 +384,8 @@ def moe_layer(cfg: ModelConfig, rt, x, wr, buf, pa: PlanArrays, valid=None,
     # kept entries fill a position prefix of each slot: the kept counts are
     # the group sizes
     gs = send_cnt[0]
-    yr = _expert_ffn(cfg, chunks, buf_x, rt.use_pallas, group_sizes=gs)
+    yr = _expert_ffn(cfg, chunks, buf_x, rt.use_pallas, group_sizes=gs,
+                     layer=layer)
     got = yr[slot.clamp(0, K - 1), pos.clamp(0, capacity - 1)] \
         * keep[:, None].to(x.dtype)
     y = (got.reshape(T, k, D) * vals.reshape(T, k, 1).to(x.dtype)).sum(1)
@@ -416,6 +441,52 @@ def reset_collective_counts() -> None:
     _COLLECTIVES.clear()
 
 
+# The event log: (kind, MoE layer, "fwd" | "bwd") in issue order, off
+# unless ``enable_event_log`` turned it on.  Kinds: ``spag`` (one layer's
+# SparseAllGather issued), ``sprs`` (one layer's SparseReduceScatter),
+# ``ffn`` (a grouped-FFN forward: the layer's, or its recompute in the
+# backward), ``ffn_bwd`` and ``ffn_bwd_end`` (just before and just after
+# the grouped FFN's dgrad and wgrad).  A record is "bwd" when autograd's
+# backward pass is running, recomputes included.
+_EVENTS: Optional[list] = None
+
+
+def enable_event_log(on: bool = True) -> None:
+    """Start (with an empty log) or stop the event log."""
+    global _EVENTS
+    _EVENTS = [] if on else None
+
+
+def event_log() -> list:
+    return list(_EVENTS or [])
+
+
+def reset_event_log() -> None:
+    if _EVENTS is not None:
+        _EVENTS.clear()
+
+
+def _event(kind: str, layer: int) -> None:
+    if _EVENTS is not None:
+        bwd = torch._C._current_graph_task_id() >= 0
+        _EVENTS.append((kind, layer, "bwd" if bwd else "fwd"))
+
+
+class _Mark(torch.autograd.Function):
+    """The identity; its backward logs ``(kind, layer)`` to the event
+    log."""
+
+    @staticmethod
+    def forward(ctx, x, kind, layer):
+        ctx.tag = (kind, layer)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _event(*ctx.tag)
+        return g, None, None
+
+
 def _record(kind: str, nbytes: float) -> None:
     c = _COLLECTIVES.setdefault(kind, [0, 0])
     c[0] += 1
@@ -454,8 +525,8 @@ def _a2a(x, group, kind: str):
     return out
 
 
-def _all_gather(x, group, kind: str, dim: int):
-    """Concatenation of every rank's 2-D ``x`` along ``dim``, in rank
+def _all_gather(x, group, kind: str):
+    """Concatenation of every rank's 2-D ``x`` along dim 0, in rank
     order."""
     g = dist.get_world_size(group)
     x = x.contiguous()
@@ -463,15 +534,12 @@ def _all_gather(x, group, kind: str, dim: int):
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
     _record(kind, _nbytes(x) * (g - 1))
-    if dim == 1:
-        out = out.view(g, *x.shape).movedim(0, 1).reshape(
-            x.shape[0], g * x.shape[1])
     return out
 
 
 def _reduce_scatter(x, group, kind: str, dim: int):
-    """The transpose of ``_all_gather``: sum over ranks, this rank's block
-    of ``dim``."""
+    """The transpose of an all-gather along ``dim``: sum over ranks, this
+    rank's block of ``dim``."""
     g = dist.get_world_size(group)
     if dim == 1:
         x = x.contiguous().view(x.shape[0], g, x.shape[1] // g).movedim(1, 0)
@@ -527,13 +595,14 @@ def _mask_col(mask, dtype):
     return mask[:, None].to(dtype)
 
 
-def _spag(buf, pa, grid, impl: str, dt):
-    """SparseAllGather of one layer on this rank: the f32 shard ``buf``
-    (rows_local, chunk_loc) -> (K, chunk_len) compute slots in ``dt``.
-    The rows are taken, then cast, so only they are converted, and every
-    collective moves the compute dtype.  The owned slots are a take of the
-    local rows; the m extra slots come over the EP group (ring, a2a or
-    dense); then the FSDP group all-gathers the column shards."""
+def _spag_ep(buf, pa, grid, impl: str, dt):
+    """The EP half of one layer's SparseAllGather on this rank: the f32
+    shard ``buf`` (rows_local, chunk_loc) -> this rank's column shard
+    (K, chunk_loc) of the compute slots in ``dt``.  The rows are taken,
+    then cast, so only they are converted, and every collective moves the
+    compute dtype.  The owned slots are a take of the local rows; the m
+    extra slots come over the EP group (ring, a2a or dense).  The FSDP
+    half (``_spag_issue``) all-gathers the column shards."""
     M, me, ranks = grid.model, grid.e, grid.ep_ranks
     m = pa.extra_experts.shape[-1]
     owned = buf[pa.local_rows[me].long()].to(dt) \
@@ -559,18 +628,81 @@ def _spag(buf, pa, grid, impl: str, dt):
         slots.append(got * _mask_col(my_e >= 0, dt))
     elif impl == "dense":
         # the FSDP baseline moves every row: the whole shard, cast
-        allbuf = _all_gather(buf.to(dt), grid.ep_group, "spag_dense", 0)
+        allbuf = _all_gather(buf.to(dt), grid.ep_group, "spag_dense")
         ec = my_e.clamp_min(0)
         grow = pa.owner_dev[ec].long() * buf.shape[0] \
             + pa.owner_row[ec].long()
         slots.append(allbuf[grow] * _mask_col(my_e >= 0, dt))
-    chunks = torch.cat(slots)                                  # (K, chunk_loc)
-    return _all_gather(chunks, grid.fsdp_group, "spag_fsdp", 1)
+    return torch.cat(slots)                                    # (K, chunk_loc)
 
 
-def _sprs(ct, pa, grid, impl: str, rows_local: int):
-    """SparseReduceScatter, the transpose of ``_spag``, written out: the
-    (K, chunk_len) slot cotangent -> the f32 gradient of this rank's
+@contextlib.contextmanager
+def _comm_stream(grid, device):
+    """On CUDA, run the block on the grid's comm stream, after the work
+    queued so far on the current stream (the buffer it reads is up to
+    date).  Elsewhere, a no-op."""
+    if device.type != "cuda":
+        yield
+        return
+    if grid.comm_stream is None:
+        grid.comm_stream = torch.cuda.Stream(device)
+    grid.comm_stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(grid.comm_stream):
+        yield
+
+
+class _Pending:
+    """Collectives in flight and the tensors they touch.  ``wait`` makes
+    the caller's CUDA stream (or, on the CPU, the caller) wait for the
+    works, and marks the tensors as used by that stream, so the comm
+    stream's allocator takes their memory back only after it."""
+
+    def __init__(self, works, keep):
+        self.works, self.keep = list(works), list(keep)
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        if self.keep and self.keep[0].is_cuda:
+            cur = torch.cuda.current_stream(self.keep[0].device)
+            for t in self.keep:
+                t.record_stream(cur)
+        self.works, self.keep = [], []
+
+
+def _spag_issue(buf, pa, grid, impl: str, dt, out=None):
+    """Issue one layer's SparseAllGather on this rank and return
+    ``(gathered, pending)``: the (g·K, chunk_loc) tensor that the FSDP
+    all-gather writes, the column shards of the g ranks of the FSDP group
+    one after the other, and the ``_Pending`` to wait before reading it
+    (``Slots`` turns it into the (K, chunk_len) compute slots).
+
+    Everything is issued from the grid's comm stream on CUDA: the EP half
+    waits its collectives there (the host and the compute stream do not
+    wait), and the FSDP half's ``all_gather_into_tensor`` is issued with
+    ``async_op=True``.  ``out``: a (K, chunk_len) tensor to gather into
+    when the FSDP group is one rank (then the two layouts are one).  On
+    the CPU (gloo) the EP half's collectives are waited by the host
+    before the FSDP half, which stays in flight until ``wait``."""
+    with _comm_stream(grid, buf.device):
+        chunks = _spag_ep(buf, pa, grid, impl, dt)
+        k_, c = chunks.shape
+        g = dist.get_world_size(grid.fsdp_group)
+        flat = out.view(k_, c) if out is not None and g == 1 \
+            else chunks.new_empty((g * k_, c))
+        work = dist.all_gather_into_tensor(flat, chunks,
+                                           group=grid.fsdp_group,
+                                           async_op=True)
+        _record("spag_fsdp", _nbytes(chunks) * (g - 1))
+    return flat, _Pending([work], [chunks, flat])
+
+
+def _sprs(ct, pa, grid, impl: str, rows_local: int, layer: int = -1,
+          into=None):
+    """SparseReduceScatter, the transpose of the SparseAllGather
+    (``_spag_issue``), written out: the
+    (K, chunk_len) slot cotangent, or (g, K, chunk_loc) in the FSDP
+    all-gather's layout, -> the f32 gradient of this rank's
     (rows_local, chunk_loc) buffer shard.  The FSDP group reduce-scatters
     the columns (in f32), the EP group sends each extra slot's cotangent
     back to the rank it came from, and the cotangents land on the owner's
@@ -579,13 +711,20 @@ def _sprs(ct, pa, grid, impl: str, rows_local: int):
     each a sorted ``index_put_(accumulate=True)`` (a slot with no expert
     adds its zero cotangent to some row) or an ``index_add_`` onto one
     row.  The gradient is a tensor of its own, not a view, so autograd
-    sums the layers' gradients in place."""
+    sums the layers' gradients in place.  ``into``: a gradient to add this
+    layer's to instead (its rows are other layers', and a slot with no
+    expert adds zeros, so the sum is the same bits)."""
+    _event("sprs", layer)
     M, me, ranks = grid.model, grid.e, grid.ep_ranks
     kl = pa.local_rows.shape[-1]
     m = pa.extra_experts.shape[-1]
-    ct = _reduce_scatter(ct.float(), grid.fsdp_group, "sprs_fsdp", 1)
+    if ct.dim() == 3:           # (g, K, chunk_loc): the gather's own layout
+        ct = _reduce_scatter(ct.float().reshape(-1, ct.shape[-1]),
+                             grid.fsdp_group, "sprs_fsdp", 0)
+    else:
+        ct = _reduce_scatter(ct.float(), grid.fsdp_group, "sprs_fsdp", 1)
     c = ct.shape[1]
-    g = ct.new_zeros((rows_local, c))
+    g = ct.new_zeros((rows_local, c)) if into is None else into
     own = pa.local_experts[me] >= 0
     g.index_put_((pa.local_rows[me].long(),), ct[:kl] * _mask_col(own, ct.dtype),
                  accumulate=True)
@@ -619,22 +758,111 @@ def _sprs(ct, pa, grid, impl: str, rows_local: int):
 
 
 class SparseAllGather(torch.autograd.Function):
-    """``apply(buf, pa, grid, impl, dtype)``: this rank's f32 buffer shard
-    (rows_local, chunk_loc) -> one layer's (K, chunk_len) compute slots in
-    ``dtype``.  The buffer is cast to the compute dtype before the gather;
-    the backward is the hand-written SparseReduceScatter (``_sprs``),
-    whose gradient lands in f32 on the owner's rows."""
+    """``apply(buf, pa, grid, impl, dtype, layer, box)``: this rank's f32
+    buffer shard (rows_local, chunk_loc) -> one layer's (g·K, chunk_loc)
+    gathered column shards in ``dtype``, issued asynchronously
+    (``_spag_issue``): the ``_Pending`` to wait before reading them is
+    appended to the list ``box``.  The backward is the hand-written
+    SparseReduceScatter (``_sprs``), whose gradient lands in f32 on the
+    owner's rows."""
 
     @staticmethod
-    def forward(ctx, buf, pa, grid, impl, dtype):
-        ctx.meta = (pa, grid, impl, buf.shape[0], buf.dtype)
-        return _spag(buf, pa, grid, impl, dtype)
+    def forward(ctx, buf, pa, grid, impl, dtype, layer, box):
+        ctx.meta = (pa, grid, impl, buf.shape[0], buf.dtype, layer)
+        raw, pending = _spag_issue(buf, pa, grid, impl, dtype)
+        box.append(pending)
+        return raw
 
     @staticmethod
     def backward(ctx, ct):
-        pa, grid, impl, rows, dtype = ctx.meta
-        return (_sprs(ct, pa, grid, impl, rows).to(dtype), None, None, None,
-                None)
+        pa, grid, impl, rows, dtype, layer = ctx.meta
+        ct = ct.view(grid.data, -1, ct.shape[-1])
+        return (_sprs(ct, pa, grid, impl, rows, layer).to(dtype),) \
+            + (None,) * 6
+
+
+class Slots:
+    """One layer's compute slots in flight (``materialize_layer``):
+    ``wait()`` returns them, (1, K, chunk_len), once their collectives
+    have landed.  The consumer waits there and nowhere before.  The
+    gathered (g·K, chunk_loc) column shards become the slots' columns
+    there, on the consumer's stream (a view when g is 1)."""
+
+    def __init__(self, raw, pending, g: int):
+        self._slots, self._pending, self._g = raw, pending, g
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.wait()
+            self._pending = None
+            g, c = self._g, self._slots.shape[1]
+            self._slots = self._slots.view(g, -1, c).movedim(0, 1) \
+                .reshape(1, -1, g * c)
+        return self._slots
+
+
+def _slots_of(premat):
+    """A layer's (1, K, chunk_len) slots from a tensor or a ``Slots``."""
+    return premat.wait() if isinstance(premat, Slots) else premat
+
+
+def materialize_layer(cfg: ModelConfig, rt: MoERuntime, buf,
+                      pa_l: PlanArrays, dtype=None, layer: int = -1):
+    """One layer's SparseAllGather on this rank of ``rt.grid``, issued
+    and not waited: a ``Slots`` whose ``wait()`` gives the (1, K,
+    chunk_len) compute slots in ``dtype`` (default ``cfg.dtype``).  The
+    pipelined forward issues layer l+1's before layer l's consumer, and
+    the backward re-gather pipeline layer l-1's before layer l's
+    recompute.  When ``buf`` requires grad (and grad is on) the slots
+    carry the SparseReduceScatter back to it; a detached ``buf`` gives
+    slots without a gradient."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    _event("spag", layer)
+    if torch.is_grad_enabled() and buf.requires_grad:
+        box = []
+        raw = SparseAllGather.apply(buf, pa_l, rt.grid, rt.impl, dt, layer,
+                                    box)
+        return Slots(raw, box[0], rt.grid.data)
+    return Slots(*_spag_issue(buf, pa_l, rt.grid, rt.impl, dt), rt.grid.data)
+
+
+def sparse_reduce_scatter_stack(ct, pa: PlanArrays, grid, impl: str,
+                                rows_local: int):
+    """The transpose of ``materialize_stack``: the (L, 1, K, chunk_len)
+    slot cotangent -> the f32 gradient of this rank's buffer shard, one
+    ``_sprs`` per layer in layer order, all landing in one tensor."""
+    g = None
+    for l in range(ct.shape[0]):
+        g = _sprs(ct[l, 0], pa.layer(l), grid, impl, rows_local, l, into=g)
+    return g
+
+
+def materialize_stack(cfg: ModelConfig, rt: MoERuntime, buf,
+                      pa: PlanArrays, dtype=None):
+    """Every MoE layer's SparseAllGather on this rank of ``rt.grid`` in one
+    call: (L, 1, K, chunk_len) compute slots in ``dtype``, with no
+    gradient.  All L gathers are issued before any is waited.  It is
+    linear in ``buf``, and ``sparse_reduce_scatter_stack`` is its
+    transpose.  The train step builds the slots once per step with it,
+    every microbatch consumes them (``forward(premat=)``), and the summed
+    slot cotangent goes through the transpose once."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    grid = rt.grid
+    L = pa.local_rows.shape[0]
+    K = pa.local_rows.shape[-1] + pa.extra_experts.shape[-1]
+    out = buf.new_empty((L, 1, K, buf.shape[1] * grid.data), dtype=dt)
+    slots = []
+    with torch.no_grad():
+        for l in range(L):
+            _event("spag", l)
+            slots.append(Slots(*_spag_issue(buf, pa.layer(l), grid,
+                                            rt.impl, dt, out=out[l, 0]),
+                               grid.data))
+        for l, s in enumerate(slots):
+            got = s.wait()
+            if grid.data > 1:           # else gathered in place
+                out[l].copy_(got)
+    return out
 
 
 def _spread(flat, keep, n: int):
@@ -655,7 +883,8 @@ def auto_capacity(cfg: ModelConfig, t_loc: int, ep: int, k_total: int) -> int:
 
 
 def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
-                    pa: PlanArrays, valid):
+                    pa: PlanArrays, valid, premat=None, layer: int = -1,
+                    train: bool = False):
     """The FSSDP MoE layer on this rank: the JAX package's ``_moe_body``.
 
     x: (T, D) this rank's tokens; buf: this rank's (rows_local, chunk_loc)
@@ -668,14 +897,22 @@ def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
     (``row_valid``, from a (M, K) all-to-all of the kept counts), the
     reverse all-to-all and the combine.  Over-capacity entries are dropped
     by masking them onto a row that is cut off (an ``index_put_`` has no
-    drop mode).  ``dense``: every expert is local, no token moves."""
+    drop mode).  ``dense``: every expert is local, no token moves.
+
+    ``premat``: this layer's (1, K, chunk_len) slots, a tensor or a
+    ``Slots`` in flight, consumed in place of the layer's own
+    SparseAllGather (none is issued).  Either way the slots are waited
+    just before the grouped FFN, so the gather overlaps the gate and the
+    dispatch.  ``train``: the grouped FFN's training form even without
+    grad (``_Regather``)."""
     grid = rt.grid
     M, me = grid.model, grid.e
     T, D = x.shape
     E = cfg.moe.num_experts
     K = pa.local_rows.shape[-1] + pa.extra_experts.shape[-1]
     cap = rt.capacity or auto_capacity(cfg, T, M, K)
-    chunks = SparseAllGather.apply(buf, pa, grid, rt.impl, x.dtype)
+    slots = premat if premat is not None else materialize_layer(
+        cfg, rt, buf, pa, x.dtype, layer)
     idx, vals, counts, aux, z = gate(cfg, wr, x, valid,
                                      group=grid.world_group)
     k = idx.shape[1]
@@ -696,8 +933,9 @@ def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
         flat = torch.where(keep, slot.clamp_min(0) * cap_eff + pos,
                            torch.full_like(pos, K * cap_eff))
         xr = x.new_zeros((K * cap_eff + 1, D)).index_put_((flat,), xtok)
-        yr = _expert_ffn(cfg, chunks, xr[:-1].view(K, cap_eff, D),
-                         rt.use_pallas, group_sizes=gs)
+        yr = _expert_ffn(cfg, _slots_of(slots)[0],
+                         xr[:-1].view(K, cap_eff, D), rt.use_pallas,
+                         group_sizes=gs, layer=layer, train=train)
         got = yr.reshape(-1, D)[_spread(flat, keep, K * cap_eff)]
         dev_loads_l = torch.zeros(M, dtype=torch.float32, device=x.device)
         dev_loads_l[me] = gs.sum().float()
@@ -720,9 +958,11 @@ def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
             recv_cnt = _a2a(send_cnt, grid.ep_group, "counts")    # (M, K)
             r = torch.arange(M * cap, device=x.device)
             row_valid = (r % cap)[None, :] < recv_cnt.T[:, r // cap]
-            yr = _expert_ffn(cfg, chunks, xr, True, row_valid=row_valid)
+            yr = _expert_ffn(cfg, _slots_of(slots)[0], xr, True,
+                             row_valid=row_valid, layer=layer, train=train)
         else:
-            yr = _expert_ffn(cfg, chunks, xr, False)
+            yr = _expert_ffn(cfg, _slots_of(slots)[0], xr, False,
+                             layer=layer)
         yback = yr.view(K, M, cap, D).permute(1, 0, 2, 3)
         ret = _AllToAll.apply(yback, grid.ep_group, "tokens_back")
         got = ret.reshape(-1, D)[_spread(flat, keep, M * K * cap)]
@@ -734,3 +974,117 @@ def _moe_layer_grid(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
     dev_loads = _all_reduce(dev_loads_l, grid.world_group, "dev_loads")
     pad_frac = 1.0 - dev_loads.sum() / float(rows_per_dev * grid.size)
     return y, MoEAux(counts, aux, z, dropped, dev_loads, pad_frac)
+
+
+# ---------------------------------------------------------------------------
+# Re-materialization: a layer whose backward re-gathers its slots
+# ---------------------------------------------------------------------------
+class BwdPipe:
+    """The backward re-gather pipeline of one forward pass: layer l's
+    backward puts the re-gather it issued for layer l-1 here, and layer
+    l-1's backward takes it."""
+
+    def __init__(self):
+        self._slots = {}
+
+    def put(self, layer: int, slots: Slots) -> None:
+        self._slots[layer] = slots
+
+    def take(self, layer: int) -> Slots:
+        if layer not in self._slots:
+            raise RuntimeError(f"no re-gathered slots for MoE layer {layer}: "
+                               f"the next layer's backward issued none")
+        return self._slots.pop(layer)
+
+
+class _Regather(torch.autograd.Function):
+    """The grid layer consuming given slots with no gradient through them.
+    It saves x, wr, the buffer (by reference) and ``valid`` (the plan
+    tables ride on ``ctx``), and neither the slots nor anything of the
+    layer's interior.  Its backward gets the slots again (re-gathered
+    from the buffer, or taken from the pipe), re-runs the layer, and lands
+    the slot cotangent on the buffer through the SparseReduceScatter."""
+
+    @staticmethod
+    def forward(ctx, x, wr, buf, cfg, rt, pa, valid, premat, layer, pipe,
+                pa_prev, warm_start):
+        # the grouped FFN's training form, as in the backward's re-run: the
+        # layer's output is the one every other mode computes, to the bit
+        y, aux = _moe_layer_grid(cfg, rt, x, wr, buf, pa, valid, premat,
+                                 layer, train=True)
+        ctx.save_for_backward(x, wr, buf, valid)
+        ctx.meta = (cfg, rt, pa, layer, pipe, pa_prev, warm_start)
+        ctx.mark_non_differentiable(aux.counts, aux.dropped_frac,
+                                    aux.device_loads, aux.pad_frac)
+        return (y,) + tuple(aux)
+
+    @staticmethod
+    def backward(ctx, gy, _counts, g_aux, g_z, _dropped, _loads, _pad):
+        x, wr, buf, valid = ctx.saved_tensors
+        cfg, rt, pa, layer, pipe, pa_prev, warm_start = ctx.meta
+        src = buf.detach()
+        # 1. this layer's slots: re-gathered during the next layer's
+        # backward, or here (no pipe, or the last MoE layer's warm-up)
+        if pipe is None or warm_start:
+            slots = materialize_layer(cfg, rt, src, pa, x.dtype, layer)
+        else:
+            slots = pipe.take(layer)
+        # 2. the backward prefetch: layer l-1's re-gather, issued before
+        # this layer's recompute and its dgrad and wgrad
+        if pipe is not None and pa_prev is not None:
+            pipe.put(layer - 1, materialize_layer(cfg, rt, src, pa_prev,
+                                                  x.dtype, layer - 1))
+        # 3. re-run the layer on the slots (no gather in here)
+        ch = slots.wait().detach().requires_grad_()
+        x_ = x.detach().requires_grad_()
+        wr_ = wr.detach().requires_grad_()
+        with torch.enable_grad():
+            y2, aux2 = _moe_layer_grid(cfg, rt, x_, wr_, src, pa, valid, ch,
+                                       layer)
+            dx, dwr, dch = torch.autograd.grad(
+                (y2, aux2.aux_loss, aux2.z_loss), (x_, wr_, ch),
+                (gy, g_aux, g_z))
+        # 4. the SparseReduceScatter lands the slot cotangent on the owners
+        dbuf = _sprs(dch[0], pa, rt.grid, rt.impl, buf.shape[0],
+                     layer).to(buf.dtype)
+        return (dx, dwr, dbuf) + (None,) * 9
+
+
+def _regather(cfg, rt, x, wr, buf, pa_l, valid, premat, layer, pipe,
+              pa_prev, warm_start):
+    if valid is None:
+        valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    out = _Regather.apply(x, wr, buf, cfg, rt, pa_l, valid, premat, layer,
+                          pipe, pa_prev, warm_start)
+    return out[0], MoEAux(*out[1:])
+
+
+def moe_layer_regather(cfg: ModelConfig, rt: MoERuntime, x, wr, buf,
+                       pa_l: PlanArrays, valid, premat, layer: int = -1):
+    """``moe_layer(premat=)`` with re-materialization (paper §4.3), the
+    ``rematerialize="gather"`` layer of the JAX package: the forward
+    consumes the given slots (a tensor or a ``Slots``) without a gradient
+    through them, and keeps neither them nor the layer's interior; the
+    backward replays this layer's SparseAllGather from the buffer, re-runs
+    the layer, and turns the slot cotangent into the buffer's gradient
+    with the SparseReduceScatter."""
+    return _regather(cfg, rt, x, wr, buf, pa_l, valid, premat, layer, None,
+                     None, False)
+
+
+def moe_layer_regather_pipelined(cfg: ModelConfig, rt: MoERuntime, x, wr,
+                                 buf, pa_l: PlanArrays, pa_prev, valid,
+                                 premat, pipe: BwdPipe, layer: int,
+                                 warm_start: bool = False):
+    """``moe_layer_regather`` with the backward re-gather pipeline, the
+    backward mirror of the forward's one-layer-ahead prefetch.  Layer l's
+    backward, in issue order: takes its slots from ``pipe`` (re-gathered
+    during layer l+1's backward; the network's last MoE layer, with
+    ``warm_start``, gathers its own), issues layer l-1's re-gather
+    (``pa_prev``; None for the first MoE layer, which issues none) into
+    ``pipe``, re-runs the layer, and lands its buffer gradient through the
+    SparseReduceScatter.  The JAX package also emits a re-gather before
+    the first layer, which XLA drops as dead; run eagerly it would move
+    data, so none is issued: 3·m·L ring hops per step."""
+    return _regather(cfg, rt, x, wr, buf, pa_l, valid, premat, layer, pipe,
+                     pa_prev, warm_start)

@@ -76,6 +76,24 @@ def host_slice(global_batch: int, process_index: int, process_count: int
     return slice(process_index * per, (process_index + 1) * per)
 
 
+def microbatch_rows(global_batch: int, process_index: int,
+                    process_count: int, microbatches: int) -> np.ndarray:
+    """The global rows a rank takes when a step splits its rows into
+    ``microbatches`` equal parts: its ``host_slice`` of each microbatch's
+    rows, microbatch after microbatch, so that microbatch i holds the
+    same global rows (``i·B/n`` onwards) as a step that splits the global
+    batch first."""
+    n = max(microbatches, 1)
+    if n > 1 and global_batch % (n * process_count):
+        raise ValueError(f"a global batch of {global_batch} rows does not "
+                         f"split into {n} microbatches over "
+                         f"{process_count} ranks")
+    per_mb = global_batch // n
+    rows = np.arange(per_mb)[host_slice(per_mb, process_index,
+                                        process_count)]
+    return np.concatenate([i * per_mb + rows for i in range(n)])
+
+
 def make_stream(vocab_size: int, seq_len: int, global_batch: int,
                 kind: str = "synthetic", seed: int = 0, skew: float = 0.0,
                 process_index: int = 0, process_count: int = 1) -> LMStream:

@@ -57,16 +57,18 @@ def _needs_grad(*ts) -> bool:
 
 
 def grouped_mlp(x, wi, wg, wo, group_sizes=None, row_valid=None, *,
-                act: str = "silu_glu"):
+                act: str = "silu_glu", train: bool = False):
     """Grouped expert FFN: x (K,T,D) -> (K,T,D).  Validity is
     ``group_sizes`` (K,) (valid-row prefix) or ``row_valid`` (K,T); None =
     every row valid.  Invalid rows come back exactly zero.
 
-    When an operand requires grad, the call goes through
-    ``GroupedMLPFunction``: the training form of the forward, then dgrad
-    and wgrad in the backward (kernels for CUDA tensors, their step-wise
-    plain versions otherwise); else through the inference form."""
-    if _needs_grad(x, wi, wg, wo):
+    When an operand requires grad, or with ``train``, the call goes
+    through ``GroupedMLPFunction``: the training form of the forward, then
+    dgrad and wgrad in the backward (kernels for CUDA tensors, their
+    step-wise plain versions otherwise); else through the inference form.
+    ``train`` without grad is the forward of a layer whose backward
+    re-runs it (re-materialization): both runs then give the same bits."""
+    if train or _needs_grad(x, wi, wg, wo):
         k_, t_ = x.shape[:2]
         if row_valid is None and group_sizes is None:
             mask = torch.ones((k_, t_), dtype=torch.int32, device=x.device)

@@ -113,7 +113,7 @@ def _rank_entry(fn, args, rank: int, grid: Tuple[int, int], device: str,
         os._exit(1)
 
 
-def spawn(fn: Callable, grid: Sequence[int], device: str = "cpu", *,
+def spawn(fn: Callable, grid: Sequence[int], device: str = "cuda", *,
           workdir: str, args: tuple = (), timeout: float = 300.0,
           threads: int = 1, backend: Optional[str] = None) -> list:
     """Run ``fn(grid, *args)`` on ``data * model`` new processes of this

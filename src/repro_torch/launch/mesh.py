@@ -39,6 +39,10 @@ class ProcessGrid:
     fsdp_group: Any            # this rank's FSDP group (size ``data``)
     world_group: Any = None    # the default group
     ep_ranks: List[int] = dataclasses.field(default_factory=list)
+    # the CUDA stream the SparseAllGather is issued from (made at its first
+    # use), so the compute stream waits for its collectives only where it
+    # consumes the slots
+    comm_stream: Any = None
 
     @property
     def size(self) -> int:

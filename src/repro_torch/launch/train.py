@@ -17,8 +17,14 @@ ring | a2a | dense``) it trains on a D × M process grid of FSSDP ranks,
 here (``--spawn``: D·M processes of this machine, ``FileStore``
 rendezvous) or one process per rank under ``python -m
 torch.distributed.run --nproc-per-node D·M -m repro_torch.launch.train
-...``.  Rank 0 prints the losses.  Checkpointing and the elastic
-supervisor are not yet ported and are refused.
+...``.  Rank 0 prints the losses.  On a grid the MoE layers follow the
+config's ``moe.rematerialize`` mode (``save`` by default: the
+one-layer-ahead SparseAllGather prefetch), ``--microbatch n`` builds
+every layer's slots once per step for the n microbatches, and the
+scheduler plans ahead, calibrates and re-shards every
+``--resharding-interval`` steps (Algorithm 2, for the ``ring`` and
+``a2a`` plans).  Checkpointing and the elastic supervisor are not yet
+ported and are refused.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ def main(argv=None):
                          "(default: a temporary one)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--resharding-interval", type=int, default=100)
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--no-step-guard", action="store_true",
@@ -108,6 +115,7 @@ def _train(args, grid):
     import repro_torch.configs as configs
     from repro_torch.common.config import TrainConfig
     from repro_torch.core.moe import MoERuntime
+    from repro_torch.core.schedule import ReshardingPolicy
     from repro_torch.data.pipeline import make_stream
     from repro_torch.models import model as mdl
     from repro_torch.train.trainer import HecateScheduler, train_loop
@@ -130,8 +138,10 @@ def _train(args, grid):
                          kind=args.data, seed=args.seed, skew=args.skew)
     scheduler = None
     if cfg.moe.enabled:
-        scheduler = HecateScheduler(cfg, ep=grid.model if grid else 1,
-                                    impl=args.impl, device=str(device))
+        scheduler = HecateScheduler(
+            cfg, ep=grid.model if grid else 1, impl=args.impl,
+            device=str(device),
+            resharding=ReshardingPolicy(interval=args.resharding_interval))
     rank0 = grid is None or grid.rank == 0
     state, history = train_loop(cfg, rt, tc, stream, scheduler=scheduler,
                                 num_steps=args.steps, device=device,

@@ -6,7 +6,9 @@ of ``cfg.layer_pattern``).  Parameters are stacked along a leading
 superblock axis exactly as in the JAX package (``blocks/l{j}/...``), and
 the JAX package's ``scan`` over superblocks becomes a Python loop here.
 MoE FFNs read from the one cross-layer chunk buffer through
-``repro_torch.core.moe``.
+``repro_torch.core.moe``.  On a process grid the stack follows the
+reference's ``moe.rematerialize`` modes and its one-layer-ahead
+SparseAllGather (``_grid_blocks``, the port of ``_pipelined_blocks``).
 """
 from __future__ import annotations
 
@@ -132,13 +134,31 @@ def _block(params, sb: int):
 # MoE FFN wrapper
 # ---------------------------------------------------------------------------
 def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
-             premat=None):
+             premat=None, layer: int = -1, pipe=None, pa_prev=None,
+             warm_start: bool = False):
     """x: (B, S, D) -> (y, MoEAux): flatten the tokens and run the MoE
     layer over all of them (no padding to a device count: on a grid each
-    rank holds whole rows of the batch, which are its token slice)."""
+    rank holds whole rows of the batch, which are its token slice).
+
+    On a grid in ``rematerialize="gather"`` mode, given slots go through
+    ``moe_layer_regather``, or with a backward ``pipe`` (``BwdPipe``)
+    through ``moe_layer_regather_pipelined``: ``pa_prev`` is the previous
+    MoE layer's tables (None for the first) and ``warm_start`` marks the
+    network's last MoE layer."""
     b, s, d = x.shape
-    y, aux = moe_core.moe_layer(cfg, rt.moe, x.reshape(b * s, d), wr, buf,
-                                pa, premat=premat)
+    xt = x.reshape(b * s, d)
+    if (premat is not None and rt.grid is not None
+            and cfg.moe.rematerialize == "gather"):
+        if pipe is not None:
+            y, aux = moe_core.moe_layer_regather_pipelined(
+                cfg, rt.moe, xt, wr, buf, pa, pa_prev, None, premat, pipe,
+                layer, warm_start)
+        else:
+            y, aux = moe_core.moe_layer_regather(cfg, rt.moe, xt, wr, buf,
+                                                 pa, None, premat, layer)
+    else:
+        y, aux = moe_core.moe_layer(cfg, rt.moe, xt, wr, buf, pa,
+                                    premat=premat, layer=layer)
     return y.reshape(b, s, d), aux
 
 
@@ -162,17 +182,124 @@ def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
         if collect_cache:
             y, cache[f"l{j}"] = y
         x = x + y
-        h = ly.apply_norm(p["ln2"], x, cfg.norm)
         if j in moe_pos:
+            h = ly.apply_norm(p["ln2"], x, cfg.norm)
             y, aux = _moe_ffn(cfg, rt, h, params["router"][mi],
                               params["moe_buffer"], pa.layer(mi),
-                              premat=None if premat is None else premat[mi])
+                              premat=None if premat is None else premat[mi],
+                              layer=mi)
+            x = x + y
             aux_list.append(aux)
             mi += 1
         else:
-            y = ly.apply_mlp(p["mlp"], h, cfg.act)
-        x = x + y
+            x = _dense_ffn(cfg, p, x)
     return x, aux_list, cache
+
+
+def _use_pipeline(cfg: ModelConfig, rt: Runtime) -> bool:
+    """The one-layer-ahead SparseAllGather prefetch: on a process grid,
+    with ``cfg.moe.pipeline``, off under ``rematerialize="block"``."""
+    return (cfg.moe.enabled and cfg.moe.pipeline and rt.grid is not None
+            and cfg.moe.rematerialize != "block")
+
+
+def _use_bwd_pipe(cfg: ModelConfig, rt: Runtime) -> bool:
+    """The backward re-gather pipeline: ``gather`` mode on a grid with
+    ``cfg.moe.bwd_prefetch``."""
+    return (cfg.moe.enabled and cfg.moe.rematerialize == "gather"
+            and cfg.moe.bwd_prefetch and rt.grid is not None)
+
+
+def _mix(cfg: ModelConfig, rt: Runtime, kind: str, positions, causal: bool,
+         p, x):
+    """A sublayer's attention segment: x + attention(norm(x))."""
+    h = ly.apply_norm(p["ln1"], x, cfg.norm)
+    return x + attn.attention(p["attn"], cfg, h, positions, kind=kind,
+                              causal=causal, use_pallas=rt.use_pallas)
+
+
+def _dense_ffn(cfg: ModelConfig, p, x):
+    return x + ly.apply_mlp(p["mlp"], ly.apply_norm(p["ln2"], x, cfg.norm),
+                            cfg.act)
+
+
+def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
+                 pa: PlanArrays, causal: bool, premat=None):
+    """The superblock stack on a process grid in ``save`` or ``gather``
+    mode (``block`` mode runs the whole-superblock checkpoint of
+    ``forward``).  Returns (x, [MoEAux per MoE layer]).
+
+    With ``cfg.moe.pipeline`` the SparseAllGather runs one layer ahead: a
+    warm-up gather issues layer 0's before the first block, and each MoE
+    position issues layer l+1's after its attention and before layer l's
+    consumer, so the collectives overlap the compute in between; none is
+    issued after the last layer.  Without the pipeline (``save`` only)
+    each layer issues its own there.  ``premat``: step-hoisted (L, 1, K,
+    chunk_len) slots (``moe.materialize_stack``), consumed in place of
+    every gather.
+
+    With ``cfg.remat`` and grad on, the attention and dense-FFN segments
+    are checkpointed one by one.  ``save``: the MoE layer is checkpointed
+    too, with its slots as an explicit input, so the slots are kept and
+    its recompute gathers nothing.  ``gather``: the prefetch reads a
+    detached buffer and the MoE layer is ``moe_layer_regather``
+    (``_pipelined`` with ``cfg.moe.bwd_prefetch``), which keeps no slots
+    and re-gathers them in the backward."""
+    gather = cfg.moe.rematerialize == "gather"
+    grad = torch.is_grad_enabled()
+    remat = cfg.remat and grad
+    ahead = cfg.moe.pipeline
+    dt = torch_dtype(cfg.dtype)
+    buf = params["moe_buffer"]
+    src = buf.detach() if gather else buf
+    n_moe = pa.local_rows.shape[0]
+    moe_pos = _moe_positions(cfg)
+    pipe = moe_core.BwdPipe() if _use_bwd_pipe(cfg, rt) and grad else None
+
+    def issue(l):
+        return moe_core.materialize_layer(cfg, rt.moe, src, pa.layer(l), dt,
+                                          layer=l)
+
+    def seg(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+
+    def consume(l, p, wr, x, slots):
+        h = ly.apply_norm(p["ln2"], x, cfg.norm)
+        y, aux = _moe_ffn(cfg, rt, h, wr, buf, pa.layer(l), premat=slots,
+                          layer=l, pipe=pipe,
+                          pa_prev=pa.layer(l - 1) if l > 0 else None,
+                          warm_start=l == n_moe - 1)
+        return x + y, aux
+
+    nxt = issue(0) if premat is None and ahead else None
+    aux_list = []
+    mi = 0
+    for sb in range(cfg.num_superblocks):
+        p_sb = _block(params, sb)
+        for j, kind in enumerate(cfg.layer_pattern):
+            p = p_sb[f"l{j}"]
+            x = seg(partial(_mix, cfg, rt, kind, positions, causal), p, x)
+            if j not in moe_pos:
+                x = seg(partial(_dense_ffn, cfg), p, x)
+                continue
+            if premat is not None:
+                slots = premat[mi]
+            elif ahead:
+                slots, nxt = nxt, (issue(mi + 1) if mi + 1 < n_moe
+                                   else None)
+            else:
+                slots = issue(mi)
+            wr = params["router"][mi]
+            if remat and not gather:
+                x, aux = checkpoint(partial(consume, mi), p, wr, x,
+                                    moe_core._slots_of(slots),
+                                    use_reentrant=False)
+            else:
+                x, aux = consume(mi, p, wr, x, slots)
+            aux_list.append(aux)
+            mi += 1
+    return x, aux_list
 
 
 def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
@@ -194,7 +321,14 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
     forward (so the forward kernels launch twice per step).
 
     pa: stacked PlanArrays (L_moe leading dim).  premat: optional
-    (L_moe, 1, K, chunk_len) compute slots (``moe.materialize_chunks``)."""
+    (L_moe, 1, K, chunk_len) compute slots (``moe.materialize_chunks``, or
+    ``moe.materialize_stack`` on a grid, where it needs the pipelined
+    path).
+
+    On a process grid the MoE stack follows ``cfg.moe.rematerialize``:
+    ``save`` and ``gather`` run ``_grid_blocks`` (the one-layer-ahead
+    prefetch, segment checkpoints), ``block`` the whole-superblock
+    checkpoint above with each layer's gather inside it."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     # scaled in the compute dtype, as the JAX package scales
@@ -204,21 +338,31 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
         positions = torch.arange(s, device=x.device).expand(b, s)
     if cfg.moe.enabled:
         assert pa is not None, "MoE arch needs PlanArrays"
+    if premat is not None and rt.grid is not None \
+            and not _use_pipeline(cfg, rt):
+        raise ValueError("forward(premat=...) on a process grid needs the "
+                         "pipelined MoE path (moe.pipeline=True, "
+                         "rematerialize != 'block')")
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     aux_list = []
     caches = {f"l{j}": {"k": [], "v": []}
               for j in range(len(cfg.layer_pattern))}
-    for sb in range(cfg.num_superblocks):
-        blk = partial(_superblock, cfg, rt, params, sb, pa, premat,
-                      positions, causal, collect_cache)
-        if remat:
-            x, auxs, cache = checkpoint(blk, x, use_reentrant=False)
-        else:
-            x, auxs, cache = blk(x)
-        aux_list.extend(auxs)
-        for name, c in cache.items():
-            for kv in ("k", "v"):
-                caches[name][kv].append(c[kv])
+    if (cfg.moe.enabled and rt.grid is not None and not collect_cache
+            and cfg.moe.rematerialize != "block"):
+        x, aux_list = _grid_blocks(cfg, rt, params, x, positions, pa, causal,
+                                   premat)
+    else:
+        for sb in range(cfg.num_superblocks):
+            blk = partial(_superblock, cfg, rt, params, sb, pa, premat,
+                          positions, causal, collect_cache)
+            if remat:
+                x, auxs, cache = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x, auxs, cache = blk(x)
+            aux_list.extend(auxs)
+            for name, c in cache.items():
+                for kv in ("k", "v"):
+                    caches[name][kv].append(c[kv])
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux_list

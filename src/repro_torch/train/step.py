@@ -6,8 +6,7 @@ the Hecate scheduler can re-plan between steps.  Gradients come from
 ``torch.autograd.grad`` over the parameter tree's leaves (they are
 returned, not accumulated into ``.grad``), and gradient accumulation over
 microbatches sums them in f32 in microbatch order, as the JAX step's scan
-does.  The materialization hoisting of the JAX step needs a mesh and is
-not ported.
+does.
 
 On a process grid (``rt.grid``) every rank runs the step on its own rows
 of the global batch: the loss is the mean over every rank's tokens, the
@@ -16,6 +15,15 @@ router) are summed over the world in one all-reduce per dtype, the chunk
 buffer's gradient stays on the rank that owns the shard (the
 SparseReduceScatter put it there), the clipping norm is the global one,
 and AdamW runs on each rank's parameters.
+
+Under gradient accumulation on a grid the SparseAllGather is hoisted out
+of the microbatch loop: ``moe.materialize_stack`` builds every MoE
+layer's slots once at the head of the step and every microbatch's forward
+consumes them (``premat=``), L gathers per step whatever the number of
+microbatches.  In ``save`` mode each microbatch's slot cotangent is
+summed in f32, in microbatch order, and one stacked SparseReduceScatter
+lands the sum on the buffer; in ``gather`` mode the hoisted slots carry
+no gradient and each microbatch's backward re-gathers.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig, TrainConfig
 from repro_torch.common.faults import GRAD_SCALE_KEY
-from repro_torch.common.params import _leaves, _set
+from repro_torch.common.params import _leaves, _set, torch_dtype
+from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import PlanArrays
 from repro_torch.models import layers as ly
 from repro_torch.models import model as mdl
@@ -95,12 +104,14 @@ def chunked_nll(cfg: ModelConfig, embed_params, hidden, labels,
 
 
 def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
-            pa: Optional[PlanArrays], causal: bool = True):
+            pa: Optional[PlanArrays], causal: bool = True, premat=None):
     """Next-token loss of ``batch["tokens"]`` (B, S+1) plus the MoE aux and
-    z terms; returns (loss, metrics)."""
+    z terms; returns (loss, metrics).  ``premat``: step-hoisted slots for
+    ``forward``."""
     toks = batch["tokens"]
     hidden, aux = mdl.forward(cfg, rt, params, toks[:, :-1], pa=pa,
-                              causal=causal, return_hidden=True)
+                              causal=causal, return_hidden=True,
+                              premat=premat)
     labels = toks[:, 1:]
     grid = getattr(rt, "grid", None)
     if grid is None:
@@ -148,11 +159,21 @@ def loss_and_grads(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
                    pa: Optional[PlanArrays], causal: bool = True):
     """(metrics, grads): the loss's gradient with respect to every leaf of
     ``params`` (a tree of the same keys; zeros where a leaf is unused)."""
+    metrics, grads, _ = _loss_and_grads(cfg, rt, params, batch, pa, causal)
+    return metrics, grads
+
+
+def _loss_and_grads(cfg, rt, params, batch, pa, causal, premat=None):
+    """``loss_and_grads`` with step-hoisted slots: (metrics, grads, the
+    slots' gradient, or None where ``premat`` carries none)."""
     _require_grad(params)
     paths, ts = zip(*_leaves(params))
+    wrt = ts + ((premat,) if premat is not None and premat.requires_grad
+                else ())
     with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, rt, params, batch, pa, causal)
-        gs = torch.autograd.grad(loss, ts, allow_unused=True)
+        loss, metrics = loss_fn(cfg, rt, params, batch, pa, causal, premat)
+        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+    g_premat = gs[len(ts)] if len(wrt) > len(ts) else None
     gs = [torch.zeros_like(t) if g is None else g for t, g in zip(ts, gs)]
     grid = getattr(rt, "grid", None)
     if grid is not None:
@@ -161,7 +182,7 @@ def loss_and_grads(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
     grads = {}
     for path, g in zip(paths, gs):
         _set(grads, path, g)
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    return {k: v.detach() for k, v in metrics.items()}, grads, g_premat
 
 
 def sum_replicated_grads(gs, replicated, group) -> None:
@@ -201,7 +222,8 @@ def _tree_map(fn, *trees):
 
 
 def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
-                     causal: bool = True):
+                     causal: bool = True,
+                     hoist_premat: Optional[bool] = None):
     """Returns fn(state, batch, pa) -> (state, metrics).
 
     ``tc.microbatch = n > 1`` splits the batch into n microbatches along
@@ -210,36 +232,69 @@ def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
     way and expert counts summed.  A batch carrying ``GRAD_SCALE_KEY``
     (the ``train.nan_grads`` fault site) multiplies it into the gradients.
     With ``tc.step_guard`` a non-finite loss or gradient norm skips the
-    update bit-exactly (``adamw.update``)."""
+    update bit-exactly (``adamw.update``).
+
+    ``hoist_premat``: None hoists the SparseAllGathers out of the
+    microbatch loop whenever the pipelined MoE path of a grid is on and
+    n > 1; False keeps each microbatch's own gathers (the baseline)."""
     n = max(tc.microbatch, 1)
     grid = getattr(rt, "grid", None)
-    if grid is not None and n > 1:
-        raise NotImplementedError(
-            "gradient accumulation on a process grid (materialization "
-            "hoisting) is not yet ported to repro_torch")
+    hoist = (cfg.moe.enabled and grid is not None and n > 1
+             and mdl._use_pipeline(cfg, rt)) if hoist_premat is None \
+        else hoist_premat
+    if hoist and not mdl._use_pipeline(cfg, rt):
+        raise ValueError("hoist_premat needs the pipelined MoE path of a "
+                         "process grid (moe.pipeline, rematerialize != "
+                         "'block')")
+    save = cfg.moe.rematerialize == "save"
+    dt = torch_dtype(cfg.dtype)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    pa: Optional[PlanArrays]):
         batch = dict(batch)
         fault_scale = batch.pop(GRAD_SCALE_KEY, None)
+        hoisted = hoist and pa is not None and n > 1
+        premat = None
+        if hoisted:
+            # every layer's slots, built once for all the microbatches;
+            # in save mode they are a leaf whose gradient is summed below
+            premat = moe_core.materialize_stack(
+                cfg, rt.moe, state.params["moe_buffer"], pa, dt)
+            premat.requires_grad_(save)
         if n == 1:
             metrics, grads = loss_and_grads(cfg, rt, state.params, batch,
                                             pa, causal)
         else:
-            grads = msum = None
+            grads = msum = g_slots = None
             for i in range(n):
                 mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()}
-                m, g = loss_and_grads(cfg, rt, state.params, mb, pa, causal)
+                m, g, gp = _loss_and_grads(cfg, rt, state.params, mb, pa,
+                                           causal, premat)
+                # sums in place: the gradients are tensors of their own,
+                # and the buffer's and the slots' are GBs each
                 g = _tree_map(lambda a: a.to(torch.float32), g)
+                if gp is not None:
+                    g_slots = gp.float() if g_slots is None \
+                        else g_slots.add_(gp)
                 if grads is None:
                     grads, msum = g, m
                 else:
-                    grads = _tree_map(torch.add, grads, g)
+                    _tree_map(lambda a, b: a.add_(b), grads, g)
                     msum = {k: msum[k] + m[k] for k in msum}
+                del g, gp
             inv = 1.0 / n
-            grads = _tree_map(lambda a: a * inv, grads)
+            _tree_map(lambda a: a.mul_(inv), grads)
             metrics = {k: v * inv for k, v in msum.items()}
+            if g_slots is not None:
+                # the stacked SparseReduceScatter lands the summed slot
+                # cotangent on the owners' rows, once per step
+                premat = None
+                dbuf = moe_core.sparse_reduce_scatter_stack(
+                    g_slots.to(dt), pa, grid, rt.moe.impl,
+                    state.params["moe_buffer"].shape[0])
+                del g_slots
+                grads["moe_buffer"].add_(dbuf.mul_(inv))
             if "expert_counts" in metrics:
                 metrics["expert_counts"] = metrics["expert_counts"] * n
         if fault_scale is not None:

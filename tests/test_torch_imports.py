@@ -49,11 +49,12 @@ def test_no_port_source_imports_jax_or_repro():
 
 
 def test_distributed_modules_import_without_jax_or_repro():
-    """The modules of the distributed layer, each imported alone in a
-    fresh interpreter, load no ``jax*`` and no ``repro.*`` module."""
+    """The modules of the distributed layer and the cost model, each
+    imported alone in a fresh interpreter, load no ``jax*`` and no
+    ``repro.*`` module."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     for mod in ("repro_torch.core.schedule", "repro_torch.launch.mesh",
-                "repro_torch.launch.distributed"):
+                "repro_torch.launch.distributed", "repro_torch.core.costs"):
         assert (PORT / (mod.split(".", 1)[1].replace(".", "/") + ".py")
                 ).exists(), mod
         code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"

@@ -221,7 +221,8 @@ def test_scheduler_plans_match_the_reference_step_by_step():
     L, E = moe.num_moe_layers(cfg), cfg.moe.num_experts
     rng = np.random.default_rng(3)
     for impl in ("ring", "a2a", "dense", "ep"):
-        s = trainer.HecateScheduler(cfg, ep=4, impl=impl, t=4, device="cpu")
+        s = trainer.HecateScheduler(cfg, ep=4, impl=impl, t=4, device="cpu",
+                                    async_plan=False, calibrate=False)
         js = jtrainer.HecateScheduler(jcfg, ep=4, t=4, impl=impl,
                                       async_plan=False, calibrate=False)
         for _ in range(7):

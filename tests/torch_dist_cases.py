@@ -195,7 +195,8 @@ def train_rank(grid, npz: str):
     _, hist = train_loop(cfg, rt, TrainConfig(learning_rate=3e-3,
                                               warmup_steps=1,
                                               total_steps=2),
-                         batches, scheduler=sched, num_steps=2,
+                         batches, scheduler=sched,
+                         state=_fresh_state(params), num_steps=2,
                          log_every=0, device="cpu")
     out.update(loop_losses=[h["loss"] for h in hist], plans=plans,
                predicted=sched.predictor.predict())
@@ -206,3 +207,271 @@ def train_rank(grid, npz: str):
         seed=3))["tokens"]
     out["info"] = process_info()
     return out
+
+
+# ---------------------------------------------------------------------------
+# overlap and re-materialization: the remat modes, hoisting, resharding
+# ---------------------------------------------------------------------------
+REMAT_MODES = (("save", "save", True, True), ("gather", "gather", True, True),
+               ("gather_nobp", "gather", True, False),
+               ("block", "block", True, True),
+               ("save_serial", "save", False, True))
+
+
+def with_mode(cfg, mode, pipeline=True, bwd_prefetch=True):
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, rematerialize=mode, pipeline=pipeline,
+        bwd_prefetch=bwd_prefetch))
+
+
+def _ring_plan(cfg, ep, m=1):
+    L, E = M.num_moe_layers(cfg), cfg.moe.num_experts
+    return sparse_materialization(homogeneous_sharding(L, E, ep),
+                                  np.ones((L, E)), t=4, m=m, impl="ring")
+
+
+def _hops(coll):
+    return sum(coll.get(k, {"calls": 0})["calls"]
+               for k in ("spag_ring", "sprs_ring"))
+
+
+def _kept_for_backward(cfg, rt, params, batch, pa, slot_numel):
+    """Slot-shaped tensors the forward keeps for the backward: those the
+    saved-tensor hooks see, and the inputs the non-reentrant checkpoints
+    keep for their recompute (a tensor both see counts once)."""
+    from repro_torch.models import model as mdl
+    from repro_torch.train import step as st
+    saved, kept = [], []
+    real = mdl.checkpoint
+
+    def spy(fn, *args, **kw):
+        kept.extend((a.data_ptr(), tuple(a.shape)) for a in args
+                    if isinstance(a, torch.Tensor))
+        return real(fn, *args, **kw)
+
+    def pack(t):
+        saved.append((t.data_ptr(), tuple(t.shape)))
+        return t
+
+    mdl.checkpoint = spy
+    try:
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            st.loss_fn(cfg, rt, params, batch, pa)
+    finally:
+        mdl.checkpoint = real
+    slot = {s for s in saved + kept if int(np.prod(s[1])) == slot_numel}
+    return len(slot), len(saved), len(kept)
+
+
+def remat_rank(grid, npz: str):
+    """Loss, gradients, ring hops, event log and the slot-shaped tensors
+    kept for the backward of each remat mode on smoke gpt-moe-s (remat on),
+    then the pipeline flag on a 1 x 1 grid of the same world."""
+    from repro_torch.common.params import _leaves
+    from repro_torch.data.pipeline import host_slice
+    from repro_torch.train import step as st
+    z, cfg, params, rt = _smoke_setup(grid, npz)
+    cfg = cfg.replace(remat=True)
+    st._require_grad(params)
+    pa = M.plan_to_arrays(_ring_plan(cfg, grid.model), "cpu")
+    toks = z["tokens"][host_slice(z["tokens"].shape[0], grid.rank,
+                                  grid.size)]
+    batch = {"tokens": torch.from_numpy(toks)}
+    K = pa.local_rows.shape[-1] + pa.extra_experts.shape[-1]
+    out = {"K": K, "m": pa.extra_experts.shape[-1],
+           "L": M.num_moe_layers(cfg)}
+    for tag, mode, pipeline, bp in REMAT_MODES:
+        c = with_mode(cfg, mode, pipeline, bp)
+        M.enable_event_log()
+        M.reset_collective_counts()
+        try:
+            metrics, grads = st.loss_and_grads(c, rt, params, batch, pa)
+            events = M.event_log()
+        finally:
+            M.enable_event_log(False)
+        out[tag] = {"loss": float(metrics["loss"]),
+                    "grads": {"/".join(p): g.numpy()
+                              for p, g in _leaves(grads)},
+                    "hops": _hops(M.collective_counts()), "events": events,
+                    "kept": _kept_for_backward(c, rt, params, batch, pa,
+                                               K * M.chunk_len(c))}
+    return out
+
+
+def overlap_cfg(mode: str, num_layers: int = 4):
+    """The model of ``tests/test_step_overlap.py``."""
+    return ModelConfig(
+        name="t", arch_type="moe", num_layers=num_layers, d_model=128,
+        num_heads=4, num_kv_heads=4, head_dim=32, d_ff=256, vocab_size=512,
+        moe=MoEConfig(num_experts=8, experts_per_token=2, d_ff=256,
+                      slots_per_device=2, rematerialize=mode),
+        act="gelu", norm="ln", remat=False, dtype="float32")
+
+
+def _np_tree(z, prefix):
+    from repro_torch.common.params import params_from_jax
+    tree = {}
+    for k in z.files:
+        if k.startswith(prefix + "/"):
+            node = tree
+            *path, leaf = k.split("/")[1:]
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = z[k]
+    return params_from_jax(tree, "cpu")
+
+
+def _clone(t):
+    if isinstance(t, dict):
+        return {k: _clone(v) for k, v in t.items()}
+    return t.detach().clone()
+
+
+def _fresh_state(params):
+    """A train state of copies of ``params`` (the step updates in place)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as st
+    p = _clone(params)
+    return st.TrainState(p, adamw.init(p), torch.zeros((), dtype=torch.int32))
+
+
+def overlap_rank(grid, npz: str):
+    """The hoisted accumulated step: gathers and hops per step for n = 1,
+    2, 4 in both modes, the updated parameters against the per-microbatch
+    baseline at n = 4, and at n = 2 for the JAX package's step."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.params import _leaves
+    from repro_torch.data.pipeline import microbatch_rows
+    from repro_torch.models import model as mdl
+    from repro_torch.train import step as st
+    z = np.load(npz)
+    # 2 microbatches: the JAX package's batch; else 32 rows, 1 per rank
+    # and microbatch at n = 4
+    big = np.random.default_rng(1).integers(0, 512, (32, 17))
+    params = mdl.shard_params(_np_tree(z, "params"), grid)
+    rt = mdl.Runtime(use_pallas=False, moe=M.MoERuntime(
+        grid=grid, impl="ring", capacity=16))
+    out = {}
+    for mode in ("save", "gather"):
+        cfg = overlap_cfg(mode)
+        pa = M.plan_to_arrays(_ring_plan(cfg, grid.model), "cpu")
+        for n, hoist in ((1, None), (2, None), (4, None), (4, False)):
+            toks = z["tokens"] if n == 2 else big
+            batch = {"tokens": torch.from_numpy(toks[microbatch_rows(
+                toks.shape[0], grid.rank, grid.size, n)])}
+            fn = st.build_train_step(cfg, rt, TrainConfig(
+                microbatch=n, learning_rate=1e-3), hoist_premat=hoist)
+            M.enable_event_log()
+            M.reset_collective_counts()
+            try:
+                state, metrics = fn(_fresh_state(params), batch, pa)
+                events = M.event_log()
+            finally:
+                M.enable_event_log(False)
+            out[(mode, n, hoist)] = {
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "params": {"/".join(p): t.detach().numpy()
+                           for p, t in _leaves(state.params)},
+                "mu": {"/".join(p): t.numpy()
+                       for p, t in _leaves(state.opt.mu)},
+                "hops": _hops(M.collective_counts()), "events": events}
+    return out
+
+
+def reshard_rank(grid, npz: str):
+    """``apply_reshard`` of random buffer, mu and nu shards by the JAX
+    package's permutation, then two Hecate-loop steps resharding every
+    step from skewed loads."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.schedule import ReshardingPolicy
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as st
+    from repro_torch.train.trainer import (HecateScheduler, apply_reshard,
+                                           train_loop)
+    z, cfg, params, rt = _smoke_setup(grid, npz)
+
+    def shard(a):
+        return M.shard_buffer(torch.from_numpy(a), grid)
+    state = st.TrainState(
+        {"moe_buffer": shard(z["rs/buf"])},
+        adamw.OptState({"moe_buffer": shard(z["rs/mu"])},
+                       {"moe_buffer": shard(z["rs/nu"])},
+                       torch.zeros((), dtype=torch.int32)),
+        torch.zeros((), dtype=torch.int32))
+    apply_reshard(state, z["rs/perm"], grid)
+    assert grid.model > 1    # the all-to-all, not the local gather
+    out = {"moved": {k: t["moe_buffer"].numpy() for k, t in (
+        ("buf", state.params), ("mu", state.opt.mu), ("nu", state.opt.nu))}}
+    sched = HecateScheduler(cfg, ep=grid.model, impl="ring", t=4,
+                            device="cpu", calibrate=False,
+                            resharding=ReshardingPolicy(interval=1, t=2))
+    for _ in range(3):
+        sched.observe(z["skew"])
+    batches = iter([{"tokens": z["loop_tokens"][i]} for i in range(2)])
+    _, hist = train_loop(cfg, rt, TrainConfig(learning_rate=3e-3,
+                                              warmup_steps=1,
+                                              total_steps=2),
+                         batches, scheduler=sched,
+                         state=_fresh_state(params), num_steps=2,
+                         log_every=0, device="cpu")
+    out.update(loop_losses=[h["loss"] for h in hist],
+               owner_dev=sched.sharding.owner_dev,
+               owner_row=sched.sharding.owner_row,
+               plan_ahead_hits=sched.plan_ahead_hits)
+    out["faults"] = {site: _planner_fault_loop(grid, z, cfg, params, site)
+                     for site in ("scheduler.plan_job",
+                                  "scheduler.plan_job_hang")}
+    return out
+
+
+def _planner_fault_loop(grid, z, cfg, params, site):
+    """Three loop steps of the a2a plan (Algorithm 1's ring plan of the
+    smoke model does not depend on the loads) with plan-ahead on, ``site``
+    armed on rank 0 only
+    at the first plan-ahead job: the tables of the plan each step used,
+    those of Algorithm 1 on the prediction at that point (which the
+    prefetched plan, one observation stale, need not equal), the losses
+    and the fallbacks.  One small observation with a hot last expert
+    comes first, so the observed counts move the prediction."""
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.models import model as mdl
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    rt = mdl.Runtime(use_pallas=False, moe=M.MoERuntime(
+        grid=grid, impl="a2a", capacity=16))
+    sched = HecateScheduler(cfg, ep=grid.model, impl="a2a", t=4,
+                            device="cpu", calibrate=False,
+                            plan_timeout_s=0.5)
+    pre = np.full((M.num_moe_layers(cfg), cfg.moe.num_experts), 0.01)
+    pre[:, -1] = 0.02
+    sched.observe(pre)
+    plans, now = [], []
+    plan_arrays = sched.plan_arrays
+
+    def recorded():
+        pa = plan_arrays()
+        plans.append([t.numpy().copy() for t in pa])
+        fresh = sched._alg1(sched.sharding, sched.predictor.predict())
+        now.append([t.numpy().copy() for t in M.tables_to_device(
+            M.plan_tables(fresh), "cpu")])
+        return pa
+    sched.plan_arrays = recorded
+    if grid.rank == 0:
+        faults.inject(site, **({"hang_s": 3600.0} if "hang" in site else {}))
+    try:
+        batches = iter([{"tokens": z["loop_tokens"][i]} for i in (0, 1, 0)])
+        _, hist = train_loop(cfg, rt, TrainConfig(learning_rate=3e-3,
+                                                  warmup_steps=1,
+                                                  total_steps=3),
+                             batches, scheduler=sched,
+                             state=_fresh_state(params), num_steps=3,
+                             log_every=0, device="cpu")
+    finally:
+        faults.clear(site)                  # releases a hung job
+    return {"plans": plans, "now": now,
+            "losses": [h["loss"] for h in hist],
+            "fallbacks": sched.plan_fallbacks,
+            "hits": sched.plan_ahead_hits}
