@@ -88,8 +88,23 @@ JAX).  In order it:
    profiled save step (NCCL kernel ms and the ms it ran beside compute);
    a hoisted step of two microbatches (one gather per layer); a forced
    row-permuting reshard (``apply_reshard`` on the card) that leaves the
-   loss unchanged; no plan-ahead fallback;
-9. prints the kernel table as one JSON line, then
+   loss unchanged; no plan-ahead fallback; before each measured loop of
+   phases 7 and 8 the memory held is read with no collection first, and
+   the phase fails if the garbage collector then frees more than 0.05 GB
+   (a dropped state must be freed at once: ROADMAP C15);
+9. checkpoints, resumes and rolls back full-width gpt-moe-s cut to 2
+   layers (bf16, batch 8 × 2,048) through phase 7's path with one forced
+   reshard before the first checkpoint, all bitwise against an
+   uninterrupted 6-step run: 4 steps checkpointing every 2 (save s and
+   GB/s), the state dropped with the collector off (the memory must fall
+   back), a restore whose every array's CRC32 equals the saved one
+   (restore s and GB/s), an auto-resume to step 6, a bit-flipped step 4
+   skipped for step 2, ``train.nan_grads`` until the loop rolls back to
+   step 2 (the rollback's peak below what was held plus one state), and
+   ``launch/serve.py``'s restore serving 4 greedy requests at the
+   checkpoint's version with the tokens of an engine built from the live
+   parameters (B1, B4 and B5 launched, no training kernel);
+10. prints the kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
@@ -155,6 +170,12 @@ FSSDP_STEPS = 4
 # in units of m·L (the reference's laws)
 OVERLAP_STEPS = 5
 REMAT_LAW = {"save": 2, "gather": 3, "block": 3}
+# what the cyclic garbage collector may free before a measured run: a
+# dropped state is freed at once, so anything more is a reference cycle
+GC_FREED_LIMIT_GB = 0.05
+# phase 9: checkpoint, resume, rollback and restored serving at full width
+# cut to 2 layers, batch 8 x 2,048, 6 steps, checkpoints every 2 (keep 2)
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 2, 6, 2
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
@@ -1566,6 +1587,9 @@ def publish_under_training(torch, ops, dev, card):
         raise CheckFailed("the published engine does not serve the "
                           "published snapshot")
     eng.close()
+    # the timed wrappers reach the engine through its bound methods: left
+    # on it, they would keep it and its parameters in a reference cycle
+    del eng.publish_params, eng._build_slots, eng._promote
     del state, eng
     torch.cuda.empty_cache()
     return dict(losses=losses, publish_params_host_ms=pub_ms,
@@ -1716,16 +1740,21 @@ def check_row_valid_layout(torch, dev, K, M, C, counts, label):
 
 
 def _held_gb(torch):
-    """(GB held just before a measured run, GB the cyclic garbage
-    collector freed just before it): a state discarded by an earlier check
-    can sit in a reference cycle until the collector runs, and would count
-    in the run's peak."""
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    gc.collect()
+    """(GB held just before a measured run, read with no collection first;
+    GB the cyclic garbage collector then freed).  A state an earlier check
+    dropped must be freed at once, as in JAX: if the collector frees more
+    than ``GC_FREED_LIMIT_GB``, something kept a dropped state in a
+    reference cycle, and the phase fails."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    return held / 1e9, (before - held) / 1e9
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    if freed > GC_FREED_LIMIT_GB * 1e9:
+        raise CheckFailed(f"the garbage collector freed {freed / 1e9:.2f} GB "
+                          f"of device memory: a dropped state sat in a "
+                          f"reference cycle")
+    return held / 1e9, freed / 1e9
 
 
 def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
@@ -1807,8 +1836,8 @@ def fssdp_world_one(torch, ops, dev, card, slice2_median_ms):
               f"{med:.1f} ms (slice 2's world-size-1 path in this run: "
               f"{slice2_median_ms:.1f} ms); device memory peak "
               f"{peak_gb:.2f} GB, {held_gb:.2f} GB of it held before the "
-              f"loop (the garbage collector freed {freed_gb:.2f} GB "
-              f"just before it)")
+              f"loop, read before any collection (the garbage collector "
+              f"then freed {freed_gb:.2f} GB)")
         print(f"  launches over {FSSDP_STEPS} steps: {launches}")
         print(f"  collectives over {FSSDP_STEPS} steps: "
               + ", ".join(f"{k} {v['calls']}x" for k, v in
@@ -2071,8 +2100,9 @@ def overlap_world_one(torch, ops, dev, card):
                   f"{[round(x, 1) for x in step_ms]}, median "
                   f"{statistics.median(step_ms):.1f} ms; device memory peak "
                   f"{peak:.2f} GB ({held['gb']:.2f} GB held before the "
-                  f"loop, {held['freed']:.2f} GB freed by the garbage "
-                  f"collector just before it); launches {launches}")
+                  f"loop before any collection, {held['freed']:.2f} GB "
+                  f"then freed by the garbage collector); launches "
+                  f"{launches}")
             if not all(map(math.isfinite, losses)):
                 raise CheckFailed(f"{mode}: loss not finite: {losses}")
             if per_step != REMAT_LAW[mode] * m * L or fwd_gathers != L:
@@ -2189,6 +2219,296 @@ def overlap_world_one(torch, ops, dev, card):
 T_START = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: checkpoint, resume, rollback, restored serving
+# ---------------------------------------------------------------------------
+def _state_crcs(tree) -> dict:
+    """{checkpoint key: CRC32 of the leaf's bytes}, one leaf on the host at
+    a time, in ``checkpoint.store``'s naming."""
+    import zlib
+
+    from repro_torch.checkpoint import store
+    out = {}
+    for key, leaf in store._walk(tree):
+        a = store.to_numpy(leaf)
+        out[key] = zlib.crc32(a.reshape(-1).view("u1").data)
+    return out
+
+
+def checkpoint_world_one(torch, ops, dev, card):
+    """Phase 9: full-width gpt-moe-s cut to 2 layers, bf16 compute, f32
+    master weights from seed 0, batch 8 x 2,048, through phase 7's path
+    (NCCL at world size 1, ring plan, ``save`` mode) with one row-permuting
+    reshard at step 1, before the first checkpoint: (a) 6 steps without
+    checkpoints; (b) 4 steps checkpointing every 2 (keep 2), the state and
+    the scheduler dropped with the collector off (the memory must fall
+    back to its level before the run), every restored tensor against the
+    saved checksums, then auto-resume to step 6; (c) step 4's arrays
+    bit-flipped, the resume falls back to step 2 and runs to 6; (d) from
+    step 2, ``train.nan_grads`` for ``max_bad_steps`` steps: the
+    ``TrainAbortError`` carries step 2's state, bitwise, and the
+    rollback's peak stays below what was held plus one state; (e)
+    ``launch/serve.py``'s restore path serves the newest intact checkpoint
+    at its version, with the tokens of an engine built from the live
+    parameters of that step.  Every run is bitwise against (a): the
+    kernels sum in fixed order, so any difference is state not
+    restored."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.checkpoint import store
+    from repro_torch.common import faults
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.launch.serve import restore_for_serving
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import DONE, RequestScheduler
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.trainer import (HecateScheduler, TrainAbortError,
+                                           state_spec, train_loop)
+
+    grid = _nccl_world()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    save_s, real_save = [], trainer_mod.save_train_state
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_save(*a, **kw)
+        save_s.append(time.perf_counter() - t)
+    trainer_mod.save_train_state = timed_save
+    try:
+        cfg = configs.get("gpt-moe-s").replace(num_layers=CKPT_LAYERS)
+        rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+            use_pallas=True, grid=grid, impl="ring"))
+        spec = state_spec(cfg, 1, grid)
+        state_bytes = sum(t.numel() * t.element_size() for _, t in
+                          store._walk(trainer_mod._state_tree(spec)))
+        free = shutil.disk_usage(tmp).free
+        print(f"  gpt-moe-s at full width cut to {CKPT_LAYERS} layers: "
+              f"state (f32 parameters and both AdamW moments) "
+              f"{state_bytes / 1e9:.3f} GB; {free / 1e9:.1f} GB free "
+              f"where the checkpoints go")
+        if free < 3 * state_bytes:
+            raise CheckFailed(f"{free / 1e9:.1f} GB free: phase 9 needs 3 "
+                              f"checkpoints of {state_bytes / 1e9:.2f} GB")
+        tc0 = dataclasses.replace(
+            _train_setup(torch, dev, cfg)[1], total_steps=CKPT_STEPS,
+            max_bad_steps=3, keep_checkpoints=2)
+
+        def stream():
+            return make_stream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                               kind="bytes", seed=0)
+
+        def sched():
+            return HecateScheduler(cfg, ep=1, impl="ring", device=str(dev),
+                                   resharding=_PermuteRows(at=1))
+
+        def run(tc, n, **kw):
+            sc = sched()
+            ops.reset_launch_counts()
+            state, hist = train_loop(cfg, rt, tc, stream(), scheduler=sc,
+                                     num_steps=n, log_every=0, device=dev,
+                                     **kw)
+            torch.cuda.synchronize()
+            return state, hist, sc, ops.launch_counts()
+
+        def want_train(launches, steps, label):
+            n = CKPT_LAYERS * steps
+            fwd_runs = 2 if cfg.remat else 1    # remat re-runs the forward
+            want = {"grouped_mlp_fwd_train": fwd_runs * n,
+                    "grouped_mlp_dgrad": n,
+                    "grouped_mlp_wgrad": n, "grouped_mlp_fwd": 0,
+                    "flash_attention_fwd": 0, "paged_decode_attention": 0}
+            if launches != want:
+                raise CheckFailed(f"{label}: launches {launches}, expected "
+                                  f"{want}")
+
+        def same(label, hist, ref, first):
+            got = [h["loss"] for h in hist]
+            want = ref[first:first + len(got)]
+            if [h["step"] for h in hist] != list(range(first, CKPT_STEPS)) \
+                    or got != want:
+                raise CheckFailed(f"{label}: losses {got} of steps "
+                                  f"{[h['step'] for h in hist]}, the "
+                                  f"uninterrupted run's {want}")
+
+        # (a) uninterrupted
+        tc_a = dataclasses.replace(tc0, checkpoint_dir="")
+        state, hist, sc, launches = run(tc_a, CKPT_STEPS)
+        ref = [h["loss"] for h in hist]
+        want_train(launches, CKPT_STEPS, "(a)")
+        train_launches = launches
+        del state, sc
+        print(f"  (a) {CKPT_STEPS} steps, reshard at step 1: losses "
+              f"{ref}; launches {launches}")
+
+        # (b) 4 steps with checkpoints, drop, auto-resume to 6
+        tc_b = dataclasses.replace(tc0, checkpoint_dir=tmp,
+                                   checkpoint_every=CKPT_EVERY)
+        gc.disable()
+        try:
+            base = torch.cuda.memory_allocated()
+            state, hist_b, sc, launches = run(tc_b, 4)
+            held = torch.cuda.memory_allocated()
+            del state, sc
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+        finally:
+            gc.enable()
+        want_train(launches, 4, "(b) first part")
+        if after > base + GC_FREED_LIMIT_GB * 1e9:
+            raise CheckFailed(f"(b) the dropped state was not freed: "
+                              f"{after / 1e9:.3f} GB held after the drop, "
+                              f"{base / 1e9:.3f} GB before the run")
+        ckpt_bytes = os.path.getsize(os.path.join(
+            tmp, "step_00000004", "arrays.npz"))
+        print(f"  (b) 4 steps, checkpoints at steps {store.list_steps(tmp)}"
+              f" of {ckpt_bytes / 1e9:.3f} GB each; C15 with the collector "
+              f"off: {base / 1e9:.3f} GB before the run, {held / 1e9:.3f} "
+              f"GB with the state, {after / 1e9:.3f} GB after the drop")
+        saved = store.meta(tmp, 4)["checksums"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored, at = trainer_mod.resume_train_state(
+            cfg, tc_b, sched(), 1, device=dev, grid=grid)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        crcs = _state_crcs(trainer_mod._state_tree(restored))
+        del restored
+        if at != 4 or crcs != saved:
+            bad = sorted(k for k in saved if crcs.get(k) != saved[k])
+            raise CheckFailed(f"(b) restore of step {at}: {len(bad)} arrays "
+                              f"differ from the saved ones: {bad[:4]}")
+        print(f"  [{card}] save: {[round(x, 3) for x in save_s]} s per "
+              f"checkpoint, {ckpt_bytes / 1e9 / statistics.median(save_s):.2f}"
+              f" GB/s; restore of step 4: {restore_s:.3f} s, "
+              f"{ckpt_bytes / 1e9 / restore_s:.2f} GB/s; every restored "
+              f"array's CRC32 equals the saved one ({len(saved)} arrays)")
+        tc_r = dataclasses.replace(tc_b, checkpoint_every=0)
+        state, hist, sc, launches = run(tc_r, CKPT_STEPS)
+        same("(b) resumed", hist, ref, 4)
+        want_train(launches, 2, "(b) resumed")
+        if hist[0]["resumes"] != 1:
+            raise CheckFailed(f"(b) resumes {hist[0]['resumes']}")
+        del state, sc
+        print(f"  (b) auto-resume from step 4: steps 4-5 bitwise equal to "
+              f"(a)")
+
+        # (c) a bit flip in step 4's arrays: resume from 2
+        faults.bitflip_file(os.path.join(tmp, "step_00000004",
+                                         "arrays.npz"))
+        state, hist, sc, launches = run(tc_r, CKPT_STEPS)
+        same("(c)", hist, ref, 2)
+        del state, sc
+        print(f"  (c) step 4 bit-flipped: resume skipped it, steps 2-5 from "
+              f"step 2 bitwise equal to (a)")
+
+        # (d) rollback after max_bad_steps poisoned steps, from step 2
+        saved2 = store.meta(tmp, 2)["checksums"]
+        roll = {}
+
+        def before_abort(i, st, m):
+            # the third bad step's record: what is held just before the
+            # rollback, and the peak from here
+            if i == 2 + tc_r.max_bad_steps - 1:
+                torch.cuda.synchronize()
+                roll["held"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        sc_d = sched()
+        with faults.injected("train.nan_grads", mutate=faults.poison_grads,
+                             times=None):
+            try:
+                train_loop(cfg, rt, tc_r, stream(), scheduler=sc_d,
+                           num_steps=CKPT_STEPS, log_every=0, device=dev,
+                           callback=before_abort)
+                raise CheckFailed("(d) no TrainAbortError")
+            except TrainAbortError as e:
+                abort = e
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        held_after = torch.cuda.memory_allocated()
+        rolled = abort.state
+        last = abort.history[-1]
+        crcs = _state_crcs(trainer_mod._state_tree(rolled))
+        if crcs != saved2 or last["rollbacks"] != 1 or int(rolled.step) != 2:
+            raise CheckFailed(f"(d) rolled back to step {int(rolled.step)} "
+                              f"with rollbacks {last['rollbacks']}; arrays "
+                              f"equal to step 2's: {crcs == saved2}")
+        print(f"  [{card}] (d) {tc_r.max_bad_steps} poisoned steps from step "
+              f"2: TrainAbortError at global step {abort.step} carries step "
+              f"2's state bitwise, rollbacks 1; held {roll['held'] / 1e9:.3f}"
+              f" GB just before the rollback, {held_after / 1e9:.3f} GB "
+              f"after it, rollback peak {peak / 1e9:.3f} GB (limit held + "
+              f"one state {(roll['held'] + state_bytes) / 1e9:.3f} GB)")
+        if peak >= roll["held"] + state_bytes:
+            raise CheckFailed("(d) the rollback held two states at once")
+
+        # (e) restored serving against the live parameters of that step
+        live = rolled.params
+        live_pa = sc_d.plan_arrays()
+        del rolled, abort
+        params, pa, version, step = restore_for_serving(cfg, tmp, dev)
+        if step != 2 or version != 2 or pa is None:
+            raise CheckFailed(f"(e) restored step {step}, version "
+                              f"{version}")
+
+        def serve(p, plan, v):
+            eng = Engine(cfg, mdl.Runtime(), p, max_len=MAX_LEN, pa=plan,
+                         version=v)
+            rs = RequestScheduler(eng, max_slots=MAX_SLOTS,
+                                  num_pages=-(-MAX_LEN // PAGE_SIZE)
+                                  * MAX_SLOTS + 1, page_size=PAGE_SIZE,
+                                  max_kv=MAX_LEN, default_ttl_s=3600.0)
+            reqs = [rs.submit(q, max_new_tokens=NEW_TOKENS)
+                    for q in _prompts(cfg.vocab_size)]
+            rs.run(max_ticks=10 * NEW_TOKENS)
+            rs.close()
+            if any(r.state != DONE for r in reqs):
+                raise CheckFailed("(e) a request did not finish")
+            eng.close()
+            return eng.version, [list(r.generated) for r in reqs]
+        ops.reset_launch_counts()
+        v_got, toks = serve(params, pa, version)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        _, toks_live = serve(live, live_pa, 2)
+        if v_got != 2 or toks != toks_live:
+            raise CheckFailed(f"(e) engine at version {v_got}; tokens "
+                              f"{toks} against the live engine's "
+                              f"{toks_live}")
+        if min(launches[k] for k in SERVE_KERNELS) <= 0 or any(
+                launches[k] for k in TRAIN_KERNELS):
+            raise CheckFailed(f"(e) launches {launches}")
+        print(f"  (e) launch/serve.py restore: step {step}, engine at "
+              f"version {v_got}; 4 greedy requests of {NEW_TOKENS} tokens "
+              f"equal the live engine's; launches {launches}")
+        del params, pa, live, live_pa
+        return dict(losses=ref, state_gb=state_bytes / 1e9,
+                    checkpoint_gb=ckpt_bytes / 1e9, save_s=save_s,
+                    restore_s=restore_s,
+                    save_gb_per_s=ckpt_bytes / 1e9
+                    / statistics.median(save_s),
+                    restore_gb_per_s=ckpt_bytes / 1e9 / restore_s,
+                    c15=dict(before_gb=base / 1e9, with_state_gb=held / 1e9,
+                             after_drop_gb=after / 1e9),
+                    rollback=dict(held_gb=roll["held"] / 1e9,
+                                  after_gb=held_after / 1e9,
+                                  peak_gb=peak / 1e9),
+                    # (a)'s training kernels and (e)'s serving kernels
+                    launches={k: launches[k] or train_launches[k]
+                              for k in launches})
+    finally:
+        trainer_mod.save_train_state = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -2301,11 +2621,15 @@ def main() -> None:
         print("== 8. overlap and re-materialization on the process grid")
         overlap = overlap_world_one(torch, ops, dev, card_line)
         torch.cuda.empty_cache()
+        print(f"== 9. checkpoint, resume, rollback, restored serving "
+              f"(script wall so far {time.perf_counter() - T_START:.1f} s)")
+        ckpt = checkpoint_world_one(torch, ops, dev, card_line)
+        torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
     results.update(kernels=kern, serving=serve, training=train,
                    dense_generate=dense, publication=publication,
-                   fssdp=fssdp, overlap=overlap)
+                   fssdp=fssdp, overlap=overlap, checkpoint=ckpt)
 
     meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
                                 "src/repro/kernels/grouped_mlp.py:106"),
@@ -2331,6 +2655,7 @@ def main() -> None:
                       "launches_overlap": {
                           mode: r8["launches"][k]
                           for mode, r8 in overlap["modes"].items()},
+                      "launches_checkpoint": ckpt["launches"][k],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
@@ -2342,7 +2667,7 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print(f"== 9. kernels (script wall so far "
+    print(f"== 10. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(kern))}")
     print(json.dumps({"kernels": table}))

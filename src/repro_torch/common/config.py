@@ -267,8 +267,7 @@ class TrainConfig:
     # Consecutive skipped steps tolerated before train_loop aborts with
     # rollback to the last intact checkpoint (TrainAbortError).
     max_bad_steps: int = 3
-    # Crash-safe training: "" disables periodic checkpointing (not yet
-    # ported: the port's train_loop refuses a checkpoint_dir).
+    # Crash-safe training: "" disables periodic checkpointing.
     checkpoint_dir: str = ""
     checkpoint_every: int = 0           # steps between saves (0 = off)
     keep_checkpoints: int = 3           # keep-last retention

@@ -1,5 +1,6 @@
 """Deterministic fault injection: this package's own copy of the JAX
-package's registry (``repro/common/faults.py``), standard library only.
+package's registry (``repro/common/faults.py``), standard library and
+numpy only.
 
 Every failure mode the serving path defends against has a NAMED injection
 point in the production code.  Tests arm a site with :func:`inject`;
@@ -81,6 +82,57 @@ The sites of the plan-ahead worker (``train.trainer.HecateScheduler``):
     joining it.
     ``clear()`` releases the hang.
 
+The sites of checkpointing (``checkpoint.store``, ``train.trainer``):
+
+``checkpoint.save_crash``
+    Fired inside ``store.save`` after the arrays are written and before
+    the atomic rename.  Arm with ``exc=...``: the half-written checkpoint
+    is never visible under ``step_*`` (the tmp dir is removed, and an
+    orphan left by a hard kill is removed by ``store.gc``); resume falls
+    back to the previous intact step.  On a process grid rank 0 writes
+    and tells every rank whether the save landed, so every rank raises.
+
+``checkpoint.corrupt``
+    Fired by ``store.save`` with the final ``arrays.npz`` path after the
+    rename.  Arm with ``mutate=faults.truncate_file`` or
+    ``mutate=faults.bitflip_file``: ``store.restore`` checks each array's
+    CRC32 and raises ``CheckpointCorruptError``; ``latest_step(verify=
+    True)`` and ``train_loop``'s auto-resume fall back to the newest
+    intact checkpoint.
+
+``restore.mesh_mismatch``
+    Fired by ``resume_train_state`` at the head of the elastic restore
+    (a checkpoint saved under another EP size), payload ``(saved_ep,
+    current_ep)``.  Arm with ``exc=...``: the failed re-layout degrades to
+    a fresh start with a warning, never a crash.
+
+The sites of the elastic supervisor (``train.supervisor``), each turned
+into a typed ``DeviceLossError`` or a degradation by its probe:
+
+``mesh.device_lost``
+    Fired once per step per live device, payload the device's EP index.
+    Arm with ``only=<dev>``: the loss is declared, ``train_loop`` shrinks
+    to the surviving ep' and rolls back to the newest intact checkpoint;
+    while armed the device is down, and ``clear()`` lets it rejoin at the
+    next checkpoint boundary (grow-back).
+
+``host.heartbeat_miss``
+    Fired once per step per live device, payload the device index.  Arm
+    with ``mutate=faults.drop_heartbeat`` and ``only=<dev>``: a transient
+    miss degrades the supervisor; ``heartbeat_misses`` consecutive misses
+    declare the device lost.
+
+``collective.timeout``
+    Fired once per step, payload ``(step, dt_s)``.  Arm with ``exc=...``
+    for a wedged collective (the wall-clock watchdog takes the same path):
+    the slowest device by step-time EMA is declared lost.
+
+``mesh.slow_device``
+    Fired once per step with the per-device step-time vector.  Arm with
+    ``mutate=faults.slow_device(dev, factor)``: the EMA de-weights the
+    straggler after ``calibration_steps`` samples and the next reshard
+    gives it fewer expert slots.
+
 Usage::
 
     from repro_torch.common import faults
@@ -91,12 +143,21 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 from typing import Any, Callable, Dict, Optional
+
+import numpy as np
 
 
 class FaultError(RuntimeError):
     """Default exception raised by an armed ``exc``-less injection."""
+
+
+class CheckpointCorruptError(RuntimeError):
+    """An integrity check failed on restore (see ``checkpoint.store``).
+    It lives here so the store and its consumers share one import-light
+    home for failure types."""
 
 
 @dataclasses.dataclass
@@ -223,3 +284,42 @@ def poison_grads(batch: dict) -> dict:
     batch = dict(batch)
     batch[GRAD_SCALE_KEY] = float("nan")
     return batch
+
+
+def drop_heartbeat(device: Any) -> None:
+    """``host.heartbeat_miss`` mutator: swallow the beat; the supervisor
+    sees None and counts a consecutive miss for ``device``."""
+    return None
+
+
+def slow_device(device: int, factor: float = 4.0) -> Callable:
+    """``mesh.slow_device`` mutator factory: inflate one device's entry of
+    the per-device step-time vector by ``factor`` (a persistent straggler
+    when armed with ``times=None``)."""
+    def mut(times):
+        t = np.array(times, np.float64, copy=True)
+        t[device] *= factor
+        return t
+    return mut
+
+
+def truncate_file(path: str, keep_frac: float = 0.5) -> str:
+    """``checkpoint.corrupt`` mutator: a torn write, the file's tail
+    dropped."""
+    n = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(int(n * keep_frac), 1))
+    return path
+
+
+def bitflip_file(path: str, offset: Optional[int] = None) -> str:
+    """``checkpoint.corrupt`` mutator: flip one byte (mid-file by
+    default)."""
+    n = os.path.getsize(path)
+    off = (n // 2) if offset is None else min(offset, n - 1)
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return path

@@ -24,7 +24,7 @@ constant: importing this module touches no process group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+from typing import Any, List, Optional
 
 import torch.distributed as dist
 
@@ -92,3 +92,33 @@ def make_debug_mesh(data: int = 2, model: int = 4) -> ProcessGrid:
     ``launch.distributed.spawn``."""
     return make_grid(data, model)
 
+
+
+def surviving_grid(grid: ProcessGrid, model: int) -> Optional[ProcessGrid]:
+    """The (grid.data, model) grid over the first ``grid.data * model``
+    ranks of the world, the counterpart of the JAX package's
+    ``surviving_mesh``: the grid left after an EP rank is declared lost
+    (a simulated loss drops the tail, so the survivors are a prefix), and
+    the full grid again on grow-back.  Its ``world_group`` spans its own
+    ranks only.  Collective: every rank of the world calls it, in the same
+    order; a rank outside the new grid gets None (a spare)."""
+    data = grid.data
+    n = data * model
+    rank = dist.get_rank()
+    d_me, e_me = rank // model, rank % model
+    sub = dist.new_group(ranks=list(range(n)))
+    ep_group = fsdp_group = ep_ranks = None
+    for d in range(data):
+        ranks = [d * model + e for e in range(model)]
+        g = dist.new_group(ranks=ranks)
+        if rank < n and d == d_me:
+            ep_group, ep_ranks = g, ranks
+    for e in range(model):
+        ranks = [d * model + e for d in range(data)]
+        g = dist.new_group(ranks=ranks)
+        if rank < n and e == e_me:
+            fsdp_group = g
+    if rank >= n:
+        return None
+    return ProcessGrid(data, model, rank, ep_group, fsdp_group, sub,
+                       ep_ranks)

@@ -9,8 +9,11 @@ Prompts are byte-encoded (each byte a token); the fixed batch pads them
 with zeros to the longest.  ``--replicas N`` serves from N engines behind
 a ``PublicationBus``, which broadcasts the parameters once before serving.
 The device is ``cuda`` unless ``--device cpu`` is given; with the default
-device and no GPU the launcher fails.  Checkpoint restore
-(``--checkpoint-dir``) raises "not yet ported".
+device and no GPU the launcher fails.  ``--checkpoint-dir DIR`` serves
+the parameters of the newest intact checkpoint in DIR (the training
+loop's or the JAX package's) with the serving state saved beside that
+step: its plan tables, and its version, at which the engine starts
+(``restore_for_serving``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,43 @@ import argparse
 def _encode(prompt: str, vocab: int):
     import numpy as np
     return np.frombuffer(prompt.encode(), np.uint8).astype(np.int32) % vocab
+
+
+def restore_for_serving(cfg, checkpoint_dir: str, device, params=None):
+    """(params, plan tables or None, version, step) from the newest intact
+    checkpoint in ``checkpoint_dir``, as the JAX launcher restores them:
+    the parameters go straight onto ``device``; the serving state must be
+    the one of the same step (plan tables of another step describe
+    another row ownership), and one from an EP > 1 run keeps only its
+    version, since a single device decodes with a local plan.  With no
+    checkpoint: ``params`` as given, no tables, version 0, step None."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core import moe as moe_core
+    from repro_torch.train.trainer import state_spec
+
+    pa, version = None, 0
+    step = store.latest_step(checkpoint_dir, verify=True)
+    if step is not None:
+        target = {"params": state_spec(cfg, 1).params}
+        params = store.restore(checkpoint_dir, step, target, device=device,
+                               checked=True)["params"]
+        print(f"restored checkpoint step {step}")
+    if step is not None:
+        ss = store.restore_serving_state(checkpoint_dir, step=step)
+        if ss is None and store.latest_serving_step(checkpoint_dir) \
+                is not None:
+            print(f"serving state has no step {step} (params step); "
+                  f"ignoring serving state")
+        if ss is not None and int(ss["pa"].owner_dev.max()) > 0:
+            print("serving state is from an EP > 1 run; single-device "
+                  "decode rebuilds a local plan instead")
+            version, ss = ss["version"], None
+        if ss is not None:
+            pa = moe_core.tables_to_device(ss["pa"], device)
+            version = ss["version"]
+            print(f"restored serving state: step {ss['step']}, version "
+                  f"{version}")
+    return params, pa, version, step
 
 
 def serve_continuous(eng, prompts, *, steps: int, max_len: int,
@@ -58,9 +98,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.checkpoint_dir:
-        raise SystemExit("--checkpoint-dir is not yet ported to repro_torch")
-
     import numpy as np
     import torch
 
@@ -78,9 +115,13 @@ def main(argv=None):
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     rt = mdl.Runtime()
-    params = mdl.init_params(cfg, args.seed, device)
-    pa = None
-    if cfg.moe.enabled:
+    params, pa, version = None, None, 0
+    if args.checkpoint_dir:
+        params, pa, version, _ = restore_for_serving(
+            cfg, args.checkpoint_dir, device)
+    if params is None:
+        params = mdl.init_params(cfg, args.seed, device)
+    if cfg.moe.enabled and pa is None:
         # single-device plan: every expert local
         sh = homogeneous_sharding(moe_core.num_moe_layers(cfg),
                                   cfg.moe.num_experts, 1)
@@ -108,17 +149,19 @@ def main(argv=None):
         return out
 
     if args.replicas <= 1:
-        with Engine(cfg, rt, params, max_len=args.max_len, pa=pa) as eng:
+        with Engine(cfg, rt, params, max_len=args.max_len, pa=pa,
+                    version=version) as eng:
             out = serve(eng)
     else:
         from repro_torch.serve.bus import PublicationBus
         engines = [Engine(cfg, rt, params, max_len=args.max_len, pa=pa,
-                          name=f"replica-{i}")
+                          version=version, name=f"replica-{i}")
                    for i in range(args.replicas)]
         bus = PublicationBus([(e.name, e) for e in engines])
         try:
             # the fleet promotes one bus-published version before serving
-            bus.publish_params(params, version=1, pa=pa, wait=True)
+            bus.publish_params(params, version=version + 1, pa=pa,
+                               wait=True)
             fleet = bus.route()     # healthy replicas, least loaded first
             if not fleet:
                 raise SystemExit("no healthy replicas after broadcast")

@@ -23,8 +23,17 @@ one-layer-ahead SparseAllGather prefetch), ``--microbatch n`` builds
 every layer's slots once per step for the n microbatches, and the
 scheduler plans ahead, calibrates and re-shards every
 ``--resharding-interval`` steps (Algorithm 2, for the ``ring`` and
-``a2a`` plans).  Checkpointing and the elastic supervisor are not yet
-ported and are refused.
+``a2a`` plans).
+
+``--checkpoint-dir DIR --checkpoint-every N`` checkpoints the whole
+training state every N steps (atomic, checksummed, the newest
+``--keep-checkpoints`` kept, and a final save at the end) and resumes from
+the newest intact checkpoint in DIR unless ``--no-resume``; on a grid
+rank 0 writes global arrays.  ``--elastic`` (needs ``--checkpoint-dir``)
+attaches the elastic supervisor: a declared device loss shrinks the grid
+in-process to the surviving EP ranks (roll back and replay), a cleared
+fault grows it back at a checkpoint boundary, and stragglers are
+de-weighted at the next reshard.
 """
 from __future__ import annotations
 
@@ -59,12 +68,22 @@ def main(argv=None):
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--resharding-interval", type=int, default=100)
     ap.add_argument("--checkpoint-dir", default="")
-    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="crash-safe periodic checkpointing interval "
+                         "(atomic + checksummed; 0 = final save only)")
+    ap.add_argument("--keep-checkpoints", type=int, default=3,
+                    help="keep-last retention for store.gc")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="do not auto-resume from the newest intact "
+                         "checkpoint in --checkpoint-dir")
     ap.add_argument("--no-step-guard", action="store_true",
                     help="disable the non-finite loss/grad skip guard")
     ap.add_argument("--max-bad-steps", type=int, default=3,
-                    help="consecutive skipped steps before abort")
-    ap.add_argument("--elastic", action="store_true")
+                    help="consecutive skipped steps before abort with "
+                         "rollback to the last intact checkpoint")
+    ap.add_argument("--elastic", action="store_true",
+                    help="attach the elastic recovery supervisor "
+                         "(needs --checkpoint-dir)")
     ap.add_argument("--data", default="synthetic",
                     choices=["synthetic", "bytes"])
     ap.add_argument("--skew", type=float, default=0.0)
@@ -73,11 +92,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.checkpoint_dir or args.checkpoint_every:
-        raise SystemExit("--checkpoint-dir / --checkpoint-every are not yet "
-                         "ported to repro_torch")
-    if args.elastic:
-        raise SystemExit("--elastic is not yet ported to repro_torch")
+    if args.elastic and not args.checkpoint_dir:
+        ap.error("--elastic needs --checkpoint-dir (the shrink path rolls "
+                 "back to the newest intact checkpoint)")
 
     grid = (max(args.mesh_data, 1), args.mesh_model)
     if args.mesh_data or args.mesh_model > 1 or args.impl != "ep":
@@ -118,7 +135,9 @@ def _train(args, grid):
     from repro_torch.core.schedule import ReshardingPolicy
     from repro_torch.data.pipeline import make_stream
     from repro_torch.models import model as mdl
-    from repro_torch.train.trainer import HecateScheduler, train_loop
+    from repro_torch.train.supervisor import TrainSupervisor
+    from repro_torch.train.trainer import (HecateScheduler, save_train_state,
+                                           train_loop)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -127,13 +146,20 @@ def _train(args, grid):
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     impl = {"ep": "none"}.get(args.impl, args.impl)
-    rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
-        use_pallas=True, grid=grid, impl=impl))
+
+    def runtime(g):
+        return mdl.Runtime(use_pallas=False, moe=MoERuntime(
+            use_pallas=True, grid=g, impl=impl))
+    rt = runtime(grid)
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1), seed=args.seed,
                      microbatch=args.microbatch,
                      step_guard=not args.no_step_guard,
-                     max_bad_steps=args.max_bad_steps)
+                     max_bad_steps=args.max_bad_steps,
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     keep_checkpoints=args.keep_checkpoints,
+                     auto_resume=not args.no_resume)
     stream = make_stream(cfg.vocab_size, args.seq_len, args.global_batch,
                          kind=args.data, seed=args.seed, skew=args.skew)
     scheduler = None
@@ -142,10 +168,24 @@ def _train(args, grid):
             cfg, ep=grid.model if grid else 1, impl=args.impl,
             device=str(device),
             resharding=ReshardingPolicy(interval=args.resharding_interval))
+    supervisor = None
+    if args.elastic:
+        ep = grid.model if grid else 1
+        sup = TrainSupervisor(
+            ep=ep,
+            # without a grid there is nothing to shrink
+            runtime_factory=lambda e: runtime(sup.grid_for(e)) if grid
+            else rt)
+        supervisor = sup
     rank0 = grid is None or grid.rank == 0
     state, history = train_loop(cfg, rt, tc, stream, scheduler=scheduler,
                                 num_steps=args.steps, device=device,
-                                log_every=10 if rank0 else 0)
+                                log_every=10 if rank0 else 0,
+                                supervisor=supervisor)
+    if args.checkpoint_dir and state is not None:
+        save_train_state(tc, int(state.step), state, scheduler,
+                         supervisor.grid_for(supervisor.ep)
+                         if supervisor and grid else grid)
     if rank0:
         if args.log_json:
             with open(args.log_json, "w") as f:

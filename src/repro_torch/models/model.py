@@ -13,12 +13,15 @@ SparseAllGather (``_grid_blocks``, the port of ``_pipelined_blocks``).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
+import sys
+import threading
 from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import init_tree, stack_params, torch_dtype
@@ -26,6 +29,22 @@ from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import MoERuntime, PlanArrays
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
+
+
+def checkpoint(fn, *args, **kw):
+    """``torch.utils.checkpoint.checkpoint``, with ``torch._dynamo``
+    imported first on a thread of its own.  The checkpoint imports it at
+    its first call, and that import leaves a frame of ``torch.fx.wrap``
+    in a reference cycle that holds every frame on the importing stack:
+    the first checkpointed step of a process would keep its training
+    state (the frames' locals) alive until the cyclic garbage collector
+    runs.  A thread's stack holds nothing of the caller."""
+    if "torch._dynamo" not in sys.modules:
+        t = threading.Thread(target=importlib.import_module,
+                             args=("torch._dynamo",), name="import-dynamo")
+        t.start()
+        t.join()
+    return _checkpoint(fn, *args, **kw)
 
 
 @dataclasses.dataclass

@@ -1,10 +1,20 @@
-"""The robustness counters (``RobustnessCounters``) that the serving
-scheduler mirrors its overload outcomes into: this package's own copy of
-the counters of the JAX reference's ``train/metrics.py``."""
+"""Training metrics: the port of the JAX package's ``train/metrics.py``.
+The robustness counters (``RobustnessCounters``) of the training loop and
+the serving scheduler, the FSSDP load-balance observables that the
+paper's Figure 3 tracks (``expert_stats``: the entropy and imbalance of
+the expert counts; ``device_stats``: the straggler factor of the device
+loads), and ``MetricLogger``, a JSONL sink with a windowed mean of the
+loss."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import json
+import os
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -88,3 +98,72 @@ class RobustnessCounters:
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
+
+
+def expert_stats(counts: np.ndarray) -> Dict[str, float]:
+    """counts: (L, E) tokens per expert per layer."""
+    counts = np.asarray(counts, np.float64)
+    p = counts / np.maximum(counts.sum(axis=1, keepdims=True), 1e-9)
+    ent = -(p * np.log(np.maximum(p, 1e-12))).sum(1)
+    e = counts.shape[1]
+    return {
+        "expert_entropy_frac": float((ent / np.log(e)).mean()),
+        "expert_imbalance_max": float(
+            (counts.max(1) / np.maximum(counts.mean(1), 1e-9)).max()),
+    }
+
+
+def device_stats(loads: np.ndarray) -> Dict[str, float]:
+    """loads: (L, M) real tokens per EP device (``MoEAux.device_loads``)."""
+    loads = np.asarray(loads, np.float64)
+    return {
+        "device_straggler_factor": float(
+            (loads.max(1) / np.maximum(loads.mean(1), 1e-9)).max()),
+    }
+
+
+class MetricLogger:
+    """``log(step, metrics)`` -> one record: the step, the seconds since
+    the previous call, every scalar metric, ``expert_stats`` and
+    ``device_stats`` where the counts and loads are given, tokens per
+    second when ``tokens_per_step`` is set, and ``loss_avg``, the mean
+    loss over the last ``window`` records.  With a ``path`` each record is
+    appended to it as a JSON line.  ``train_loop(metric_logger=)`` merges
+    the record into the step's history record."""
+
+    def __init__(self, path: Optional[str] = None, window: int = 20,
+                 tokens_per_step: float = 0.0):
+        self.path = path
+        self._fh = None
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._fh = open(path, "a")
+        self.window = deque(maxlen=window)
+        self.tokens_per_step = tokens_per_step
+        self._t_last = time.perf_counter()
+
+    def log(self, step: int, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        now = time.perf_counter()
+        dt = now - self._t_last
+        self._t_last = now
+        rec: Dict[str, Any] = {"step": step, "time_s": dt}
+        for k, v in metrics.items():
+            a = np.asarray(v)
+            if a.ndim == 0:
+                rec[k] = float(a)
+        if "expert_counts" in metrics:
+            rec.update(expert_stats(np.asarray(metrics["expert_counts"])))
+        if "device_loads" in metrics:
+            rec.update(device_stats(np.asarray(metrics["device_loads"])))
+        if self.tokens_per_step:
+            rec["tokens_per_s"] = self.tokens_per_step / max(dt, 1e-9)
+        self.window.append(rec.get("loss", 0.0))
+        rec["loss_avg"] = float(np.mean(self.window))
+        if self._fh:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        return rec
+
+    def close(self):
+        if self._fh:
+            self._fh.close()

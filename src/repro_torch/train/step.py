@@ -31,7 +31,6 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig, TrainConfig
 from repro_torch.common.faults import GRAD_SCALE_KEY
@@ -40,6 +39,7 @@ from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import PlanArrays
 from repro_torch.models import layers as ly
 from repro_torch.models import model as mdl
+from repro_torch.models.model import checkpoint
 from repro_torch.optim import adamw
 
 

@@ -15,16 +15,33 @@ say it loses.  On a process grid every rank runs this loop on its rows of
 each global batch; the counts are summed over the world inside the step,
 so every rank plans the same
 (``launch.distributed.assert_scheduler_coherence`` checks it).
-Checkpointing and the elastic supervisor are not yet ported: asking for
-them raises.
+
+Recovery, as in the reference: periodic checkpoints of the whole training
+state with the scheduler's predictor history and ShardingPlan
+(``save_train_state``), resume from the newest intact one
+(``resume_train_state``, elastic across EP sizes), rollback after
+``tc.max_bad_steps`` bad steps, and an elastic supervisor
+(``train.supervisor``) whose probe de-weights stragglers and whose device
+losses shrink the run in-process and grow it back::
+
+    RUNNING --(heartbeat miss / straggler seen)--> DEGRADED
+    DEGRADED --(beats return, stragglers clear)--> RUNNING
+    RUNNING|DEGRADED --(loss declared)-----------> DeviceLossError
+        caught by train_loop: shrink to the surviving ep', roll back to
+        the newest intact checkpoint (elastic_row_remap), rebuild the
+        step, replay the rolled-back batches ----------------> SHRUNK
+    SHRUNK --(fault cleared; next checkpoint boundary: grow back to the
+              full ep through the inverse remap) -----------> RECOVERED
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
 import warnings
+from collections import deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as _FutTimeout
 from typing import Callable, Dict, Iterable, Optional
@@ -33,9 +50,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import store
 from repro_torch.common import faults
 from repro_torch.common.config import ModelConfig, TrainConfig
-from repro_torch.common.params import snapshot
+from repro_torch.common.params import snapshot, torch_dtype
+from repro_torch.common.sharding import elastic_row_remap, remap_buffer_rows
 from repro_torch.core import moe as moe_core
 from repro_torch.core.costs import (CostContext, calibration_gain,
                                     placement_latency)
@@ -46,16 +65,21 @@ from repro_torch.core.schedule import (LoadPredictor, ReshardingPolicy,
                                        sparse_materialization)
 from repro_torch.data.pipeline import microbatch_rows
 from repro_torch.launch.distributed import assert_scheduler_coherence
+from repro_torch.models import model as mdl
+from repro_torch.optim import adamw
 from repro_torch.train import metrics as metrics_lib
 from repro_torch.train import step as step_lib
+from repro_torch.train.supervisor import (DEGRADED, DeviceLossError,
+                                          TrainSupervisor)
 
 
 class TrainAbortError(RuntimeError):
     """Raised by ``train_loop`` when the consecutive-bad-step budget
-    (``tc.max_bad_steps``) is exhausted.  ``state`` carries the live
-    training state (no checkpoint to roll back to), ``history`` the
-    per-step records up to the abort, ``step`` the global step that
-    aborted."""
+    (``tc.max_bad_steps``) is exhausted, or on a device loss it cannot
+    recover from.  ``state`` carries the training state after the
+    rollback to the newest intact checkpoint (the live state when no
+    checkpointing was configured), ``history`` the per-step records up
+    to the abort, ``step`` the global step that aborted."""
 
     def __init__(self, msg: str, state=None, history=None, step: int = -1):
         super().__init__(msg)
@@ -148,8 +172,9 @@ class HecateScheduler:
     that ``plan()`` plans from.  On a process grid every rank therefore
     plans from the same loads whichever rank's planner failed.
     ``resharding``: a ``ReshardingPolicy`` (Algorithm 2) or None.
-    ``device_weights`` (per-device speed) stays None: the elastic
-    supervisor that sets it is not yet ported."""
+    ``device_weights``: per-device speed weights (None: all at full
+    speed), which ``train_loop`` takes from the elastic supervisor before
+    each reshard and which Algorithm 2 and the calibration stage read."""
 
     cfg: ModelConfig
     ep: int = 1
@@ -412,6 +437,354 @@ def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints: save, resume, elastic re-layout
+# ---------------------------------------------------------------------------
+def _world(grid):
+    """The group a grid's decisions are agreed over (None: no grid)."""
+    return None if grid is None or grid.size == 1 else grid.world_group
+
+
+def _from_rank0(obj, grid):
+    """``obj`` as rank 0 has it, on every rank of ``grid`` (a decision
+    made once)."""
+    group = _world(grid)
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def _everyone(obj, grid) -> list:
+    """Every rank's ``obj``, in rank order, on every rank of ``grid``."""
+    group = _world(grid)
+    if group is None:
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def _state_tree(state: step_lib.TrainState) -> Dict:
+    """The checkpointed tree: parameters, the whole optimizer state and
+    the step, everything a bit-exact resume needs."""
+    return {"params": state.params, "opt": state.opt, "step": state.step}
+
+
+def _sharding_tree(sh: ShardingPlan) -> Dict[str, np.ndarray]:
+    """The saved form of a ShardingPlan (``_sharding_from_tree``)."""
+    return {"owner_dev": np.asarray(sh.owner_dev, np.int32),
+            "owner_row": np.asarray(sh.owner_row, np.int32),
+            "num_devices": np.int64(sh.num_devices),
+            "rows_per_device": np.int64(sh.rows_per_device),
+            "k_local": np.int64(sh.k_local)}
+
+
+def _sharding_from_tree(shard: Dict[str, np.ndarray]) -> ShardingPlan:
+    od = np.asarray(shard["owner_dev"], np.int32)
+    plan = ShardingPlan(
+        num_layers=od.shape[0], num_experts=od.shape[1],
+        num_devices=int(shard["num_devices"]),
+        rows_per_device=int(shard["rows_per_device"]),
+        owner_dev=od, owner_row=np.asarray(shard["owner_row"], np.int32),
+        k_local=int(shard["k_local"]))
+    plan.validate()
+    return plan
+
+
+def _is_buffer(key: str) -> bool:
+    return key.rsplit("/", 1)[-1] == "moe_buffer"
+
+
+def _global_arrays(tree, grid):
+    """(key, host array) of every leaf of ``tree``, one at a time, in the
+    checkpoint's order.  On a process grid each chunk-buffer leaf (the
+    parameters' and both moments') is assembled from every rank's (rows /
+    model, cols / data) shard into the global array, in the live
+    ShardingPlan's row order, on rank 0 (other ranks get None): one
+    ``gather`` over the grid per leaf, so every rank must drain this
+    generator."""
+    for key, leaf in store._walk(tree):
+        if grid is None or grid.size == 1 or not _is_buffer(key):
+            yield key, (store.to_numpy(leaf) if grid is None or
+                        grid.rank == 0 else None)
+            continue
+        t = leaf.detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(grid.size)] \
+            if grid.rank == 0 else None
+        dist.gather(t, parts, dst=0, group=grid.world_group)
+        if grid.rank != 0:
+            yield key, None
+            continue
+        rl, cl = t.shape
+        out = np.empty((rl * grid.model, cl * grid.data),
+                       store.to_numpy(t[:0]).dtype)
+        for r, piece in enumerate(parts):
+            d, e = r // grid.model, r % grid.model
+            out[e * rl:(e + 1) * rl, d * cl:(d + 1) * cl] = \
+                store.to_numpy(piece)
+            parts[r] = None
+        yield key, out
+
+
+def save_train_state(tc: TrainConfig, gstep: int,
+                     state: step_lib.TrainState,
+                     scheduler: Optional[HecateScheduler] = None,
+                     grid=None) -> None:
+    """One crash-safe checkpoint: the train state (atomic, checksummed),
+    and when a scheduler is live and has planned, its plan tables, its
+    predictor history and its ShardingPlan as the serving state, then
+    keep-last retention of both.  The ShardingPlan is needed, not
+    advisory: ``apply_reshard`` moved the buffer rows, and only this
+    record says where (``resume_train_state``).
+
+    On a process grid the checkpoint holds global arrays, as the
+    reference's does: rank 0 assembles and writes them, and then tells
+    every rank whether the save landed, so a failed save raises on every
+    rank and no rank goes on to read a step directory before its
+    rename."""
+    err = None
+    items = _global_arrays(_state_tree(state), grid)
+    if grid is None or grid.rank == 0:
+        try:
+            store.save(tc.checkpoint_dir, gstep, None, arrays=items)
+            if scheduler is not None and scheduler._last_plan is not None:
+                calib = ({"load_history": np.stack(
+                    scheduler.predictor.history)}
+                    if scheduler.predictor.history else None)
+                store.save_serving_state(
+                    tc.checkpoint_dir, gstep,
+                    moe_core.plan_tables(scheduler._last_plan),
+                    version=gstep, calibration=calib,
+                    sharding=_sharding_tree(scheduler.sharding))
+            if tc.keep_checkpoints > 0:
+                store.gc(tc.checkpoint_dir, keep_last=tc.keep_checkpoints)
+                store.gc(os.path.join(tc.checkpoint_dir, "serving"),
+                         keep_last=tc.keep_checkpoints)
+        except BaseException as e:      # told to the other ranks below
+            err = e
+    for _ in items:                     # the gathers a failed write left
+        pass
+    failed = _from_rank0(err is not None, grid)
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"checkpoint step {gstep}: the save on rank 0 "
+                           f"failed")
+
+
+def state_spec(cfg: ModelConfig, ep: int, grid=None) -> step_lib.TrainState:
+    """The train state's shapes and dtypes as ``meta`` tensors (no
+    memory): a restore target.  On a grid the chunk buffer's leaves are
+    this rank's shards."""
+    def spec(p, dtype=None):
+        return torch.empty(p.shape, device="meta",
+                           dtype=dtype or torch_dtype(p.dtype
+                                                      or cfg.param_dtype))
+
+    def tree(decl, dtype=None):
+        return {k: tree(v, dtype) for k, v in decl.items()} \
+            if isinstance(decl, dict) else spec(decl, dtype)
+    decls = mdl.param_decls(cfg, ep)
+    params, mu, nu = (tree(decls), tree(decls, torch.float32),
+                      tree(decls, torch.float32))
+    if grid is not None and "moe_buffer" in params:
+        for t in (params, mu, nu):
+            b = t["moe_buffer"]
+            t["moe_buffer"] = b.new_empty((b.shape[0] // grid.model,
+                                           b.shape[1] // grid.data))
+    scalar = torch.empty((), device="meta", dtype=torch.int32)
+    moments = (mu, nu)
+    return step_lib.TrainState(
+        params, adamw.OptState(moments[0], moments[1], scalar), scalar)
+
+
+def _shard_rows(grid):
+    """Host transform taking a global buffer array to this rank's shard."""
+    def take(a):
+        rl, cl = a.shape[0] // grid.model, a.shape[1] // grid.data
+        return a[grid.e * rl:(grid.e + 1) * rl,
+                 grid.d * cl:(grid.d + 1) * cl]
+    return take
+
+
+def _elastic_remap(cfg: ModelConfig, old_plan: ShardingPlan, ep: int):
+    """The ``store.restore(remap=...)`` transform and the new
+    ShardingPlan for a checkpoint saved under another EP size: the saved
+    arrays are global host copies, so the re-layout is a numpy row gather
+    and the restore's device put is the reshard."""
+    new_plan = homogeneous_sharding(old_plan.num_layers,
+                                    old_plan.num_experts, ep)
+    rows = moe_core.buffer_rows(cfg, ep)
+    src, valid = elastic_row_remap(old_plan, new_plan, out_rows=rows)
+    remap = {"moe_buffer": lambda a: remap_buffer_rows(a, src, valid)}
+    return remap, new_plan
+
+
+def _pick_checkpoint(cfg, tc, ep, tried):
+    """Rank 0's half of a resume: the newest step not in ``tried``, its
+    serving state, and the elastic decision.  Returns ``(step, serving
+    state or None, old plan or None, failure)``; step None when nothing
+    is left.  The step's arrays are verified as they are restored."""
+    for cand in reversed(store.list_steps(tc.checkpoint_dir)):
+        if cand in tried:
+            continue
+        try:
+            ss = store.restore_serving_state(tc.checkpoint_dir, step=cand)
+        except store.CheckpointCorruptError:
+            ss = None                   # params intact, serving state torn
+        old_plan = None
+        shard = (ss or {}).get("sharding") or {}
+        if shard:
+            try:
+                old_plan = _sharding_from_tree(shard)
+            except Exception:
+                old_plan = None         # unreadable record: treat as none
+        failure = None
+        if old_plan is not None and old_plan.num_devices != ep:
+            try:
+                faults.fire("restore.mesh_mismatch",
+                            (old_plan.num_devices, ep))
+                _elastic_remap(cfg, old_plan, ep)
+            except Exception as e:
+                failure = repr(e)
+        return cand, ss, old_plan, failure
+    return None, None, None, None
+
+
+def resume_train_state(cfg: ModelConfig, tc: TrainConfig,
+                       scheduler: Optional[HecateScheduler] = None,
+                       ep: int = 1,
+                       counters: Optional[metrics_lib.RobustnessCounters]
+                       = None, *, device="cuda", grid=None):
+    """(TrainState, global step) from the newest restorable checkpoint in
+    ``tc.checkpoint_dir``, or (None, 0) when there is none.
+
+    The walk goes newest-first and skips (a) corrupt or truncated
+    checkpoints (the per-array checksums, checked as each array is
+    restored) and (b) intact ones that cannot restore into today's tree
+    (an older format), with a warning.  Each array goes straight onto
+    ``device`` in its dtype, one leaf at a time.
+
+    Elastic: when the candidate's saved ShardingPlan was made for another
+    EP size (read from the record, never from array shapes, which can
+    agree across EP sizes), the chunk buffer and both AdamW moments are
+    re-laid-out row by row onto this run's homogeneous sharding
+    (``common.sharding.elastic_row_remap``); ``counters.elastic_restores``
+    counts it, and a failed re-layout (fault site
+    ``restore.mesh_mismatch``) starts fresh with a warning.
+
+    The scheduler gets the predictor history and the ShardingPlan saved
+    beside the step (or the elastic re-layout's new plan).  With
+    resharding on and no sharding record saved, resume is refused (fresh
+    start, with a warning), since the rows may have been moved.
+
+    On a process grid rank 0 walks and broadcasts its choice; every rank
+    reads and checks the same file and takes its own rows and columns; a
+    step that fails on any rank is skipped on every rank."""
+    if not _from_rank0(os.path.isdir(tc.checkpoint_dir), grid):
+        return None, 0
+    target = _state_tree(state_spec(cfg, ep, grid))
+    tried = set()
+    while True:
+        pick = _pick_checkpoint(cfg, tc, ep, tried) \
+            if grid is None or grid.rank == 0 else None
+        cand, ss, old_plan, failure = _from_rank0(pick, grid)
+        if cand is None:
+            return None, 0
+        tried.add(cand)
+        if failure is not None:
+            warnings.warn(
+                f"resume: elastic restore of step {cand} (saved ep="
+                f"{old_plan.num_devices}, running ep={ep}) failed "
+                f"({failure}); starting fresh", RuntimeWarning)
+            return None, 0
+        remap, elastic_plan = {}, None
+        if old_plan is not None and old_plan.num_devices != ep:
+            remap, elastic_plan = _elastic_remap(cfg, old_plan, ep)
+        if grid is not None:
+            take, fn = _shard_rows(grid), remap.get("moe_buffer")
+            remap = {"moe_buffer": (lambda a: take(fn(a))) if fn else take}
+        data = err = None
+        try:
+            data = store.restore(tc.checkpoint_dir, cand, target,
+                                 remap=remap, device=device)
+        except store.CheckpointCorruptError as e:
+            err = e
+        errs = _everyone(None if err is None else (
+            isinstance(err, store.CheckpointShapeError), str(err)), grid)
+        if any(errs):
+            del data
+            shape_err = next(e for e in errs if e)
+            if shape_err[0]:
+                warnings.warn(
+                    f"resume: checkpoint step {cand} is intact but not "
+                    f"restorable into the current train state "
+                    f"({shape_err[1]}); trying an older one", RuntimeWarning)
+            continue                    # torn / bit-rotted: skip
+        break
+    state = step_lib.TrainState(data["params"], data["opt"], data["step"])
+    if elastic_plan is not None:
+        warnings.warn(
+            f"resume: checkpoint step {cand} was saved on ep="
+            f"{int(old_plan.num_devices)}; chunk buffer and AdamW moments "
+            f"re-laid-out onto ep={ep}", RuntimeWarning)
+        if counters is not None:
+            counters.elastic_restores += 1
+    if scheduler is not None:
+        shard = (ss or {}).get("sharding") or {}
+        if elastic_plan is not None or shard:
+            scheduler._drop_pending()   # planned against the old sharding
+            scheduler.sharding = (elastic_plan if elastic_plan is not None
+                                  else _sharding_from_tree(shard))
+            scheduler._calibrated = None
+            scheduler._last_plan = None
+            scheduler._prefetched_tables = None
+        elif (scheduler.resharding is not None
+              and scheduler.impl not in ("ep", "dense")):
+            warnings.warn(
+                f"resume: checkpoint step {cand} carries no sharding plan "
+                f"but resharding is enabled: its buffer rows may have been "
+                f"moved by a reshard this process cannot reconstruct; "
+                f"refusing to resume (fresh init)", RuntimeWarning)
+            return None, 0
+        hist = (ss or {}).get("calibration", {}).get("load_history")
+        if hist is not None:
+            scheduler.predictor.history = [np.asarray(h) for h in hist]
+    return state, int(state.step)
+
+
+def _probe(supervisor: TrainSupervisor, i: int, dt: float, step_ok,
+           grid):
+    """Run the supervisor's probe for step ``i``.  On a process grid every
+    rank sees the same ``dt`` (the slowest rank's) and ``step_ok`` (all
+    ranks that stepped), and the ranks' verdicts are merged, so every
+    rank's supervisor walks the same states and raises the same
+    ``DeviceLossError``.  Returns the agreed ``step_ok``."""
+    if _world(grid) is not None:
+        got = _everyone((dt, step_ok), grid)
+        dt = max(g[0] for g in got)
+        oks = [g[1] for g in got if g[1] is not None]
+        step_ok = all(oks) if oks else True
+    lost, site = (), None
+    try:
+        supervisor.probe(i, dt)
+    except DeviceLossError as e:
+        lost, site = e.lost, e.site
+    if _world(grid) is not None:
+        verdicts = _everyone((lost, site), grid)
+        lost = tuple(sorted({d for v in verdicts for d in v[0]}))
+        site = next((v[1] for v in verdicts if v[1] is not None), site)
+        if lost:
+            supervisor.lost |= set(lost)
+            supervisor._loss_site = site
+            supervisor.state = DEGRADED
+    if lost:
+        raise DeviceLossError(lost, site)
+    return step_ok
+
+
 def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                stream: Iterable[Dict[str, np.ndarray]],
                *, scheduler: Optional[HecateScheduler] = None,
@@ -422,62 +795,92 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                callback: Optional[Callable] = None,
                metric_logger=None,
                publish_engine=None, publish_every: int = 0,
-               supervisor=None, device="cuda"):
-    """Single-device training loop: plan -> step -> observe -> skip
-    policy -> history, as the JAX package's ``train_loop``.
+               supervisor: Optional[TrainSupervisor] = None,
+               device="cuda"):
+    """The Hecate training loop: plan -> step -> observe -> skip policy ->
+    checkpoint -> history, as the JAX package's ``train_loop``.
 
-    Batches from ``stream`` (numpy) move to ``device``; the state is made
-    from ``tc.seed`` unless given.  Each history record holds the step's
-    loss, xent, wall time (dispatch to metrics readback), ``step_ok``, the
-    robustness counters, and ``dropped_frac`` / ``pad_frac``.  A step the
-    guard skipped counts in ``skipped_steps``; ``tc.max_bad_steps``
-    consecutive skips abort with ``TrainAbortError``.
-
-    Training-while-serving: with ``publish_engine`` (a live
-    ``serve.engine.Engine``, or a ``serve.bus.PublicationBus`` with the
-    same surface) and ``publish_every = k``, every k-th step publishes the
-    updated parameters, versioned by the global step.  The optimizer
-    updates the tensors in place, so the loop publishes a snapshot made on
-    the step's stream right after the update and before the next step
-    issues.  Versions rise with the step (nothing here rolls the state
-    back).  A failing engine never stops
-    training: the failure counts in ``publish_drops`` (with the engine's
-    or bus's own drops, and a bus's fleet counters read as deltas), and a
-    closed engine ends publication for the run.  At world size 1 nothing
-    reshards, so the plan is never published with the params.
-    Checkpointing (``tc.checkpoint_dir``), the elastic supervisor and
-    ``metric_logger`` are not yet ported and raise.
+    Batches from ``stream`` (numpy) move to ``device``; the state is
+    resumed or made from ``tc.seed`` unless given.  Each history record
+    holds the step's loss, xent, wall time (dispatch to metrics
+    readback), ``step_ok``, the robustness counters, ``dropped_frac`` /
+    ``pad_frac``, and with a ``metric_logger`` (``train.metrics.
+    MetricLogger``) its record.
 
     The scheduler's part of each iteration runs in the JAX package's
-    order: ``maybe_reshard`` and ``apply_reshard``, ``plan_arrays``, the
-    step, ``plan_ahead`` for the next step (right after the step is
-    issued, before the metrics readback), then ``observe``.  Each record
-    also holds ``plan_fallbacks`` (this run's planner fallbacks).
+    order: the supervisor's straggler weights, ``maybe_reshard`` and
+    ``apply_reshard``, ``plan_arrays``, the step, ``plan_ahead`` for the
+    next step (right after the step is issued, before the metrics
+    readback), then ``observe``.
+
+    Fault tolerance (knobs on ``tc``; counters in every record):
+
+    * **Skip policy** (``tc.step_guard``): a step with a non-finite loss
+      or gradient norm leaves the state bit-identical
+      (``skipped_steps``); after ``tc.max_bad_steps`` consecutive bad
+      steps the loop raises ``TrainAbortError``, first rolling the state
+      back to the newest intact checkpoint when checkpointing is on
+      (``rollbacks``).  The poisoned state and any pending plan-ahead job
+      are dropped before the restore, so a rollback holds one state.
+    * **Crash-safe resume**: with ``tc.checkpoint_dir`` and
+      ``tc.checkpoint_every`` the loop checkpoints the parameters, both
+      moments and the step (``save_train_state``), with keep-last
+      retention, and, started without a ``state`` and with
+      ``tc.auto_resume``, resumes from the newest intact checkpoint
+      (``resume_train_state``, ``resumes``): ``num_steps`` counts from the
+      run's start, so a run resumed at step k runs steps k..num_steps-1
+      and skips the k batches the first run consumed.
+    * **Publication** (``publish_engine``, an engine or a
+      ``PublicationBus``, every ``publish_every`` steps, world size 1):
+      a snapshot of the updated parameters, made on the step's stream,
+      versioned by the global step; versions stay monotone across
+      rollbacks.  A failing engine never stops training
+      (``publish_drops``, and a bus's fleet counters as deltas); a closed
+      engine ends publication for the run.
+    * **Elastic recovery** (``supervisor``, a ``train.supervisor.
+      TrainSupervisor``): its probe runs after every readback.  On
+      ``DeviceLossError`` the loop shrinks in-process to the surviving
+      ep' (a runtime from ``supervisor.runtime_factory``), rolls back
+      through ``resume_train_state``'s elastic restore, replays the
+      rolled-back batches from an in-memory buffer and trims the history
+      (``device_losses``, ``elastic_shrinks``); once the lost device
+      rejoins (its fault site cleared) it grows back to the full ep at
+      the next checkpoint boundary through the inverse remap
+      (``grow_backs``).  The straggler weights reach the scheduler before
+      each reshard (``stragglers_deweighted``).  A loss below ``min_ep``
+      or with no checkpoint to roll back to raises ``TrainAbortError``.
 
     On a process grid (``rt.grid``) every rank runs this loop: ``stream``
     yields the global batch and each rank takes its rows
-    (``data.pipeline.microbatch_rows``: under gradient accumulation its
-    share of each microbatch, so microbatch i is the JAX package's); the
-    state is made from the seed and sharded
-    (``models.model.shard_params``); the expert counts every rank
-    observes are checked equal across ranks.  Publication from a grid of
-    more than one rank is not yet ported and raises."""
+    (``data.pipeline.microbatch_rows``); the state is made from the seed
+    and sharded; the expert counts every rank observes are checked equal.
+    Checkpoints hold global arrays (rank 0 writes them), and each
+    decision (the step to resume, a save's success) is made once and
+    broadcast.  With a supervisor the grid's groups for every smaller EP
+    size are made up front (``TrainSupervisor.attach_grid``); after a
+    shrink the ranks outside the surviving grid stay in the loop as
+    spares (the same stream, probe and checkpoint boundaries, no step)
+    and rejoin at grow-back.  Publication from a grid of more than one
+    rank is not yet ported and raises."""
     grid = getattr(rt, "grid", None)
     if grid is not None and grid.size > 1 and publish_engine is not None:
         raise _not_ported("publication into a live engine from a process "
                           "grid")
-    if tc.checkpoint_dir or tc.checkpoint_every:
-        raise _not_ported("checkpointing (tc.checkpoint_dir)")
-    if supervisor is not None:
-        raise _not_ported("the elastic recovery supervisor")
-    if metric_logger is not None:
-        raise _not_ported("MetricLogger")
+    full_grid = grid
+    if supervisor is not None and grid is not None:
+        supervisor.attach_grid(grid)
     num_steps = num_steps or tc.total_steps
     counters = metrics_lib.RobustnessCounters()
+    ep0 = scheduler.ep if scheduler else 1
+    start = 0
+    if state is None and tc.checkpoint_dir and tc.auto_resume:
+        state, start = resume_train_state(cfg, tc, scheduler, ep0,
+                                          counters=counters, device=device,
+                                          grid=grid)
+        if state is not None:
+            counters.resumes += 1
     if state is None:
-        state = step_lib.init_state(cfg, tc.seed,
-                                    scheduler.ep if scheduler else 1,
-                                    device, grid)
+        state = step_lib.init_state(cfg, tc.seed, ep0, device, grid)
     if train_step_fn is None:
         train_step_fn = step_lib.build_train_step(cfg, rt, tc)
     # the engine's or bus's counters are read as deltas from here, so a
@@ -486,61 +889,102 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     fleet = ("replica_evictions", "replica_rejoins", "dedup_hits")
     fleet0 = {k: getattr(publish_engine, k, 0) or 0 for k in fleet}
     plan_fb0 = scheduler.plan_fallbacks if scheduler is not None else 0
+    sup_dw0 = supervisor.deweight_events if supervisor is not None else 0
     history = []
     it = iter(stream)
+    for _ in range(start):          # align the data with the first run
+        next(it)
+    # publications are versioned by the global step, monotone across
+    # resumed runs and rollbacks
     step_base = int(state.step)
     bad_streak = 0
     publish_warned = False
     loop_pub_failures = 0
     eng_drops = 0
+    last_pub_version = 0
+    # elastic recovery: the raw batches consumed since a little before the
+    # last checkpoint, replayed in order after a rollback
+    replay = deque(maxlen=max(2 * (tc.checkpoint_every or 1), 8)) \
+        if supervisor is not None else None
+    pending = deque()
     try:
-        for i in range(num_steps):
-            gstep = step_base + i + 1               # global step AFTER i
-            raw = next(it)
-            if grid is not None:
-                raw = {k: v[microbatch_rows(v.shape[0], grid.rank,
-                                            grid.size, tc.microbatch)]
-                       for k, v in raw.items()}
-            batch = {k: torch.as_tensor(v, device=device)
-                     for k, v in raw.items()}
-            # chaos site: tests arm this with faults.poison_grads to make
-            # THIS step's gradients NaN (see repro_torch.common.faults)
-            batch = faults.fire("train.nan_grads", batch)
-            pa = None
-            if scheduler is not None and cfg.moe.enabled:
-                perm = scheduler.maybe_reshard(i)
-                if perm is not None:
-                    state = apply_reshard(state, perm, grid)
-                pa = scheduler.plan_arrays()
-            t0 = time.perf_counter()
-            state, metrics = train_step_fn(state, batch, pa)
-            if (publish_engine is not None and publish_every
-                    and (i + 1) % publish_every == 0):
-                try:
-                    publish_engine.publish_params(snapshot(state.params),
-                                                  version=gstep)
-                except Exception as e:
-                    loop_pub_failures += 1
-                    if not publish_warned:
-                        publish_warned = True
-                        warnings.warn(
-                            f"train_loop: parameter publication failed "
-                            f"({e!r}); training continues unpublished",
-                            RuntimeWarning)
-                    if getattr(publish_engine, "_closed", False):
-                        publish_engine = None
-            if scheduler is not None and cfg.moe.enabled and i + 1 < num_steps:
-                scheduler.plan_ahead()              # plan i+1 while i runs
-            metrics = _to_host(metrics)             # blocks on the step
-            dt = time.perf_counter() - t0
-            if scheduler is not None and "expert_counts" in metrics:
-                counts = metrics["expert_counts"]
+        i = start
+        while i < num_steps:
+            gstep = step_base + (i - start) + 1     # global step after i
+            raw = pending.popleft() if pending else next(it)
+            if replay is not None:
+                replay.append((i, raw))
+            spare = full_grid is not None and grid is None
+            dt, step_ok, metrics = 0.0, None, None
+            if not spare:
                 if grid is not None:
-                    counts = assert_scheduler_coherence(counts,
-                                                        grid.world_group)
-                scheduler.observe(counts)
+                    raw = {k: v[microbatch_rows(v.shape[0], grid.rank,
+                                                grid.size, tc.microbatch)]
+                           for k, v in raw.items()}
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in raw.items()}
+                # chaos site: tests arm this with faults.poison_grads to
+                # make THIS step's gradients NaN (see common.faults)
+                batch = faults.fire("train.nan_grads", batch)
+                pa = None
+                if scheduler is not None and cfg.moe.enabled:
+                    if supervisor is not None:
+                        scheduler.device_weights = \
+                            supervisor.device_weights()
+                    perm = scheduler.maybe_reshard(i)
+                    if perm is not None:
+                        state = apply_reshard(state, perm, grid)
+                    pa = scheduler.plan_arrays()
+                t0 = time.perf_counter()
+                state, metrics = train_step_fn(state, batch, pa)
+                del batch
+                if (publish_engine is not None and publish_every
+                        and (i + 1) % publish_every == 0
+                        # replayed steps revisit old gsteps: never hand
+                        # the engine a version it has seen
+                        and gstep > last_pub_version):
+                    try:
+                        publish_engine.publish_params(
+                            snapshot(state.params), version=gstep)
+                        last_pub_version = gstep
+                    except Exception as e:
+                        loop_pub_failures += 1
+                        if not publish_warned:
+                            publish_warned = True
+                            warnings.warn(
+                                f"train_loop: parameter publication failed "
+                                f"({e!r}); training continues unpublished",
+                                RuntimeWarning)
+                        if getattr(publish_engine, "_closed", False):
+                            publish_engine = None
+                if (scheduler is not None and cfg.moe.enabled
+                        and i + 1 < num_steps):
+                    scheduler.plan_ahead()          # plan i+1 while i runs
+                metrics = _to_host(metrics)         # blocks on the step
+                dt = time.perf_counter() - t0
+                step_ok = float(metrics.get("step_ok", 1.0)) >= 0.5
+            if supervisor is not None:
+                try:
+                    step_ok = _probe(supervisor, i, dt, step_ok, full_grid)
+                except DeviceLossError as e:
+                    box, state = [state], None
+                    state, rt, grid, train_step_fn, i = _shrink(
+                        e, cfg, tc, supervisor, scheduler, counters, box,
+                        history, replay, pending, gstep, i, start,
+                        step_base, full_grid, device)
+                    bad_streak = 0
+                    continue
+            if spare:
+                rec = None
+            else:
+                if scheduler is not None and "expert_counts" in metrics:
+                    counts = metrics["expert_counts"]
+                    if grid is not None:
+                        counts = assert_scheduler_coherence(
+                            counts, grid.world_group)
+                    scheduler.observe(counts)
+                rec = _record(i, metrics, dt, step_ok, counters)
             # ---- step-health skip policy (rides the readback above) ----
-            step_ok = float(metrics.get("step_ok", 1.0)) >= 0.5
             if not step_ok:
                 counters.skipped_steps += 1
                 bad_streak += 1
@@ -548,6 +992,9 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                 bad_streak = 0
             if scheduler is not None:
                 counters.plan_fallbacks = scheduler.plan_fallbacks - plan_fb0
+            if supervisor is not None:
+                counters.stragglers_deweighted = (
+                    supervisor.deweight_events - sup_dw0)
             if publish_engine is not None:
                 eng_drops = (getattr(publish_engine, "publish_drops", 0)
                              or 0) - eng_drops0
@@ -555,28 +1002,197 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                     setattr(counters, k,
                             (getattr(publish_engine, k, 0) or 0) - fleet0[k])
             counters.publish_drops = loop_pub_failures + eng_drops
-            rec = {"step": i, "loss": float(metrics["loss"]),
-                   "xent": float(metrics["xent"]), "time_s": dt,
-                   "step_ok": float(step_ok), **counters.as_dict()}
-            if "dropped_frac" in metrics:
-                rec["dropped_frac"] = float(metrics["dropped_frac"])
-            if "pad_frac" in metrics:
-                rec["pad_frac"] = float(metrics["pad_frac"])
-            history.append(rec)
-            if callback:
-                callback(i, state, metrics)
+            if rec is not None:
+                rec.update(counters.as_dict())
+                if metric_logger is not None:
+                    rec.update(metric_logger.log(i, metrics))
+                history.append(rec)
+                if callback:
+                    callback(i, state, metrics)
             if bad_streak >= tc.max_bad_steps > 0:
-                raise TrainAbortError(
-                    f"aborting: {bad_streak} consecutive bad steps "
-                    f"(tc.max_bad_steps={tc.max_bad_steps}) at global "
-                    f"step {gstep}; no checkpoint to roll back to",
-                    state=state, history=history, step=gstep)
-            if log_every and i % log_every == 0:
+                # the loop lets go of the state, so a rollback can free it
+                # before it restores
+                box, state = [state], None
+                _rollback_or_abort(cfg, tc, scheduler, counters, box,
+                                   history, bad_streak, gstep, grid, spare,
+                                   device)
+            if (tc.checkpoint_dir and tc.checkpoint_every
+                    and step_ok and gstep % tc.checkpoint_every == 0):
+                _save(tc, gstep, state, scheduler, grid, full_grid)
+                if supervisor is not None and _from_rank0(
+                        supervisor.can_grow_back(), full_grid):
+                    state, rt, grid, train_step_fn = _grow_back(
+                        cfg, tc, supervisor, scheduler, counters, state, rt,
+                        grid, train_step_fn, gstep, full_grid, device)
+            if log_every and rec is not None and i % log_every == 0:
                 print(f"step {i:5d}  loss {rec['loss']:.4f}  "
                       f"xent {rec['xent']:.4f}  {dt*1e3:.0f} ms")
+            i += 1
     finally:
         if scheduler is not None:
             # the worker is made again at the next plan_ahead, so a
             # scheduler reused across calls keeps working
             scheduler.close()
     return state, history
+
+
+def _record(i, metrics, dt, step_ok, counters) -> dict:
+    rec = {"step": i, "loss": float(metrics["loss"]),
+           "xent": float(metrics["xent"]), "time_s": dt,
+           "step_ok": float(step_ok), **counters.as_dict()}
+    if "dropped_frac" in metrics:
+        rec["dropped_frac"] = float(metrics["dropped_frac"])
+    if "pad_frac" in metrics:
+        rec["pad_frac"] = float(metrics["pad_frac"])
+    return rec
+
+
+def _save(tc, gstep, state, scheduler, grid, full_grid) -> None:
+    """``save_train_state`` on the grid that trains; when spares sit
+    beside it (after a shrink) they learn from rank 0 whether it
+    landed."""
+    if full_grid is None or grid is full_grid:
+        save_train_state(tc, gstep, state, scheduler, grid)
+        return
+    err = None
+    if grid is not None:
+        try:
+            save_train_state(tc, gstep, state, scheduler, grid)
+        except BaseException as e:
+            err = e
+    failed = _from_rank0(err is not None, full_grid)
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"checkpoint step {gstep}: the save on rank 0 "
+                           f"failed")
+
+
+def _rollback_or_abort(cfg, tc, scheduler, counters, box, history,
+                       bad_streak, gstep, grid, spare, device):
+    """The bad-step budget ran out: roll back to the newest intact
+    checkpoint and raise ``TrainAbortError`` with the rolled-back state
+    (the live one, ``box``'s only item, when there is no checkpoint).
+    The poisoned state and any pending plan-ahead job are dropped before
+    the restore, so the rollback holds one state at a time."""
+    state = box.pop()
+    if tc.checkpoint_dir and not spare and _from_rank0(
+            bool(store.list_steps(tc.checkpoint_dir)), grid):
+        if scheduler is not None:
+            scheduler._drop_pending()
+        state = None
+        state, _ = resume_train_state(
+            cfg, tc, scheduler, scheduler.ep if scheduler else 1,
+            counters=counters, device=device, grid=grid)
+        if state is not None:
+            counters.rollbacks += 1
+            if history:
+                history[-1].update(counters.as_dict())
+    tail = ("state rolled back to last intact checkpoint"
+            if counters.rollbacks else "no checkpoint to roll back to")
+    raise TrainAbortError(
+        f"aborting: {bad_streak} consecutive bad steps "
+        f"(tc.max_bad_steps={tc.max_bad_steps}) at global step {gstep}; "
+        f"{tail}", state=state, history=history, step=gstep)
+
+
+def _shrink(e: DeviceLossError, cfg, tc, supervisor, scheduler, counters,
+            box, history, replay, pending, gstep, i, start, step_base,
+            full_grid, device):
+    """A device was declared lost: shrink in-process to the surviving
+    ep', roll back through ``resume_train_state``'s elastic restore (the
+    trajectory a kill-and-restart onto ep' would take), queue the
+    rolled-back batches for replay, trim the history and rebuild the
+    step.  Returns ``(state, runtime, grid, step fn, index to resume
+    at)``; a rank outside the surviving grid gets no state (a spare).
+    ``box`` holds the live state, dropped before the restore."""
+    state = box.pop()
+    counters.device_losses += len(e.lost)
+    new_ep = supervisor.ep - len(e.lost)
+    if new_ep < max(supervisor.min_ep, 1) or not tc.checkpoint_dir:
+        reason = (f"surviving ep={new_ep} would fall below min_ep="
+                  f"{supervisor.min_ep}" if tc.checkpoint_dir else
+                  "no checkpoint_dir to roll back from")
+        raise TrainAbortError(
+            f"unrecoverable device loss at global step {gstep} ({e}): "
+            f"{reason}", state=state, history=history, step=gstep)
+    warnings.warn(
+        f"train_loop: {e} at global step {gstep}; shrinking in-process to "
+        f"ep={new_ep} and rolling back to the newest intact checkpoint",
+        RuntimeWarning)
+    rt_new = supervisor.runtime_factory(new_ep)
+    grid = getattr(rt_new, "grid", None) if full_grid is not None else None
+    if scheduler is not None:
+        scheduler.ep = new_ep
+        scheduler._drop_pending()
+    state = rolled = None
+    rstep = -1
+    if full_grid is None or grid is not None:
+        rolled, rstep = resume_train_state(cfg, tc, scheduler, new_ep,
+                                           counters=counters, device=device,
+                                           grid=grid)
+        if rolled is None:
+            rstep = -1
+    rstep = _from_rank0(rstep, full_grid)
+    if rstep < 0:
+        raise TrainAbortError(
+            f"device loss at global step {gstep} ({e}) but no intact "
+            f"checkpoint to roll back to", state=None, history=history,
+            step=gstep)
+    i_resume = start + (rstep - step_base)
+    if replay and replay[0][0] > i_resume:
+        raise TrainAbortError(
+            f"device loss at global step {gstep} ({e}): the replay buffer "
+            f"no longer covers rollback target step {i_resume} (oldest "
+            f"kept: {replay[0][0]})", state=rolled, history=history,
+            step=gstep)
+    # re-queue the rolled-back batches (oldest first) ahead of any still
+    # pending from an earlier rollback, and prune the window to match
+    tail = [r for idx, r in replay if idx >= i_resume]
+    kept = [(idx, r) for idx, r in replay if idx < i_resume]
+    pending.extendleft(reversed(tail))
+    replay.clear()
+    replay.extend(kept)
+    history[:] = [h for h in history if h["step"] < i_resume]
+    step_fn = step_lib.build_train_step(cfg, rt_new, tc)
+    counters.elastic_shrinks += 1
+    supervisor.on_shrunk(new_ep, steps_lost=i - i_resume + 1)
+    return rolled, rt_new, grid, step_fn, i_resume
+
+
+def _grow_back(cfg, tc, supervisor, scheduler, counters, state, rt, grid,
+               step_fn, gstep, full_grid, device):
+    """The lost device rejoined: at this checkpoint boundary restore the
+    step just saved onto the full ep through the inverse elastic remap
+    (the row layout round-trips bit-exactly), so no data or history
+    rewinds.  A failed grow-back stays shrunk.  Returns ``(state,
+    runtime, grid, step fn)``."""
+    full_ep, shrunk_ep = supervisor.full_ep, supervisor.ep
+    try:
+        rt_new = supervisor.runtime_factory(full_ep)
+        if scheduler is not None:
+            scheduler.ep = full_ep
+            scheduler._drop_pending()
+        regrown, rstep = resume_train_state(cfg, tc, scheduler, full_ep,
+                                            counters=counters, device=device,
+                                            grid=full_grid)
+        if regrown is None or rstep != gstep:
+            raise RuntimeError(f"grow-back restore yielded step {rstep}, "
+                               f"expected {gstep}")
+    except Exception as ge:
+        if scheduler is not None:
+            scheduler.ep = shrunk_ep
+            if full_grid is None or grid is not None:
+                # a partial restore may have set the scheduler up for the
+                # full ep: restore it at the ep still running
+                resume_train_state(cfg, tc, scheduler, shrunk_ep,
+                                   device=device, grid=grid)
+        warnings.warn(f"train_loop: grow-back to ep={full_ep} failed "
+                      f"({ge!r}); staying on ep={shrunk_ep}", RuntimeWarning)
+        return state, rt, grid, step_fn
+    counters.grow_backs += 1
+    supervisor.on_grow_back()
+    warnings.warn(f"train_loop: grew back to ep={full_ep} at global step "
+                  f"{gstep}", RuntimeWarning)
+    return (regrown, rt_new, full_grid,
+            step_lib.build_train_step(cfg, rt_new, tc))

@@ -26,6 +26,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = list(_modules())
     assert "repro_torch.serve.scheduler" in mods and len(mods) >= 17
     assert "repro_torch.serve.bus" in mods
+    for m in ("repro_torch.checkpoint.store", "repro_torch.common.sharding",
+              "repro_torch.train.supervisor", "repro_torch.train.metrics"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -49,12 +52,14 @@ def test_no_port_source_imports_jax_or_repro():
 
 
 def test_distributed_modules_import_without_jax_or_repro():
-    """The modules of the distributed layer and the cost model, each
-    imported alone in a fresh interpreter, load no ``jax*`` and no
-    ``repro.*`` module."""
+    """The modules of the distributed layer, the cost model, the
+    checkpoint store and the elastic supervisor, each imported alone in a
+    fresh interpreter, load no ``jax*`` and no ``repro.*`` module."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     for mod in ("repro_torch.core.schedule", "repro_torch.launch.mesh",
-                "repro_torch.launch.distributed", "repro_torch.core.costs"):
+                "repro_torch.launch.distributed", "repro_torch.core.costs",
+                "repro_torch.checkpoint.store",
+                "repro_torch.train.supervisor"):
         assert (PORT / (mod.split(".", 1)[1].replace(".", "/") + ".py")
                 ).exists(), mod
         code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"

@@ -82,23 +82,27 @@ def test_launcher_serves_on_cpu():
     assert "continuous batching: " in r.stdout
 
 
-def test_launcher_refuses_unported_modes():
+def test_launcher_refuses_unported_modes(tmp_path):
     """Fixed-batch ``Engine.generate`` serving and ``--replicas 2`` behind a
-    publication bus run on the CPU; ``--checkpoint-dir`` is not yet ported
-    and refused."""
+    publication bus run on the CPU; ``--checkpoint-dir`` serves the newest
+    intact checkpoint that the training launcher wrote, at the version of
+    the serving state saved beside it."""
+    from repro_torch.launch import train as launch_train
+    ckpt = str(tmp_path / "ckpt")
+    launch_train.main(["--arch", "gpt-moe-s", "--smoke", "--device", "cpu",
+                       "--steps", "2", "--seq-len", "16", "--data", "bytes",
+                       "--checkpoint-dir", ckpt, "--checkpoint-every", "2"])
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     for extra, want in ((["--continuous", "--replicas", "2"],
                          "fleet: 2/2 healthy"),
                         ([], "fixed batch: "),
                         (["--replicas", "2"], "fleet: 2/2 healthy"),
-                        (["--checkpoint-dir", "ckpt"], None)):
+                        (["--checkpoint-dir", ckpt],
+                         "restored serving state: step 2, version 2")):
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
              "gpt-moe-s", "--smoke", "--device", "cpu", "--steps", "4",
              "--max-len", "32", *extra],
             env=env, capture_output=True, text=True, timeout=300)
-        if want is None:
-            assert r.returncode != 0 and "not yet ported" in r.stderr
-        else:
-            assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
-            assert want in r.stdout, r.stdout
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+        assert want in r.stdout, r.stdout

@@ -20,6 +20,7 @@ stages.  Tolerances, relative to each tensor's largest entry:
 * the 10-step trajectory: see ``test_train_loop_trajectory_matches_jax``.
 """
 import dataclasses
+import os
 
 import pytest
 
@@ -489,19 +490,21 @@ def test_launch_train_refuses_unported_flags(flags, monkeypatch):
     reaches the multi-rank launch: with ``--spawn`` it hands the grid and
     the flags to ``launch.distributed.spawn`` (recorded here, not run), and
     without a process group or ``--spawn`` it says how to start the ranks.
-    Checkpointing and the elastic supervisor are still refused."""
+    ``--checkpoint-dir`` rides along to the ranks; ``--elastic`` without
+    it is refused, since the shrink path rolls back to a checkpoint."""
     from repro_torch.launch import distributed
     calls = []
     monkeypatch.setattr(distributed, "spawn",
                         lambda fn, grid, device, **kw: calls.append(
                             (fn, grid, device, kw["args"][0])) or [[]])
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", *flags]
-    if flags[0] in ("--checkpoint-dir", "--elastic"):
-        with pytest.raises(SystemExit) as ei:
+    if flags[0] == "--elastic":
+        with pytest.raises(SystemExit):
             launch_train.main(argv + ["--spawn"])
-        assert "not yet ported" in str(ei.value)
         assert not calls
         return
+    if flags[0] == "--checkpoint-dir":
+        argv += ["--impl", "ring", "--elastic"]
     with pytest.raises(SystemExit) as ei:
         launch_train.main(argv)
     assert "--spawn" in str(ei.value) and "torch.distributed.run" in \
@@ -510,14 +513,19 @@ def test_launch_train_refuses_unported_flags(flags, monkeypatch):
     (fn, grid, device, args), = calls
     assert fn is launch_train._rank_main and device == "cpu"
     assert grid == ((2, 1) if flags[0] == "--mesh-data" else (1, 1))
-    assert args.impl == ("ring" if flags[0] == "--impl" else "ep")
+    assert args.impl == ("ep" if flags[0] == "--mesh-data" else "ring")
+    if flags[0] == "--checkpoint-dir":
+        assert args.checkpoint_dir == "x" and args.elastic
 
 
-def test_unported_training_features_raise(setup):
-    """Checkpointing, the supervisor and publication from a process grid
-    of more than one rank are not yet ported and raise; the Algorithm 1
-    scheduler is ported; publication into a live engine at world size 1
-    runs (every step publishes a version)."""
+def test_unported_training_features_raise(setup, tmp_path):
+    """Publication from a process grid of more than one rank is not yet
+    ported and raises; checkpointing, the elastic supervisor and a metric
+    logger run (one checkpoint written, the supervisor's counters in the
+    record); the Algorithm 1 scheduler is ported; publication into a live
+    engine at world size 1 runs (every step publishes a version)."""
+    from repro_torch.train.metrics import MetricLogger
+    from repro_torch.train.supervisor import TrainSupervisor
     cfg = setup["cfg"]
     sched = trainer.HecateScheduler(cfg, ep=4, impl="ring", device="cpu")
     assert sched.plan().impl == "ring"
@@ -530,11 +538,15 @@ def test_unported_training_features_raise(setup):
                            num_steps=1, device="cpu", publish_engine=object(),
                            publish_every=1)
     stream = pipeline.make_stream(cfg.vocab_size, 8, 2, seed=0)
-    for kw, tc in ((dict(), TrainConfig(checkpoint_dir="ckpt")),
-                   (dict(supervisor=object()), TrainConfig())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            trainer.train_loop(cfg, mdl.Runtime(**TRAIN_RT), tc, stream,
-                               num_steps=1, device="cpu", **kw)
+    rt = mdl.Runtime(**TRAIN_RT)
+    _, hist = trainer.train_loop(
+        cfg, rt, TrainConfig(checkpoint_dir=str(tmp_path), checkpoint_every=1),
+        stream, scheduler=trainer.HecateScheduler(cfg, device="cpu"),
+        num_steps=1, device="cpu", log_every=0,
+        supervisor=TrainSupervisor(ep=1, runtime_factory=lambda ep: rt),
+        metric_logger=MetricLogger())
+    assert sorted(os.listdir(tmp_path)) == ["serving", "step_00000001"]
+    assert hist[0]["device_losses"] == 0 and "loss_avg" in hist[0]
     params = _params(setup)
     state = st.TrainState(params, adamw.init(params),
                           torch.zeros((), dtype=torch.int32))

@@ -475,3 +475,272 @@ def _planner_fault_loop(grid, z, cfg, params, site):
             "losses": [h["loss"] for h in hist],
             "fallbacks": sched.plan_fallbacks,
             "hits": sched.plan_ahead_hits}
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on a process grid
+# ---------------------------------------------------------------------------
+class PermuteOnce:
+    """A resharding policy that permutes the buffer rows of every device
+    once, at step ``at`` (the port of the JAX package's
+    ``_ForcedPermuteReshard``): no expert changes owner, but the rows of
+    the parameters and both moments move, which a resume must follow."""
+
+    def __init__(self, at: int, seed: int = 0):
+        self.at, self.seed = at, seed
+
+    def maybe_reshard(self, step, current, predictor):
+        import dataclasses
+        if step != self.at:
+            return current, False
+        perm = np.random.default_rng(self.seed).permutation(
+            current.rows_per_device).astype(np.int32)
+        new = dataclasses.replace(current, owner_row=perm[current.owner_row])
+        new.validate()
+        return new, True
+
+
+def ckpt_cfg():
+    """The 2-layer model of the checkpoint and elastic cases."""
+    return overlap_cfg("save", num_layers=2)
+
+
+def ckpt_tokens(n: int = 8, rows: int = 8):
+    return np.random.default_rng(0).integers(0, 512, (n, rows, 9)) \
+        .astype(np.int32)
+
+
+def ckpt_rank(grid, workdir: str):
+    """Checkpoints on a grid in ``save`` mode, with one row-permuting
+    reshard at step 1: (a) 6 steps uninterrupted; (b) 4 steps saving
+    every 2, then an auto-resume to 6; (c) step 4's arrays bit-flipped by
+    rank 0, a resume from step 2 to 6; (d) ``checkpoint.save_crash``
+    armed on rank 0 only, in a fresh directory: what each rank raised and
+    what the directory holds after."""
+    import os
+
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.models import model as mdl
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    import torch.distributed as dist
+    cfg = ckpt_cfg()
+    rt = mdl.Runtime(use_pallas=False, moe=M.MoERuntime(
+        grid=grid, impl="ring", capacity=32))
+    toks = ckpt_tokens()
+
+    def run(n, **tc_kw):
+        tc = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=6,
+                         keep_checkpoints=2, **tc_kw)
+        sched = HecateScheduler(cfg, ep=grid.model, impl="ring", t=4,
+                                device="cpu", calibrate=False,
+                                resharding=PermuteOnce(at=1))
+        _, hist = train_loop(cfg, rt, tc,
+                             iter([{"tokens": t} for t in toks]),
+                             scheduler=sched, num_steps=n, log_every=0,
+                             device="cpu")
+        return [(h["step"], h["loss"], h["resumes"]) for h in hist]
+
+    ck = os.path.join(workdir, "ck")
+    out = {"a": run(6), "b1": run(4, checkpoint_dir=ck, checkpoint_every=2)}
+    out["b2"] = run(6, checkpoint_dir=ck)
+    dist.barrier()
+    if grid.rank == 0:
+        faults.bitflip_file(os.path.join(ck, "step_00000004", "arrays.npz"))
+    dist.barrier()
+    out["c"] = run(6, checkpoint_dir=ck)
+    crash = os.path.join(workdir, "crash")
+    if grid.rank == 0:
+        faults.inject("checkpoint.save_crash")
+    try:
+        run(4, checkpoint_dir=crash, checkpoint_every=2)
+        out["d_raised"] = None
+    except Exception as e:
+        out["d_raised"] = f"{type(e).__name__}: {e}"
+    finally:
+        faults.clear()
+    dist.barrier()
+    out["d_listing"] = sorted(os.listdir(crash))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elastic recovery on a process grid
+# ---------------------------------------------------------------------------
+def _elastic_rt(grid, capacity=64):
+    from repro_torch.models import model as mdl
+    return mdl.Runtime(use_pallas=False, moe=M.MoERuntime(
+        grid=grid, impl="ring", capacity=capacity))
+
+
+def _ring_pa(cfg, ep, m=1):
+    L, E = M.num_moe_layers(cfg), cfg.moe.num_experts
+    return M.plan_to_arrays(sparse_materialization(
+        homogeneous_sharding(L, E, ep), np.ones((L, E)), t=4, m=m,
+        impl="ring"), "cpu")
+
+
+def _steps(cfg, rt, tc, state, pa, batches, grid):
+    """The train step over ``batches`` (each rank its rows): losses, and
+    whether any token dropped."""
+    from repro_torch.data.pipeline import microbatch_rows
+    from repro_torch.train import step as st
+    fn = st.build_train_step(cfg, rt, tc)
+    losses, dropped = [], 0.0
+    for b in batches:
+        rows = microbatch_rows(b.shape[0], grid.rank, grid.size, 0)
+        state, m = fn(state, {"tokens": torch.from_numpy(b[rows])}, pa)
+        losses.append(float(m["loss"]))
+        dropped = max(dropped, float(m["dropped_frac"]))
+    return state, losses, dropped
+
+
+def elastic_rank(grid, workdir: str):
+    """On 4 ranks.  (1) The elastic restore of ``tests/test_serve_fleet.
+    py``: 8 steps on a (2, 2) grid; 4 steps, a checkpoint, and a resume
+    onto a (1, 4) grid (the buffer and both moments re-laid-out) that runs
+    steps 4..7.  (2) The in-process shrink of ``tests/
+    test_elastic_recovery.py`` on (1, 4): a kill-and-restart reference (4
+    steps on ep 4 with checkpoints, then an elastic resume on the first 3
+    ranks to step 8) and the same run with a supervisor, whose
+    ``mesh.device_lost`` of EP rank 3 at step 4 shrinks it in-process to
+    ep 3 (rank 3 a spare), and whose cleared fault grows it back at the
+    step-6 checkpoint."""
+    import os
+
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.launch.mesh import make_grid, surviving_grid
+    from repro_torch.train import step as st
+    from repro_torch.train.metrics import RobustnessCounters
+    from repro_torch.train.supervisor import TrainSupervisor
+    from repro_torch.train.trainer import (HecateScheduler,
+                                           resume_train_state,
+                                           save_train_state, train_loop)
+    import torch.distributed as dist
+    cfg = ckpt_cfg()
+    toks = ckpt_tokens(8, 12)
+    out = {}
+
+    # (1) checkpoint on (2, 2), resume on (1, 4)
+    g22 = make_grid(2, 2)
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, keep_checkpoints=0,
+                     checkpoint_dir=os.path.join(workdir, "ck22"), seed=0)
+    rt22, pa2 = _elastic_rt(g22), _ring_pa(cfg, 2)
+    _, out["restore_a"], drop_a = _steps(
+        cfg, rt22, tc, st.init_state(cfg, 0, 2, "cpu", g22), pa2, toks, g22)
+    state, _, _ = _steps(cfg, rt22, tc, st.init_state(cfg, 0, 2, "cpu", g22),
+                         pa2, toks[:4], g22)
+    sched2 = HecateScheduler(cfg, ep=2, impl="ring", device="cpu",
+                             async_plan=False, calibrate=False)
+    sched2.plan_arrays()                # the live plan: its sharding saved
+    save_train_state(tc, 4, st.TrainState(state.params, state.opt,
+                                          state.step * 0 + 4), sched2, g22)
+    del state
+    g14 = make_grid(1, 4)
+    sched4 = HecateScheduler(cfg, ep=4, impl="ring", device="cpu",
+                             async_plan=False, calibrate=False)
+    counters = RobustnessCounters()
+    state, at = resume_train_state(cfg, tc, sched4, 4, counters=counters,
+                                   device="cpu", grid=g14)
+    out["restore_at"] = at
+    out["restore_events"] = counters.elastic_restores
+    out["restore_ep"] = sched4.sharding.num_devices
+    _, out["restore_b"], drop_b = _steps(cfg, _elastic_rt(g14), tc, state,
+                                         _ring_pa(cfg, 4), toks[4:], g14)
+    out["restore_dropped"] = max(drop_a, drop_b)
+    del state
+
+    # (2) in-process shrink and grow-back on (1, 4)
+    def tc_for(d):
+        return TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                           total_steps=8, checkpoint_dir=os.path.join(
+                               workdir, d), checkpoint_every=2,
+                           keep_checkpoints=0, seed=0)
+
+    def sched(ep):
+        return HecateScheduler(cfg, ep=ep, impl="ring", device="cpu",
+                               async_plan=False, calibrate=False)
+
+    def batches():
+        return iter([{"tokens": t} for t in toks])
+    g13 = surviving_grid(g14, 3)        # collective: every rank
+    _, h1 = train_loop(cfg, _elastic_rt(g14), tc_for("ckA"), batches(),
+                       scheduler=sched(4), num_steps=4, log_every=0,
+                       device="cpu")
+    ref = {h["step"]: h["loss"] for h in h1}
+    if g13 is not None:                 # the restarted run on 3 ranks
+        _, h2 = train_loop(cfg, _elastic_rt(g13), tc_for("ckA"), batches(),
+                           scheduler=sched(3), num_steps=8, log_every=0,
+                           device="cpu")
+        ref.update({h["step"]: h["loss"] for h in h2})
+    dist.barrier()
+
+    class RejoinAfterShrink(TrainSupervisor):
+        """The lost device rejoins once the shrink is done."""
+
+        def on_shrunk(self, ep_new, steps_lost):
+            super().on_shrunk(ep_new, steps_lost)
+            faults.clear("mesh.device_lost")
+
+    sup = RejoinAfterShrink(ep=4, min_ep=1, runtime_factory=lambda ep:
+                            _elastic_rt(sup.grid_for(ep)))
+    faults.inject("mesh.device_lost", only=3, after=4, times=None)
+    try:
+        state, hist = train_loop(cfg, _elastic_rt(g14), tc_for("ckB"),
+                                 batches(), scheduler=sched(4), num_steps=8,
+                                 log_every=0, device="cpu", supervisor=sup)
+    finally:
+        faults.clear()
+    out.update(ref=ref, got={h["step"]: h["loss"] for h in hist},
+               dropped=[h.get("dropped_frac", 0.0) for h in hist],
+               last={k: hist[-1][k] for k in (
+                   "device_losses", "elastic_shrinks", "grow_backs",
+                   "elastic_restores")} if hist else None,
+               sup_state=sup.state, sup_ep=sup.ep,
+               recoveries=[{k: r[k] for k in ("ep_from", "ep_to",
+                                              "steps_lost", "site")}
+                           for r in sup.recoveries],
+               final_step=int(state.step),
+               buf_rows=int(state.params["moe_buffer"].shape[0]))
+    return out
+
+
+def straggler_rank(grid):
+    """On a (1, 3) grid: a persistently slow EP rank 0
+    (``mesh.slow_device``, armed on every rank) is de-weighted after the
+    supervisor's calibration, and the reshard at step 4 gives it fewer
+    expert slots than before and than its peers, as in ``tests/
+    test_elastic_recovery.py``."""
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core.schedule import ReshardingPolicy
+    from repro_torch.train.supervisor import TrainSupervisor
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    cfg = ckpt_cfg()
+    toks = ckpt_tokens(8, 12)
+    rt = _elastic_rt(grid)
+    sched = HecateScheduler(cfg, ep=3, impl="ring", device="cpu",
+                            async_plan=False, calibrate=False,
+                            resharding=ReshardingPolicy(interval=4, t=2))
+    sup = TrainSupervisor(ep=3, runtime_factory=lambda ep: rt,
+                          calibration_steps=3, straggler_ratio=1.5)
+    share0 = int((sched.sharding.owner_dev == 0).sum())
+    faults.inject("mesh.slow_device", mutate=faults.slow_device(0, 6.0),
+                  times=None)
+    try:
+        _, hist = train_loop(cfg, rt, TrainConfig(
+            learning_rate=1e-3, warmup_steps=2, total_steps=8, seed=0),
+            iter([{"tokens": t} for t in toks]), scheduler=sched,
+            num_steps=8, log_every=0, device="cpu", supervisor=sup)
+    finally:
+        faults.clear()
+    return {"weights": sup.device_weights(),
+            "deweighted": hist[-1]["stragglers_deweighted"],
+            "share0": share0,
+            "share1": int((sched.sharding.owner_dev == 0).sum()),
+            "peers1": [int((sched.sharding.owner_dev == d).sum())
+                       for d in (1, 2)],
+            "owner_dev": sched.sharding.owner_dev,
+            "dropped": max(h["dropped_frac"] for h in hist),
+            "losses": [h["loss"] for h in hist]}
