@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases 3,10]
 
 Run from the repository root (it imports ``src/repro_torch`` and nothing of
 JAX).  In order it:
@@ -28,7 +28,12 @@ JAX).  In order it:
    before each launch), with the grouped-MLP kernels' TFLOP/s and share
    of their bound: flash attention at each of the four prompt buckets,
    paged decode attention at the served tick and near 512 tokens, both
-   also checked bitwise equal over two identical calls;
+   also checked bitwise equal over two identical calls; then the same at
+   the shapes of phase 10's configurations: B1's inference form (decode
+   and 512-bucket prefill, GELU or GLU with SiLU, top-2 or top-8, D up to
+   2,048), B4 and B5 at their heads (16 of 96, 16 of 128, 24 of 64 over 8
+   KV heads) and B1-train, B2 and B3 at each training path's layout (bf16;
+   f32 on 8 slots of it);
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights from a seed) through the continuous-batching scheduler: four
    byte-encoded prompts of mixed lengths, 16 greedy tokens each; it counts
@@ -104,11 +109,30 @@ JAX).  In order it:
    ``launch/serve.py``'s restore serving 4 greedy requests at the
    checkpoint's version with the tokens of an engine built from the live
    parameters (B1, B4 and B5 launched, no training kernel);
-10. prints the kernel table as one JSON line, then
+10. runs the other MoE configurations at full width (``SLICE10``:
+   gpt-moe-l, bert-moe, bert-moe-deep, olmoe-1b-7b, granite-moe-3b-a800m),
+   one at a time, each freed before the next: serving at full depth (bf16,
+   f32 master weights from seed 0, phase 4's prompts with 8 greedy tokens
+   each: B1, B4 per bucket and B5 launched and no training kernel, two
+   identical prefills and ticks bitwise equal, one prefill and one tick
+   at full width cut to 1 layer in f32 against the plain versions, prefill
+   and tick ms, peak), then training at full width at the deepest cut one
+   card holds (gpt-moe-l and olmoe through phase 7's grid path at world
+   size 1 in their configured ``gather`` mode, bert-moe and granite
+   through phase 5's loop; two identical steps bitwise equal, 3 counted
+   steps: finite loss, B1-train, B2 and B3 launches per MoE layer, no B4,
+   step ms, tokens/s, peak; bert-moe also one ``causal=False`` step), and
+   one f32 step of gpt-moe-l at full width cut to 1 layer whose every
+   gradient must match the plain versions';
+11. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
+   shapes, then at each phase-10 configuration's), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
 a CUDA device, or without the repository around it, it fails.
+``--phases`` runs a subset of phases 3-10 after the build (phase 7 reads
+phase 5's step median where phase 5 ran); a subset prints no kernel table
+and no result line.
 """
 from __future__ import annotations
 
@@ -177,6 +201,19 @@ GC_FREED_LIMIT_GB = 0.05
 # cut to 2 layers, batch 8 x 2,048, 6 steps, checkpoints every 2 (keep 2)
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 2, 6, 2
 GRAD_TOL = 1e-3     # 2-layer f32 gradients, relative to each tensor's max
+# phase 10: the other MoE configurations at full width, one at a time:
+# (name, training path, layers trained, batch, seq).  "grid" is phase 7's
+# FSSDP layer at world size 1 over NCCL in the config's remat mode,
+# "loop" phase 5's train_loop path; the depth is the deepest cut whose
+# peak one card holds (PERF.md §4).  bert-moe-deep has bert-moe's widths:
+# it serves here, and trains in the CPU tests against the JAX package.
+SLICE10 = (("gpt-moe-l", "grid", 4, 8, 2048),
+           ("bert-moe", "loop", 10, 32, 512),
+           ("bert-moe-deep", None, 0, 0, 0),
+           ("olmoe-1b-7b", "grid", 6, 8, 2048),
+           ("granite-moe-3b-a800m", "loop", 28, 8, 2048))
+SLICE10_NEW = 8        # greedy tokens per served request
+SLICE10_STEPS = 3      # counted training steps
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
 # values at most: one ulp, 2^-7 of |dx|; as in tests/test_torch_kernels_gpu.py
@@ -186,9 +223,12 @@ SPLIT_DX_TOL = (1e-5, 2 ** -7)
 # 2 dh = g@woᵀ, 3 dx = (hi + lo)@wiᵀ, 4 h = act(x@wi) of the inference
 # form; the main path's are GATE = false, ACT = 0 gelu, VEC = true), the
 # zero-row pass, the inference form's tile list and wgrad's products
-# gm_wgrad_tc_kernel<VEC>
-TC_KERNELS = ("gm_tc_kernel", "gm_zero_invalid_rows", "gm_tile_list_kernel",
-              "gm_wgrad_tc_kernel")
+# gm_wgrad_tc_kernel<VEC>; and the f32 FMA kernels of the forward and
+# dgrad, whose one instantiation per (GATE, ACT) takes every D since the
+# split over D (tools/ptxas_compare.py holds them to another tree's)
+PTXAS_KERNELS = ("gm_tc_kernel", "gm_zero_invalid_rows",
+                 "gm_tile_list_kernel", "gm_wgrad_tc_kernel",
+                 "grouped_mlp_fwd_kernel", "grouped_mlp_dgrad_kernel")
 # the serving path's grouped-MLP kernels as the profiler names them: the
 # bf16 tile list and tensor-core products, and the f32 FMA kernel with its
 # plane sum
@@ -287,85 +327,97 @@ def ptxas_stats(log: str):
 # ---------------------------------------------------------------------------
 # phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
-def check_grouped_mlp(torch, ops, dev, flush):
-    import torch.nn.functional as F
-    K, D, Fd = 64, 768, 1536
-    g = torch.Generator(device=dev).manual_seed(1)
+def _gm_weights(torch, g, dev, K, D, Fd, glu, dt):
+    """(wi, wg, wo) of K slots, wg None without a gate."""
+    def rnd(shp):
+        return torch.randn(shp, generator=g, device=dev).mul_(0.05).to(dt)
+    return rnd((K, D, Fd)), rnd((K, D, Fd)) if glu else None, \
+        rnd((K, Fd, D))
+
+
+def check_grouped_mlp(torch, ops, dev, flush, K=64, D=768, Fd=1536,
+                      act="gelu", topk=2, ts=(4, 256, 512), seed=1):
+    """B1's inference form against its plain version at serving shapes
+    (K slots of T rows, group sizes with empty and full slots, then a
+    row_valid mask), both dtypes, and timed in bf16 at the decode tick's
+    shape (``MAX_SLOTS`` tokens, ``topk`` of them to a slot each) and at a
+    512-bucket prefill (512·``topk`` assignments over the slots)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    glu = act.endswith("_glu")
     errs = []
 
     def inputs(T, dt):
         x = torch.randn((K, T, D), generator=g, device=dev).mul_(0.3).to(dt)
-        wi = torch.randn((K, D, Fd), generator=g, device=dev).mul_(0.05) \
-            .to(dt)
-        wo = torch.randn((K, Fd, D), generator=g, device=dev).mul_(0.05) \
-            .to(dt)
-        return x, wi, wo
+        return (x, *_gm_weights(torch, g, dev, K, D, Fd, glu, dt))
 
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         atol, rtol = TOL[dname]
-        for T in (4, 256, 512):
-            x, wi, wo = inputs(T, dt)
+        for T in ts:
+            x, wi, wg, wo = inputs(T, dt)
             gs = torch.randint(0, T + 1, (K,), generator=g, device=dev,
                                dtype=torch.int32)
             gs[::5] = 0                           # zero groups
             gs[1] = T
-            got = ops.grouped_mlp(x, wi, None, wo, gs, act="gelu")
+            got = ops.grouped_mlp(x, wi, wg, wo, gs, act=act)
             with ops.reference_mode():
-                want = ops.grouped_mlp(x, wi, None, wo, gs, act="gelu")
+                want = ops.grouped_mlp(x, wi, wg, wo, gs, act=act)
             errs.append(compare(torch, f"grouped_mlp_fwd K={K} T={T} D={D} "
-                                f"F={Fd} {dname} group_sizes", got, want,
-                                atol, rtol))
+                                f"F={Fd} {act} {dname} group_sizes", got,
+                                want, atol, rtol))
         rv = torch.rand((K, T), generator=g, device=dev) < 0.3
         rv[3] = False
-        got = ops.grouped_mlp(x, wi, None, wo, None, rv, act="gelu")
+        got = ops.grouped_mlp(x, wi, wg, wo, None, rv, act=act)
         with ops.reference_mode():
-            want = ops.grouped_mlp(x, wi, None, wo, None, rv, act="gelu")
-        errs.append(compare(torch, f"grouped_mlp_fwd K={K} T={T} {dname} "
-                            f"row_valid", got, want, atol, rtol))
+            want = ops.grouped_mlp(x, wi, wg, wo, None, rv, act=act)
+        errs.append(compare(torch, f"grouped_mlp_fwd K={K} T={T} D={D} "
+                            f"{act} {dname} row_valid", got, want, atol,
+                            rtol))
 
-    # timing at the decode tick's shape: 4 tokens, top-2 -> 8 slots hold
-    # one token each (the other 56 slots are empty and skipped)
-    x, wi, wo = inputs(MAX_SLOTS, torch.bfloat16)
+    # timing at the decode tick's shape: MAX_SLOTS tokens, top-k -> as
+    # many slots hold one token each (the other slots are empty, skipped)
+    x, wi, wg, wo = inputs(MAX_SLOTS, torch.bfloat16)
     gs = torch.zeros(K, dtype=torch.int32, device=dev)
-    gs[torch.randperm(K, generator=g, device=dev)[:2 * MAX_SLOTS]] = 1
+    gs[torch.randperm(K, generator=g, device=dev)[:topk * MAX_SLOTS]] = 1
     # the bf16 wrapper reads nothing back to the host (the tick is host
     # bound): any synchronising call in it raises here
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        ops.grouped_mlp(x, wi, None, wo, gs, act="gelu")
+        ops.grouped_mlp(x, wi, wg, wo, gs, act=act)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     print("  grouped_mlp_fwd bfloat16 decode call under "
           "set_sync_debug_mode('error'): no host sync")
-    res = _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush)
-    # and at a prefill of the 300-token prompt (bucket 512): ~1024
-    # assignments spread over the 64 slots
-    xp, wip, wop = inputs(512, torch.bfloat16)
-    cnt = torch.bincount(torch.randint(0, K, (1024,), generator=g,
+    res = _time_grouped_mlp(torch, ops, x, wi, wg, wo, gs, act, flush)
+    # and at a prefill of the 300-token prompt (bucket 512): 512 · top-k
+    # assignments spread over the slots
+    xp, wip, wgp, wop = inputs(512, torch.bfloat16)
+    cnt = torch.bincount(torch.randint(0, K, (512 * topk,), generator=g,
                                        device=dev), minlength=K)
     gsp = cnt.clamp(max=512).to(torch.int32)
-    got = ops.grouped_mlp(xp, wip, None, wop, gsp, act="gelu")
+    got = ops.grouped_mlp(xp, wip, wgp, wop, gsp, act=act)
     with ops.reference_mode():
-        want = ops.grouped_mlp(xp, wip, None, wop, gsp, act="gelu")
+        want = ops.grouped_mlp(xp, wip, wgp, wop, gsp, act=act)
     errs.append(compare(torch, f"grouped_mlp_fwd K={K} T=512 D={D} F={Fd} "
-                        f"bfloat16 timed prefill inputs", got, want,
+                        f"{act} bfloat16 timed prefill inputs", got, want,
                         *TOL["bfloat16"]))
-    if not torch.equal(got, ops.grouped_mlp(xp, wip, None, wop, gsp,
-                                            act="gelu")):
+    if not torch.equal(got, ops.grouped_mlp(xp, wip, wgp, wop, gsp,
+                                            act=act)):
         raise CheckFailed("two identical grouped_mlp_fwd calls differ")
-    res["prefill"] = _time_grouped_mlp(torch, ops, F, xp, wip, wop, gsp,
-                                       flush)
+    res["prefill"] = _time_grouped_mlp(torch, ops, xp, wip, wgp, wop, gsp,
+                                       act, flush)
     res["max_abs_err"] = max(errs)
     return res
 
 
-def _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush):
+def _time_grouped_mlp(torch, ops, x, wi, wg, wo, gs, act, flush):
+    import torch.nn.functional as F
     K, T, D = x.shape
     Fd = wi.shape[-1]
     es = x.element_size()
-    run = lambda: ops.grouped_mlp(x, wi, None, wo, gs, act="gelu")  # noqa
+    nw = 2 if wg is None else 3                  # weight matrices a slot
+    run = lambda: ops.grouped_mlp(x, wi, wg, wo, gs, act=act)  # noqa
     ms = time_ms(torch, run, flush)
     with ops.reference_mode():
         plain = time_ms(torch, run, flush)
@@ -373,47 +425,63 @@ def _time_grouped_mlp(torch, ops, F, x, wi, wo, gs, flush):
 
     def library():           # per-group products: the library's way
         for k, n in groups:
-            h = F.gelu(x[k, :n] @ wi[k], approximate="tanh")
+            if wg is None:
+                h = F.gelu(x[k, :n] @ wi[k], approximate="tanh")
+            else:
+                h = F.silu(x[k, :n] @ wi[k]) * (x[k, :n] @ wg[k])
             h @ wo[k]
     lib = time_ms(torch, library, flush)
     rows = sum(n for _, n in groups)
     nbytes = (rows * D * es + K * T * D * es + K * T * 4
-              + len(groups) * 2 * D * Fd * es)
-    ops2 = 2 * rows * D * Fd * 2          # two products over the valid rows
+              + len(groups) * nw * D * Fd * es)
+    ops2 = 2 * rows * D * Fd * nw          # the products over valid rows
     b_ms, b_by = bound(nbytes, ops2, "bfloat16")
-    return dict(shape=f"K={K} T={T} D={D} F={Fd} bf16, {rows} valid rows "
-                f"in {len(groups)} slots", ms=ms, plain_ms=plain,
+    return dict(shape=f"K={K} T={T} D={D} F={Fd} {act} bf16, {rows} valid "
+                f"rows in {len(groups)} slots", ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                 tflops=ops2 / ms / 1e9, bound_share=b_ms / ms)
 
 
-def check_grouped_mlp_train(torch, ops, dev, flush):
-    """The three training stages at the main path's shapes: K=64 slots of
-    capacity T = batch × seq, 2T valid rows spread over the slots as the
-    dispatch lays them out (a prefix per slot), D=768, F=1,536, GELU.
-    Each kernel wrapper against its plain version on the same inputs, in
-    bf16 and f32 (each stage takes the kernel outputs of the stage before
-    it); timed in bf16.  The plain versions are compared a few slots at a
-    time, which gives the same values in a fraction of the memory."""
+def check_grouped_mlp_train(torch, ops, dev, flush, K=64,
+                            T=TRAIN_BATCH * TRAIN_SEQ, D=768, Fd=1536,
+                            act="gelu", rows=2 * TRAIN_BATCH * TRAIN_SEQ,
+                            experts=64, f32_slots=None, f32_rows=None,
+                            plain_slots=None, seed=4):
+    """The three training stages at a training path's shapes: K slots of
+    capacity T, ``rows`` valid (token, expert) assignments spread over the
+    first ``experts`` slots as the dispatch lays them out (a prefix per
+    slot, at most T), D, F, ``act``; by default gpt-moe-s's (64 slots of
+    16,384, 32,768 valid rows, D 768, F 1,536, GELU).  Each kernel wrapper
+    against its plain version on the same inputs, in bf16 and f32 (each
+    stage takes the kernel outputs of the stage before it); f32 on the
+    first ``f32_slots`` slots cut to ``f32_rows`` rows where given (the
+    wider configs' f32 tensors would not fit); timed in bf16.  The plain
+    versions are compared a few slots at a time, which gives the same
+    values in a fraction of the memory, and timed over ``plain_slots``
+    slots a call where given (all at once by default: at bert-moe's
+    shapes the plain dgrad's f32 temporaries over all 64 slots do not
+    fit beside its inputs)."""
     import torch.nn.functional as F
     from repro_torch.kernels import grouped_mlp as gm
     from repro_torch.kernels import ref
-    K, T, D, Fd = 64, TRAIN_BATCH * TRAIN_SEQ, 768, 1536
-    rows = 2 * T
-    g = torch.Generator(device=dev).manual_seed(4)
-    cnt = torch.bincount(torch.randint(0, K, (rows,), generator=g,
-                                       device=dev), minlength=K)
+    glu = act.endswith("_glu")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cnt = torch.zeros(K, dtype=torch.int64, device=dev)
+    cnt[:experts] = torch.bincount(torch.randint(
+        0, experts, (rows,), generator=g, device=dev), minlength=experts)
+    cnt.clamp_(max=T)
+    rows = int(cnt.sum())
     mask = (torch.arange(T, device=dev)[None, :] < cnt[:, None]) \
         .to(torch.int32)
-    valid = mask.bool()
     errs = {n: [] for n in TRAIN_KERNELS}
-    shape = f"K={K} T={T} D={D} F={Fd} gelu, {rows} valid rows"
+    shape = f"K={K} T={T} D={D} F={Fd} {act}, {rows} valid rows"
 
-    def inputs(dt):
+    def inputs(dt, k_=K, t_=T):
         def rnd(shp, sc):
             return torch.randn(shp, generator=g, device=dev).mul_(sc).to(dt)
-        return (rnd((K, T, D), 0.3), rnd((K, D, Fd), 0.05),
-                rnd((K, Fd, D), 0.05), rnd((K, T, D), 0.1))
+        return (rnd((k_, t_, D), 0.3),
+                *_gm_weights(torch, g, dev, k_, D, Fd, glu, dt),
+                rnd((k_, t_, D), 0.1))
 
     def held(name, labels, got, plain, residuals=(), tol=None):
         """Kernel outputs ``got`` against ``plain(slots)`` over slot
@@ -422,14 +490,14 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
         of each output."""
         atol, rtol = tol or TOL[dname]
         worst, bad = {}, set()
-        for k0 in range(0, K, 8):
+        for k0 in range(0, got[0].shape[0], 8):
             sl = slice(k0, k0 + 8)
             for a, b, what in zip(got, plain(sl), labels.split(",")):
                 if b is None:
                     continue
                 a = a[sl]
                 if what in residuals:
-                    a, b = a[valid[sl]], b[valid[sl]]
+                    a, b = a[vm[sl]], b[vm[sl]]
                 err = (a.float() - b.float()).abs()
                 if not bool(torch.isfinite(a).all()) or bool(
                         (err > atol + rtol * b.float().abs()).any()):
@@ -438,7 +506,7 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
                 worst[what] = max(worst.get(what, 0.0), mx)
         for what, mx in worst.items():
             ok = what not in bad
-            print(f"  {name} {what} {shape} {dname}: max|kernel - plain| = "
+            print(f"  {name} {what} {cut} {dname}: max|kernel - plain| = "
                   f"{mx:.3e} (atol {atol:g}, rtol {rtol:g}) "
                   f"{'ok' if ok else 'FAILED'}")
             if not ok:
@@ -446,40 +514,50 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
                                   f"plain version")
         return worst
 
+    def gsl(t, s):                          # a gate's slots, or None
+        return None if t is None else t[s]
+
     split_err = None
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
-        x, wi, wo, dy = inputs(dt)
-        fwd = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
+        ks, tr = (min(f32_slots, K), f32_rows) if dname == "float32" \
+            and f32_slots else (K, T)
+        m = mask[:ks, :tr].contiguous()
+        vm = m.bool()
+        cut = shape if (ks, tr) == (K, T) else \
+            f"{shape}, first {ks} slots cut to {tr} rows"
+        x, wi, wg, wo, dy = inputs(dt, ks, tr)
+        fwd = gm.grouped_mlp_fwd_train(x, wi, wg, wo, m, act=act)
         stages = [("grouped_mlp_fwd_train", held(
             "grouped_mlp_fwd_train", "y,h1,h2", fwd,
             lambda s: ref.grouped_mlp_fwd_train_ref(
-                x[s], wi[s], None, wo[s], mask[s], act="gelu"),
+                x[s], wi[s], None if wg is None else wg[s], wo[s], m[s],
+                act=act),
             residuals=("h1", "h2")))]
-        h1 = fwd[1]
+        h1, h2 = fwd[1], fwd[2]
         del fwd
-        dg = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
-                                  act="gelu")
+
+        dg = gm.grouped_mlp_dgrad(dy, m, h1, h2, wi, wg, wo, act=act)
         stages.append(("grouped_mlp_dgrad", held(
             "grouped_mlp_dgrad", "dx,dh1,dh2,h", dg,
             lambda s: ref.grouped_mlp_dgrad_ref(
-                dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
-                act="gelu"))))
+                dy[s], m[s], h1[s], gsl(h2, s), wi[s], gsl(wg, s), wo[s],
+                act=act))))
         if dname == "bfloat16":     # the tensor-core kernel's own rounding
             split_err = held(
                 "grouped_mlp_dgrad vs step-wise", "dx", dg[:1],
                 lambda s: ref.grouped_mlp_dgrad_split_ref(
-                    dy[s], mask[s], h1[s], None, wi[s], None, wo[s],
-                    act="gelu")[:1], tol=SPLIT_DX_TOL)["dx"]
-        dh1, h = dg[1], dg[3]
+                    dy[s], m[s], h1[s], gsl(h2, s), wi[s], gsl(wg, s), wo[s],
+                    act=act)[:1], tol=SPLIT_DX_TOL)["dx"]
+        dh1, dh2, h = dg[1], dg[2], dg[3]
         del dg
-        wg1 = gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h)
+        wg1 = gm.grouped_mlp_wgrad(x, dy, m, dh1, dh2, h)
         stages.append(("grouped_mlp_wgrad", held(
             "grouped_mlp_wgrad", "dwi,dwg,dwo", wg1,
-            lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s],
-                                                dh1[s], None, h[s]))))
+            lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], m[s], dh1[s],
+                                                gsl(dh2, s), h[s]))))
         if dname == "bfloat16":     # no atomics, no split: the same bits
-            wg2 = gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h)
+            wg2 = gm.grouped_mlp_wgrad(x, dy, m, dh1, dh2, h)
             if not all(a is None or torch.equal(a, b)
                        for a, b in zip(wg1, wg2)):
                 raise CheckFailed("two identical grouped_mlp_wgrad calls "
@@ -490,82 +568,108 @@ def check_grouped_mlp_train(torch, ops, dev, flush):
         del wg1
         for name, worst in stages:
             errs[name].extend(worst.values())
-        del x, wi, wo, dy, h1, dh1, h
+        del x, wi, wg, wo, dy, h1, h2, dh1, dh2, h
         torch.cuda.empty_cache()
     # time in bf16
-    x, wi, wo, dy = inputs(torch.bfloat16)
+    x, wi, wg, wo, dy = inputs(torch.bfloat16)
     # the main path builds the bf16 kernels' tile list once per forward
     # (GroupedMLPFunction) and hands it to B1-train, B2 and B3: the three
     # are timed with it given, and the list on its own (it reads its
     # length back to the host)
     tiles = gm.tile_list(mask)
     tile_ms = time_ms(torch, lambda: gm.tile_list(mask), flush)
-    _, h1, _ = gm.grouped_mlp_fwd_train(x, wi, None, wo, mask, act="gelu")
-    _, dh1, _, h = gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
-                                        act="gelu")
+    _, h1, h2 = gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask, act=act)
+    _, dh1, dh2, h = gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo,
+                                          act=act)
     groups = [(k, int(n)) for k, n in enumerate(cnt.tolist()) if n > 0]
     es = x.element_size()
-    wbytes = len(groups) * 2 * D * Fd * es
-    ops2 = 2 * 2 * rows * D * Fd            # two products of 2·rows·D·F
-    gelu_bwd = torch.ops.aten.gelu_backward
+    nw = 3 if glu else 2                   # weight matrices of a slot
+    wbytes = len(groups) * nw * D * Fd * es
+    ops2 = nw * 2 * rows * D * Fd          # nw products of 2·rows·D·F
+    act_bwd = (torch.ops.aten.silu_backward if glu else
+               lambda d, v: torch.ops.aten.gelu_backward(
+                   d, v, approximate="tanh"))
 
     def lib_fwd():
         for k, n in groups:
-            F.gelu(x[k, :n] @ wi[k], approximate="tanh") @ wo[k]
+            a = x[k, :n] @ wi[k]
+            hh = F.silu(a) * (x[k, :n] @ wg[k]) if glu else \
+                F.gelu(a, approximate="tanh")
+            hh @ wo[k]
 
     def lib_dgrad():
         for k, n in groups:
-            d1 = gelu_bwd((dy[k, :n] @ wo[k].t()).float(),
-                          h1[k, :n].float(), approximate="tanh")
-            F.gelu(h1[k, :n], approximate="tanh")
-            d1.to(x.dtype) @ wi[k].t()
+            dh = (dy[k, :n] @ wo[k].t()).float()
+            if glu:
+                a = F.silu(h1[k, :n].float())
+                d1 = act_bwd(dh * h2[k, :n].float(), h1[k, :n].float())
+                (d1.to(x.dtype) @ wi[k].t()
+                 + (dh * a).to(x.dtype) @ wg[k].t())
+            else:
+                d1 = act_bwd(dh, h1[k, :n].float())
+                F.gelu(h1[k, :n], approximate="tanh")
+                d1.to(x.dtype) @ wi[k].t()
 
     def lib_wgrad():
         for k, n in groups:
             x[k, :n].t() @ dh1[k, :n]
+            if glu:
+                x[k, :n].t() @ dh2[k, :n]
             h[k, :n].t() @ dy[k, :n]
 
+    nf = 2 if glu else 1                   # h1 [h2]; dh1 [dh2]
     cases = {
         "grouped_mlp_fwd_train": (
-            lambda: gm.grouped_mlp_fwd_train(x, wi, None, wo, mask,
-                                             act="gelu", tiles=tiles),
-            lambda: ref.grouped_mlp_fwd_train_ref(x, wi, None, wo, mask,
-                                                  act="gelu"),
+            lambda: gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask, act=act,
+                                             tiles=tiles),
+            lambda s: ref.grouped_mlp_fwd_train_ref(
+                x[s], wi[s], gsl(wg, s), wo[s], mask[s], act=act),
             lib_fwd,
             # x's valid rows, mask, the used slots' weights in; y written
-            # whole (the Pallas kernel writes all of it), h1 at valid rows
-            # (its only reader, dgrad, reads those)
-            rows * (D + Fd) * es + K * T * 4 + wbytes + K * T * D * es),
+            # whole (the Pallas kernel writes all of it), h1 [h2] at valid
+            # rows (their only reader, dgrad, reads those)
+            rows * (D + nf * Fd) * es + K * T * 4 + wbytes
+            + K * T * D * es),
         "grouped_mlp_dgrad": (
-            lambda: gm.grouped_mlp_dgrad(dy, mask, h1, None, wi, None, wo,
-                                         act="gelu", tiles=tiles),
-            lambda: ref.grouped_mlp_dgrad_ref(dy, mask, h1, None, wi, None,
-                                              wo, act="gelu"),
+            lambda: gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo,
+                                         act=act, tiles=tiles),
+            lambda s: ref.grouped_mlp_dgrad_ref(
+                dy[s], mask[s], h1[s], gsl(h2, s), wi[s], gsl(wg, s), wo[s],
+                act=act),
             lib_dgrad,
-            # dy's and h1's valid rows, mask, weights in; dx, dh1, h out
-            rows * (D + Fd) * es + K * T * 4 + wbytes
-            + K * T * (D + 2 * Fd) * es),
+            # dy's and h1's [h2's] valid rows, mask, weights in; dx, dh1,
+            # [dh2,] h out, whole
+            rows * (D + nf * Fd) * es + K * T * 4 + wbytes
+            + K * T * (D + (nf + 1) * Fd) * es),
         "grouped_mlp_wgrad": (
-            lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, None, h,
+            lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h,
                                          tiles=tiles),
-            lambda: ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, None, h),
+            lambda s: ref.grouped_mlp_wgrad_ref(x[s], dy[s], mask[s], dh1[s],
+                                                gsl(dh2, s), h[s]),
             lib_wgrad,
-            # x, dy, dh1, h valid rows and mask in; dwi and dwo written
-            rows * 2 * (D + Fd) * es + K * T * 4 + K * 2 * D * Fd * es),
+            # x, dy, dh1 [dh2], h valid rows and mask in; the weight
+            # gradients written
+            rows * (2 * D + (nf + 1) * Fd) * es + K * T * 4
+            + K * nw * D * Fd * es),
     }
     res = {}
+    step = plain_slots or K
     for name, (kern, plain, lib, nbytes) in cases.items():
         b_ms, b_by = bound(nbytes, ops2, "bfloat16")
         ms = time_ms(torch, kern, flush)
         res[name] = dict(
             shape=shape + " bf16", ms=ms,
-            plain_ms=time_ms(torch, plain, flush, reps=5, warmup=1),
+            plain_ms=time_ms(torch, lambda: [
+                plain(slice(k0, k0 + step)) for k0 in range(0, K, step)],
+                flush, reps=5, warmup=1),
             library_ms=time_ms(torch, lib, flush, reps=5, warmup=1),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs[name]),
-            # the function's two products over the valid rows
+            # the function's products over the valid rows
             tflops=ops2 / ms / 1e9, bound_share=b_ms / ms)
     res["grouped_mlp_dgrad"]["split_dx_err"] = split_err
     res["grouped_mlp_fwd_train"]["tile_list_ms"] = tile_ms
+    del x, wi, wg, wo, dy, h1, h2, dh1, dh2, h
+    torch.cuda.empty_cache()
     return res
 
 
@@ -736,6 +840,107 @@ def _time_paged(torch, flush, q, k, v, ri, pos, positions):
     return dict(shape=f"B={B} {nq}/{nkv} heads hd={hd} page {PAGE_SIZE} "
                 f"positions {positions} bf16", ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_attention_heads(torch, ops, dev, flush, N, H, nkv, seed):
+    """B4 and B5 at a configuration's heads: flash attention (N heads of
+    H after the K/V expansion) at each prompt bucket in bf16 against the
+    plain and the step-wise version, in f32 at 512 and 32, two calls
+    bitwise equal, timed at 512; paged decode (N query heads over nkv)
+    at the served tick's positions and with a parked slot, both dtypes,
+    timed at the tick."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errs = []
+
+    def qkv(S, dt):
+        return [torch.randn((1, S, N, H), generator=g, device=dev)
+                .mul_(0.5).to(dt) for _ in range(3)]
+
+    for dname, dt, buckets in (("bfloat16", torch.bfloat16, PROMPT_BUCKETS),
+                               ("float32", torch.float32, (32, 512))):
+        for S in buckets:
+            q, k, v = qkv(S, dt)
+            got = ops.flash_attention(q, k, v, causal=True)
+            label = f"flash_attention_fwd (1,{S},{N},{H}) causal {dname}"
+            errs.append(compare(torch, label, got, ref.flash_attention_ref(
+                q, k, v, causal=True), *TOL[dname]))
+            if dname == "bfloat16":
+                errs.append(compare(torch, f"{label} vs step-wise", got,
+                                    ref.flash_attention_tiled_ref(
+                                        q, k, v, causal=True), *TILED_TOL))
+                if not torch.equal(got, ops.flash_attention(q, k, v,
+                                                            causal=True)):
+                    raise CheckFailed("two identical flash_attention calls "
+                                      "gave different bits")
+    flash = dict(_time_flash(torch, flush, *qkv(max(PROMPT_BUCKETS),
+                                                torch.bfloat16)),
+                 max_abs_err=max(errs))
+    errs = []
+    positions = [n + SLICE10_NEW // 2 for n in PROMPT_LENS]
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for pos in (positions, positions[:3] + [-1]):
+            q, k, v, ri, p = _paged_inputs(torch, dev, g, pos, nkv,
+                                           N // nkv, dt, hd=H)
+            kw = dict(page_size=PAGE_SIZE)
+            got = ops.paged_decode_attention(q, k, v, ri, p, **kw)
+            with ops.reference_mode():
+                want = ops.paged_decode_attention(q, k, v, ri, p, **kw)
+            errs.append(compare(torch, f"paged_decode_attention B=4 {N}/{nkv}"
+                                f" heads hd={H} positions {pos} {dname}",
+                                got, want, *PAGED_TOL[dname]))
+    paged = dict(_time_paged(torch, flush, *_paged_inputs(
+        torch, dev, g, positions, nkv, N // nkv, torch.bfloat16, hd=H),
+        positions), max_abs_err=max(errs))
+    return {"flash_attention_fwd": flash, "paged_decode_attention": paged}
+
+
+def _train_layout(cfg, path, batch, seq):
+    """(K, T, experts) of the grouped FFN on a phase-10 training path:
+    the grid's ring plan at ep = 1 (the experts' slots and m extra ones,
+    each of ``auto_capacity`` rows), or the ``ep`` plan's E slots of
+    every token of the step."""
+    from repro_torch.core import moe
+    from repro_torch.train.trainer import HecateScheduler
+    E, tokens = cfg.moe.num_experts, batch * seq
+    if path == "grid":
+        K = HecateScheduler(cfg, ep=1, impl="ring", device="cpu") \
+            .plan().k_total
+        return K, moe.auto_capacity(cfg, tokens, 1, K), E
+    return E, tokens, E
+
+
+def check_slice10_kernels(torch, ops, dev, flush):
+    """Phase 3 at phase 10's shapes, one configuration at a time (bert-moe-
+    deep has bert-moe's): B1's inference form at its serving shapes, B4 and
+    B5 at its heads and, for a trained configuration, B1-train, B2 and B3
+    at its training path's layout in bf16 (f32 on 8 slots of it)."""
+    import repro_torch.configs as configs
+    res = {}
+    for i, (name, path, _, batch, seq) in enumerate(SLICE10):
+        if name == "bert-moe-deep":
+            continue
+        cfg = configs.get(name)
+        m, E, k = cfg.moe, cfg.moe.num_experts, cfg.moe.experts_per_token
+        print(f"  -- {name}: d_model {cfg.d_model}, {E} experts top-{k}, "
+              f"expert d_ff {m.d_ff}, {cfg.act}; {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads of {cfg.head_dim}")
+        r = {"grouped_mlp_fwd": check_grouped_mlp(
+            torch, ops, dev, flush, K=E, D=cfg.d_model, Fd=m.d_ff,
+            act=cfg.act, topk=k, ts=(4, 512), seed=20 + i)}
+        r.update(check_attention_heads(torch, ops, dev, flush,
+                                       cfg.num_heads, cfg.head_dim,
+                                       cfg.num_kv_heads, seed=30 + i))
+        if path:
+            K, T, experts = _train_layout(cfg, path, batch, seq)
+            r.update(check_grouped_mlp_train(
+                torch, ops, dev, flush, K=K, T=T, D=cfg.d_model, Fd=m.d_ff,
+                act=cfg.act, rows=k * batch * seq, experts=experts,
+                f32_slots=8, f32_rows=min(T, 2048), plain_slots=8,
+                seed=40 + i))
+        res[name] = r
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1230,30 +1435,36 @@ def _profile_train_step(torch, cfg, rt, tc, stream, state, pa, dev,
                 top_kernels=top)
 
 
-def train_grads_cut_depth(torch, ops, dev):
-    """Full width cut to 2 layers, f32: one step's loss and the gradient of
-    every parameter through the kernels against the plain versions on the
-    same tensors (no route flips at this depth)."""
+def train_grads_cut_depth(torch, ops, dev, name="gpt-moe-s", layers=2,
+                          batch=TRAIN_BATCH):
+    """Full width cut to ``layers`` (2), f32, ``batch`` x ``TRAIN_SEQ`` of
+    the bytes stream: one step's loss and the gradient of every parameter
+    through the kernels against the plain versions on the same tensors (no
+    route flips at this depth)."""
     import repro_torch.configs as configs
     from repro_torch.common.params import _leaves
+    from repro_torch.data.pipeline import make_stream
     from repro_torch.models import model as mdl
     from repro_torch.train import step as step_lib
-    cfg = configs.get("gpt-moe-s").replace(num_layers=2, dtype="float32")
-    rt, _, stream = _train_setup(torch, dev, cfg)
+    cfg = configs.get(name).replace(num_layers=layers, dtype="float32")
+    rt = _train_setup(torch, dev, cfg)[0]
+    stream = make_stream(cfg.vocab_size, TRAIN_SEQ, batch, kind="bytes",
+                         seed=0)
     params = mdl.init_params(cfg, 0, dev)
     pa = _plan(torch, cfg, dev)
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in stream.next_batch().items()}
+    data = {k: torch.as_tensor(v, device=dev)
+            for k, v in stream.next_batch().items()}
     ops.reset_launch_counts()
-    mk, gk = step_lib.loss_and_grads(cfg, rt, params, batch, pa)
+    mk, gk = step_lib.loss_and_grads(cfg, rt, params, data, pa)
     launched = ops.launch_counts()
     with ops.reference_mode():
-        mr, gr = step_lib.loss_and_grads(cfg, rt, params, batch, pa)
-    if launched["grouped_mlp_dgrad"] != 2 or launched["grouped_mlp_wgrad"] \
-            != 2:
-        raise CheckFailed(f"the 2-layer kernel step launched {launched}")
+        mr, gr = step_lib.loss_and_grads(cfg, rt, params, data, pa)
+    what = f"{name} at full width cut to {layers} layer(s), f32"
+    if launched["grouped_mlp_dgrad"] != layers or \
+            launched["grouped_mlp_wgrad"] != layers:
+        raise CheckFailed(f"{what}: the kernel step launched {launched}")
     if not torch.equal(mk["expert_counts"], mr["expert_counts"]):
-        raise CheckFailed("2-layer f32 routing differs between the kernels "
+        raise CheckFailed(f"{what}: routing differs between the kernels "
                           "and the plain versions")
     dl = abs(float(mk["loss"]) - float(mr["loss"]))
     worst = {}
@@ -1261,15 +1472,16 @@ def train_grads_cut_depth(torch, ops, dev):
         scale = float(b.abs().max())
         worst["/".join(path)] = float((a - b).abs().max()) / max(scale,
                                                                  1e-30)
-    name = max(worst, key=worst.get)
-    print(f"  full width cut to 2 layers, f32, one step: loss "
+    param = max(worst, key=worst.get)
+    print(f"  {what}, batch {batch} x {TRAIN_SEQ}, one step: loss "
           f"{float(mr['loss']):.6f}, |dloss| kernels vs plain {dl:.3e}; "
           f"max |dgrad| / max |grad| over {len(worst)} parameters "
-          f"{worst[name]:.3e} ({name}; tolerance {GRAD_TOL:g})")
-    if not dl <= 1e-5 * abs(float(mr["loss"])) or worst[name] > GRAD_TOL:
-        raise CheckFailed("2-layer f32 gradients disagree with the plain "
-                          "path")
-    return dict(dloss=dl, max_rel_grad_err=worst[name], worst_param=name,
+          f"{worst[param]:.3e} ({param}; tolerance {GRAD_TOL:g})")
+    if not dl <= 1e-5 * abs(float(mr["loss"])) or worst[param] > GRAD_TOL:
+        raise CheckFailed(f"{what}: gradients disagree with the plain path")
+    del params, gk, gr
+    torch.cuda.empty_cache()
+    return dict(dloss=dl, max_rel_grad_err=worst[param], worst_param=param,
                 rel_grad_err=worst)
 
 
@@ -2216,6 +2428,302 @@ def overlap_world_one(torch, ops, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the other MoE configurations at full width
+# ---------------------------------------------------------------------------
+def _prefill_tick(torch, cfg, dev, prefill_fn, step_fn, snap, prompt,
+                  bucket):
+    """One prefill of ``prompt`` (padded to ``bucket``) and one decode tick
+    of its greedy next token in slot 0 of a fresh paged cache, through the
+    scheduler's step functions: (prefill logits, tick logits)."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.kv_pool import PageTable
+    params, pa, premat = snap
+    n = prompt.size
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    toks[0, :n] = torch.as_tensor(prompt, device=dev)
+    batch = {"tokens": toks, "last_pos": torch.tensor([n - 1], device=dev)}
+    lk, ck = prefill_fn(params, batch, pa, premat)
+    pages = -(-MAX_LEN // PAGE_SIZE) * MAX_SLOTS + 1
+    cache = mdl.init_paged_cache(cfg, MAX_SLOTS, pages * PAGE_SIZE, dev)
+    table = PageTable(PAGE_SIZE, MAX_LEN, list(range(1, n // PAGE_SIZE + 2)))
+    rows = torch.as_tensor(table.row_idx()[:n], device=dev).long()
+    for lay in cache:
+        for kv in ("k", "v"):
+            cache[lay][kv][:, rows] = ck[lay][kv][:, 0, :n]
+    ri = torch.zeros((MAX_SLOTS, MAX_LEN), dtype=torch.int32, device=dev)
+    ri[0] = torch.as_tensor(table.row_idx(), device=dev)
+    pos = torch.tensor([n, 0, 0, 0], dtype=torch.int32, device=dev)
+    tk = torch.zeros((MAX_SLOTS, 1), dtype=torch.int32, device=dev)
+    tk[0, 0] = int(lk[0, -1].argmax())
+    dk, _ = step_fn(params, cache, tk, pos, ri, pa, premat)
+    return lk, dk[:1]
+
+
+def serve_config(torch, ops, dev, card, name):
+    """Phase 10, serving: ``name`` at full width and depth (bf16 compute,
+    f32 master weights from seed 0) through the continuous-batching
+    scheduler, phase 4's prompts with ``SLICE10_NEW`` greedy tokens each;
+    two identical prefills and ticks bitwise equal; then full width cut to
+    1 layer in f32, one prefill and one tick through the kernels against
+    the plain versions."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import (Engine, build_paged_serve_step,
+                                          build_prefill_step)
+    from repro_torch.serve.scheduler import DONE, RequestScheduler
+
+    cfg = configs.get(name)
+    held_gb, freed_gb = _held_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = mdl.init_params(cfg, 0, dev)
+    pa = _plan(torch, cfg, dev)
+    eng = Engine(cfg, mdl.Runtime(), params, max_len=MAX_LEN, pa=pa)
+    t = time.perf_counter()
+    eng._snapshot()
+    torch.cuda.synchronize()
+    slot_ms = (time.perf_counter() - t) * 1e3
+    pages = -(-MAX_LEN // PAGE_SIZE) * MAX_SLOTS + 1
+    rs = RequestScheduler(eng, max_slots=MAX_SLOTS, num_pages=pages,
+                          page_size=PAGE_SIZE, max_kv=MAX_LEN,
+                          default_ttl_s=3600.0)
+    prefill_ms, tick_ms, per_bucket = [], [], {}
+    prefill_fn, step_fn = rs._prefill_fn, rs._step_fn
+    rs._prefill_fn = _timed(torch, prefill_fn, prefill_ms, per_bucket)
+    rs._step_fn = _timed(torch, step_fn, tick_ms)
+    prompts = _prompts(cfg.vocab_size)
+    warm = rs.submit(prompts[0], max_new_tokens=2)
+    rs.run(max_ticks=10)
+    if warm.state != DONE:
+        raise CheckFailed(f"{name}: warm-up request ended {warm.state}")
+    prefill_ms.clear()
+    tick_ms.clear()
+    per_bucket.clear()
+    reqs = [rs.submit(p, max_new_tokens=SLICE10_NEW) for p in prompts]
+    ops.reset_launch_counts()               # the main path's run starts
+    rs.run(max_ticks=10 * SLICE10_NEW)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()          # ... and ends
+    # the timing wrappers reach the engine: dropped with it (C15)
+    rs._prefill_fn, rs._step_fn = prefill_fn, step_fn
+    if [r.state for r in reqs] != [DONE] * len(reqs) or any(
+            len(r.generated) != SLICE10_NEW for r in reqs):
+        raise CheckFailed(f"{name}: requests did not finish with "
+                          f"{SLICE10_NEW} tokens each")
+    if min(launches[k] for k in SERVE_KERNELS) <= 0 or any(
+            launches[k] for k in TRAIN_KERNELS):
+        raise CheckFailed(f"{name}: a serving kernel never launched, or a "
+                          f"training kernel did: {launches}")
+    snap = eng._snapshot()
+    p = prompts[1]
+    bucket = rs._bucket(p.size)
+    a = _prefill_tick(torch, cfg, dev, prefill_fn, step_fn, snap, p, bucket)
+    b = _prefill_tick(torch, cfg, dev, prefill_fn, step_fn, snap, p, bucket)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise CheckFailed(f"{name}: two identical prefills or decode ticks "
+                          f"gave different logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rs.close()
+    eng.close()
+    del eng, rs, snap, a, b, params
+    med = statistics.median(tick_ms)
+    print(f"  {name} serving: {cfg.num_layers} layers, {len(reqs)} requests "
+          f"DONE ({SLICE10_NEW} tokens each), logits finite; launches "
+          f"{launches}; flash_attention_fwd per bucket "
+          f"{dict(sorted(per_bucket.items()))}; two identical prefills "
+          f"and ticks bitwise equal")
+    print(f"  [{card}] {name} serving: prefill ms "
+          f"{[round(x, 3) for x in prefill_ms]}; median decode-tick ms "
+          f"{med:.3f}; slot-cache build ms {slot_ms:.1f}; device memory "
+          f"peak {peak_gb:.2f} GB ({held_gb:.3f} GB held before, "
+          f"{freed_gb:.3f} GB then freed by the garbage collector)")
+
+    # full width cut to 1 layer, f32: no route flips (C7)
+    cfg1 = cfg.replace(num_layers=1, dtype="float32")
+    p1 = mdl.init_params(cfg1, 0, dev)
+    pa1 = _plan(torch, cfg1, dev)
+    run_p = build_prefill_step(cfg1, mdl.Runtime())
+    run_s = build_paged_serve_step(cfg1, mdl.Runtime(), PAGE_SIZE)
+    with Engine(cfg1, mdl.Runtime(), p1, max_len=MAX_LEN, pa=pa1) as e1:
+        snap1 = e1._snapshot()
+        k1 = _prefill_tick(torch, cfg1, dev, run_p, run_s, snap1, p,
+                           bucket)
+        with ops.reference_mode():
+            r1 = _prefill_tick(torch, cfg1, dev, run_p, run_s, snap1, p,
+                               bucket)
+    del snap1, p1
+    d1 = [float((x - y).abs().max()) for x, y in zip(k1, r1)]
+    s1 = max(float(y.abs().max()) for y in r1)
+    print(f"  {name} cut to 1 layer, f32: max |dlogit| kernels vs plain "
+          f"versions: prefill {d1[0]:.3e}, decode tick {d1[1]:.3e} (max "
+          f"|logit| {s1:.3f}; tolerance 1e-3 x max |logit|)")
+    if max(d1) > 1e-3 * s1:
+        raise CheckFailed(f"{name}: 1-layer f32 logits disagree with the "
+                          f"plain path")
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, launches=launches,
+                flash_launches_per_bucket=per_bucket, prefill_ms=prefill_ms,
+                decode_tick_ms=tick_ms, median_decode_tick_ms=med,
+                slot_cache_build_ms=slot_ms, peak_memory_gb=peak_gb,
+                held_before_gb=held_gb, freed_by_gc_gb=freed_gb,
+                max_dlogit_1_layer_f32=d1, max_logit_1_layer_f32=s1)
+
+
+def train_config(torch, ops, dev, card, name, path, layers, batch, seq,
+                 grid):
+    """Phase 10, training: ``name`` at full width cut to ``layers`` (bf16,
+    f32 master weights and moments from seed 0), batch x seq of the bytes
+    stream, through the grid path at world size 1 in the config's remat
+    mode (``path`` "grid") or ``train_loop``'s world-size-1 path ("loop"):
+    two identical steps bitwise equal, then ``SLICE10_STEPS`` steps of the
+    Hecate loop with the launch counts reset just before."""
+    import repro_torch.configs as configs
+    from repro_torch.core import moe
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+
+    cfg = configs.get(name).replace(num_layers=layers)
+    on_grid = path == "grid"
+    impl = "ring" if on_grid else "ep"
+    rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+        use_pallas=True, **(dict(grid=grid, impl="ring") if on_grid
+                            else {})))
+    tc = _train_setup(torch, dev, cfg)[1]
+    stream = make_stream(cfg.vocab_size, seq, batch, kind="bytes", seed=0)
+
+    def fresh():
+        if on_grid:
+            return step_lib.init_state(cfg, 0, 1, dev, grid)
+        return step_lib.init_state(cfg, 0, device=dev)
+
+    def sched():
+        return HecateScheduler(cfg, ep=1, impl=impl, device=str(dev))
+
+    held_gb, freed_gb = _held_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    batch0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in stream.next_batch().items()}
+    step_fn = step_lib.build_train_step(cfg, rt, tc)
+    pa = sched().plan_arrays()
+    first = None
+    for _ in range(2):
+        state = fresh()
+        state, m = step_fn(state, batch0, pa)
+        leaves = adamw.leaves(state.params)
+        if first is None:
+            first = ([t.detach().clone() for t in leaves], float(m["loss"]))
+        elif not all(torch.equal(a, b) for a, b in zip(first[0], leaves)):
+            raise CheckFailed(f"{name}: two identical train steps gave "
+                              f"different parameters")
+        del state, m, leaves
+    del first
+    torch.cuda.empty_cache()
+    extra = {}
+    if not on_grid and name.startswith("bert"):
+        # the bidirectional step of the encoder (no mask: plain attention)
+        state = fresh()
+        ops.reset_launch_counts()
+        state, m = step_lib.build_train_step(cfg, rt, tc, causal=False)(
+            state, batch0, pa)
+        extra = dict(bidirectional_loss=float(m["loss"]),
+                     bidirectional_launches=ops.launch_counts())
+        print(f"  {name} one build_train_step(causal=False) step: loss "
+              f"{extra['bidirectional_loss']:.4f}; launches "
+              f"{extra['bidirectional_launches']}")
+        if not math.isfinite(extra["bidirectional_loss"]) or \
+                extra["bidirectional_launches"]["flash_attention_fwd"]:
+            raise CheckFailed(f"{name}: bidirectional step {extra}")
+        del state, m
+        torch.cuda.empty_cache()
+    del batch0
+
+    state = fresh()
+    s = sched()
+    state, _ = train_loop(cfg, rt, tc, stream, scheduler=s, state=state,
+                          num_steps=1, log_every=0, device=dev)
+    moe.reset_collective_counts()
+    ops.reset_launch_counts()               # the main path's run starts
+    state, hist = train_loop(cfg, rt, tc, stream, scheduler=s, state=state,
+                             num_steps=SLICE10_STEPS, log_every=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()          # ... and ends
+    coll = moe.collective_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    med = statistics.median(step_ms)
+    n = moe.num_moe_layers(cfg) * SLICE10_STEPS
+    # remat re-runs each superblock's forward in the backward, and so do
+    # the grid's gather and block modes
+    rerun = cfg.remat or (on_grid and cfg.moe.rematerialize != "save")
+    want = {"grouped_mlp_fwd_train": (2 if rerun else 1) * n,
+            "grouped_mlp_dgrad": n, "grouped_mlp_wgrad": n,
+            "grouped_mlp_fwd": 0, "flash_attention_fwd": 0,
+            "paged_decode_attention": 0}
+    hops = sum(coll.get(k, {"calls": 0})["calls"]
+               for k in ("spag_ring", "sprs_ring")) / SLICE10_STEPS
+    law = REMAT_LAW[cfg.moe.rematerialize] * int(
+        pa.extra_experts.shape[-1]) * moe.num_moe_layers(cfg) \
+        if on_grid else 0
+    print(f"  {name} training: {layers} of {configs.get(name).num_layers} "
+          f"layers, batch {batch} x seq {seq}, {path} path"
+          + (f" in {cfg.moe.rematerialize} mode" if on_grid else "")
+          + f"; losses {[round(x, 4) for x in losses]}; launches "
+          f"{launches}" + (f"; ring hops per step {hops:g} (law {law})"
+                           if on_grid else ""))
+    print(f"  [{card}] {name} training: step ms "
+          f"{[round(x, 1) for x in step_ms]}, median {med:.1f} ms, "
+          f"{batch * seq / med * 1e3:.0f} tokens/s; device memory peak "
+          f"{peak_gb:.2f} GB ({held_gb:.3f} GB held before, {freed_gb:.3f} "
+          f"GB then freed by the garbage collector)")
+    if not all(map(math.isfinite, losses)) or any(
+            h["step_ok"] != 1.0 for h in hist):
+        raise CheckFailed(f"{name}: training loss not finite: {losses}")
+    if launches != want:
+        raise CheckFailed(f"{name}: training launches {launches}, "
+                          f"expected {want}")
+    if hops != law:
+        raise CheckFailed(f"{name}: {hops} ring hops per step, law {law}")
+    return dict(layers=layers, batch=batch, seq=seq, path=path,
+                losses=losses, step_ms=step_ms, median_step_ms=med,
+                tokens_per_s=batch * seq / med * 1e3,
+                peak_memory_gb=peak_gb, held_before_gb=held_gb,
+                freed_by_gc_gb=freed_gb, launches=launches,
+                ring_hops_per_step=hops,
+                dropped_frac=[h.get("dropped_frac") for h in hist], **extra)
+
+
+def slice10(torch, ops, dev, card):
+    """Phase 10: each configuration of ``SLICE10`` served at full width and
+    depth and, where it has a training path, trained at full width at its
+    depth cut, one at a time; then gpt-moe-l's f32 gradients at 1 layer."""
+    import torch.distributed as dist
+    grid = _nccl_world()
+    try:
+        res = {}
+        for name, path, layers, batch, seq in SLICE10:
+            t = time.perf_counter()
+            res[name] = {"serving": serve_config(torch, ops, dev, card,
+                                                 name)}
+            if path:
+                res[name]["training"] = train_config(
+                    torch, ops, dev, card, name, path, layers, batch, seq,
+                    grid)
+            print(f"  {name}: {time.perf_counter() - t:.1f} s")
+        res["grads_gpt_moe_l_1_layer_f32"] = train_grads_cut_depth(
+            torch, ops, dev, "gpt-moe-l", 1, 2)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 T_START = time.perf_counter()
 
 
@@ -2513,6 +3021,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases among 3-10 to run after "
+                         "the device and the build (default: all); the "
+                         "kernel table and the result line need all")
     args = ap.parse_args()
     # the training phase's plain versions allocate and free many large
     # (K, T, F) temporaries: grow segments instead of fragmenting
@@ -2560,120 +3072,170 @@ def main() -> None:
                     if "registers" in ln]
             print(f"  {src_name}.cu: {regs[0]}")
             stats = [(k, i) for k, i in stats
-                     if any(t in k for t in TC_KERNELS)]
+                     if any(t in k for t in PTXAS_KERNELS)]
         print(f"  {src_name}.cu, per kernel (ptxas -v):")
         for kname, info in stats:
             print(f"    {kname}: {info}")
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
+    run = set(range(3, 11)) if not args.phases else \
+        {int(x) for x in args.phases.split(",")}
+
+    def phase(n, title):
+        if n in run:
+            print(f"== {n}. {title} (script wall so far "
+                  f"{time.perf_counter() - T_START:.1f} s)")
+        return n in run
+
     try:
-        flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-        print("== 3. kernels against their plain versions")
-        kern = {"grouped_mlp_fwd": check_grouped_mlp(torch, ops, dev, flush),
-                "flash_attention_fwd": check_flash_attention(torch, ops, dev,
-                                                             flush),
-                "paged_decode_attention": check_paged_attention(torch, ops,
-                                                                dev, flush)}
-        kern.update(check_grouped_mlp_train(torch, ops, dev, flush))
-        for k, r in kern.items():
-            extra = [("prefill ", r.get("prefill")),
-                     ("near max ", r.get("near_max"))]
-            if "buckets" in r:
-                extra = [(f"bucket S={S} ", rr)
-                         for S, rr in r["buckets"].items()]
-            for tag, rr in [("", r)] + extra:
-                if rr:
-                    rate = (f", {rr['tflops']:.1f} TFLOP/s, "
-                            f"{rr['bound_share']:.3f} of the bound"
-                            if "tflops" in rr else "")
-                    if "tile_list_ms" in rr:
-                        rate += (f"; its tile list, built once per forward "
-                                 f"for it, dgrad and wgrad, "
-                                 f"{rr['tile_list_ms']:.4f} ms")
-                    print(f"  [{card_line}] {k} {tag}{rr['shape']}: kernel "
-                          f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "
-                          f"ms, library {rr['library_ms']:.4f} ms, bound "
-                          f"{rr['bound_ms']:.4f} ms ({rr['bound_by']})"
-                          f"{rate}")
-        del flush
-        print("== 4. serving gpt-moe-s at full width")
-        serve = serve_full_width(torch, ops, dev, card_line)
-        serve_small_f32(torch, ops, dev)
-        torch.cuda.empty_cache()
-        print("== 5. training gpt-moe-s at full width")
-        train = train_full_width(torch, ops, dev, card_line)
-        train["learns_cut_depth"] = train_cut_depth_learns(torch, ops, dev)
-        train["grads_2_layers_f32"] = train_grads_cut_depth(torch, ops, dev)
-        torch.cuda.empty_cache()
-        print("== 6. dense generate, publication under training, a fleet")
-        dense = dense_generate_full_width(torch, ops, dev, card_line)
-        dense["against_paged"] = dense_against_paged(torch, ops, dev)
-        torch.cuda.empty_cache()
-        publication = publish_under_training(torch, ops, dev, card_line)
-        publication["fleet"] = fleet_two_replicas(torch, ops, dev,
-                                                  card_line)
-        torch.cuda.empty_cache()
-        print("== 7. the FSSDP layer across ranks")
-        fssdp = fssdp_world_one(torch, ops, dev, card_line,
-                                train["median_step_ms"])
-        torch.cuda.empty_cache()
-        print("== 8. overlap and re-materialization on the process grid")
-        overlap = overlap_world_one(torch, ops, dev, card_line)
-        torch.cuda.empty_cache()
-        print(f"== 9. checkpoint, resume, rollback, restored serving "
-              f"(script wall so far {time.perf_counter() - T_START:.1f} s)")
-        ckpt = checkpoint_world_one(torch, ops, dev, card_line)
-        torch.cuda.empty_cache()
+        if phase(3, "kernels against their plain versions"):
+            flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                device=dev)
+            kern = {"grouped_mlp_fwd": check_grouped_mlp(torch, ops, dev,
+                                                         flush),
+                    "flash_attention_fwd": check_flash_attention(
+                        torch, ops, dev, flush),
+                    "paged_decode_attention": check_paged_attention(
+                        torch, ops, dev, flush)}
+            kern.update(check_grouped_mlp_train(torch, ops, dev, flush))
+            _print_kernel_rows(card_line, kern)
+            print("  -- at the shapes of phase 10's configurations")
+            kern10 = check_slice10_kernels(torch, ops, dev, flush)
+            for cname, rows in kern10.items():
+                _print_kernel_rows(card_line, rows, f"{cname} ")
+            results.update(kernels=kern, kernels_slice10=kern10)
+            del flush
+        if phase(4, "serving gpt-moe-s at full width"):
+            results["serving"] = serve_full_width(torch, ops, dev, card_line)
+            serve_small_f32(torch, ops, dev)
+            torch.cuda.empty_cache()
+        if phase(5, "training gpt-moe-s at full width"):
+            train = train_full_width(torch, ops, dev, card_line)
+            train["learns_cut_depth"] = train_cut_depth_learns(torch, ops,
+                                                               dev)
+            train["grads_2_layers_f32"] = train_grads_cut_depth(torch, ops,
+                                                                dev)
+            results["training"] = train
+            torch.cuda.empty_cache()
+        if phase(6, "dense generate, publication under training, a fleet"):
+            dense = dense_generate_full_width(torch, ops, dev, card_line)
+            dense["against_paged"] = dense_against_paged(torch, ops, dev)
+            torch.cuda.empty_cache()
+            publication = publish_under_training(torch, ops, dev, card_line)
+            publication["fleet"] = fleet_two_replicas(torch, ops, dev,
+                                                      card_line)
+            results.update(dense_generate=dense, publication=publication)
+            torch.cuda.empty_cache()
+        if phase(7, "the FSSDP layer across ranks"):
+            results["fssdp"] = fssdp_world_one(
+                torch, ops, dev, card_line,
+                results["training"]["median_step_ms"]
+                if "training" in results else float("nan"))
+            torch.cuda.empty_cache()
+        if phase(8, "overlap and re-materialization on the process grid"):
+            results["overlap"] = overlap_world_one(torch, ops, dev,
+                                                   card_line)
+            torch.cuda.empty_cache()
+        if phase(9, "checkpoint, resume, rollback, restored serving"):
+            results["checkpoint"] = checkpoint_world_one(torch, ops, dev,
+                                                         card_line)
+            torch.cuda.empty_cache()
+        if phase(10, "the other MoE configurations at full width"):
+            results["slice10"] = slice10(torch, ops, dev, card_line)
+            torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
-    results.update(kernels=kern, serving=serve, training=train,
-                   dense_generate=dense, publication=publication,
-                   fssdp=fssdp, overlap=overlap, checkpoint=ckpt)
 
-    meta = {"grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
-                                "src/repro/kernels/grouped_mlp.py:106"),
-            "flash_attention_fwd": ("kernels/csrc/flash_attention.cu",
-                                    "src/repro/kernels/flash_attention.py:25"),
-            "paged_decode_attention": (
-                "kernels/csrc/paged_attention.cu",
-                "src/repro/kernels/paged_attention.py:59"),
-            "grouped_mlp_fwd_train": ("kernels/csrc/grouped_mlp.cu",
-                                      "src/repro/kernels/grouped_mlp.py:106"),
-            "grouped_mlp_dgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
-                                  "src/repro/kernels/grouped_mlp.py:215"),
-            "grouped_mlp_wgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
-                                  "src/repro/kernels/grouped_mlp.py:324")}
-    table = []
-    for k, r in kern.items():
-        table.append({"name": k, "route": "cuda",
-                      "source": "src/repro_torch/" + meta[k][0],
-                      "replaces": meta[k][1],
-                      "launches": (train if k in TRAIN_KERNELS
-                                   else serve)["launches"][k],
-                      "launches_fssdp": fssdp["launches"][k],
-                      "launches_overlap": {
-                          mode: r8["launches"][k]
-                          for mode, r8 in overlap["modes"].items()},
-                      "launches_checkpoint": ckpt["launches"][k],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"], "shape": r["shape"],
-                      **{key: r[key] for key in ("tflops", "bound_share")
-                         if key in r}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    print(f"== 10. kernels (script wall so far "
+    if run != set(range(3, 11)):
+        print(f"phases {sorted(run)} passed (script wall "
+              f"{time.perf_counter() - T_START:.1f} s); the kernel table "
+              f"and the result line come with every phase")
+        return
+    table = _kernel_table(results)
+    print(f"== 11. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
-    print(f"kernels: {json.dumps(list(kern))}")
+    print(f"kernels: {json.dumps(list(results['kernels']))}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def _print_kernel_rows(card_line, kern, tag=""):
+    """One line per timed shape of each kernel's results."""
+    for k, r in kern.items():
+        extra = [("prefill ", r.get("prefill")),
+                 ("near max ", r.get("near_max"))]
+        if "buckets" in r:
+            extra = [(f"bucket S={S} ", rr) for S, rr in r["buckets"].items()]
+        for sub, rr in [("", r)] + extra:
+            if rr:
+                rate = (f", {rr['tflops']:.1f} TFLOP/s, "
+                        f"{rr['bound_share']:.3f} of the bound"
+                        if "tflops" in rr else "")
+                if "tile_list_ms" in rr:
+                    rate += (f"; its tile list, built once per forward "
+                             f"for it, dgrad and wgrad, "
+                             f"{rr['tile_list_ms']:.4f} ms")
+                print(f"  [{card_line}] {tag}{k} {sub}{rr['shape']}: kernel "
+                      f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} "
+                      f"ms, library {rr['library_ms']:.4f} ms, bound "
+                      f"{rr['bound_ms']:.4f} ms ({rr['bound_by']})"
+                      f"{rate}")
+
+
+KERNEL_META = {
+    "grouped_mlp_fwd": ("kernels/csrc/grouped_mlp.cu",
+                        "src/repro/kernels/grouped_mlp.py:106"),
+    "flash_attention_fwd": ("kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:25"),
+    "paged_decode_attention": ("kernels/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:59"),
+    "grouped_mlp_fwd_train": ("kernels/csrc/grouped_mlp.cu",
+                              "src/repro/kernels/grouped_mlp.py:106"),
+    "grouped_mlp_dgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
+                          "src/repro/kernels/grouped_mlp.py:215"),
+    "grouped_mlp_wgrad": ("kernels/csrc/grouped_mlp_bwd.cu",
+                          "src/repro/kernels/grouped_mlp.py:324")}
+
+
+def _kernel_table(results):
+    """The rows of the kernels JSON line: each kernel at gpt-moe-s's shapes
+    with its launches in phases 4/5 (and 7, 8, 9), then at each phase-10
+    configuration's shapes with its launches in phase 10."""
+    def row(k, r, launches, **more):
+        return {"name": k, "route": "cuda",
+                "source": "src/repro_torch/" + KERNEL_META[k][0],
+                "replaces": KERNEL_META[k][1], "launches": launches,
+                **more, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": r["shape"],
+                **{key: r[key] for key in ("tflops", "bound_share")
+                   if key in r}}
+
+    table = []
+    for k, r in results["kernels"].items():
+        main = results["training" if k in TRAIN_KERNELS else "serving"]
+        table.append(row(
+            k, r, main["launches"][k],
+            config="gpt-moe-s",
+            launches_fssdp=results["fssdp"]["launches"][k],
+            launches_overlap={mode: r8["launches"][k] for mode, r8 in
+                              results["overlap"]["modes"].items()},
+            launches_checkpoint=results["checkpoint"]["launches"][k]))
+    for cname, rows in results["kernels_slice10"].items():
+        ran = results["slice10"][cname]
+        for k, r in rows.items():
+            part = ran["training" if k in TRAIN_KERNELS else "serving"]
+            table.append(row(k, r, part["launches"][k], config=cname))
+    return table
 
 
 if __name__ == "__main__":

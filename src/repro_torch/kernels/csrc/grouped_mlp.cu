@@ -48,10 +48,13 @@
 //
 // The inference form and the training form in float32 keep the first
 // port's loops on the FMA units:
-// * one block per (slot k, token tile, range of F).  The TPU grid's
-//   sequential F axis becomes a loop inside the block over 64-wide F
-//   chunks, and the (rows × D) partial output accumulates in f32 registers
-//   across that loop;
+// * one block per (slot k, token tile, range of F, chunk of 1,024 output
+//   columns).  The TPU grid's sequential F axis becomes a loop inside the
+//   block over 64-wide F chunks, and the block's (rows × 1,024) partial
+//   output accumulates in f32 registers across that loop (4 columns a
+//   thread).  Each column chunk's block computes the whole h chunk of its
+//   rows again: at D = 2,048 the h products run twice, which keeps the
+//   registers of the one-chunk case that D <= 1,024 runs;
 // * inference form: each F range writes its partial sums to its own f32
 //   plane, and a second kernel adds the planes in a fixed order (no
 //   atomics: the result does not change from run to run) and rounds to the
@@ -71,7 +74,8 @@
 // * h is rounded to the input dtype before the product with wo, as the TPU
 //   kernel does (grouped_mlp.py:139); all sums are f32, and y is rounded
 //   to the input dtype once, at the end;
-// * T and F may be ragged (bounds-checked loads); D <= 1024.
+// * T and F may be ragged (bounds-checked loads); D <= GM_MAX_D (the
+//   block's 16 input rows of D f32 values in shared memory).
 #include "grouped_mlp_tc.cuh"
 
 constexpr int GM_BT = 128;  // token tile of the inference form
@@ -93,7 +97,10 @@ __global__ void __launch_bounds__(GM_THREADS)
   __shared__ int rowv[GM_R];
 
   const int k = blockIdx.y;
-  const int t0 = blockIdx.x * bt;
+  const int nd = (D + GM_DC - 1) / GM_DC;  // column chunks
+  const int dc = blockIdx.x % nd;
+  const int d0 = dc * GM_DC, d_end = min(D, d0 + GM_DC);
+  const int t0 = blockIdx.x / nd * bt;
   const int tid = threadIdx.x;
   const T* xk = x + (size_t)k * Tn * D;
   const T* wik = wi + (size_t)k * swi;
@@ -115,7 +122,7 @@ __global__ void __launch_bounds__(GM_THREADS)
   if (__syncthreads_count(mine) == 0) {
     // the inference form never reads these rows back; the residuals of a
     // skipped tile are never read
-    if (SAVE) write_zero_rows(yk, t0, t_end - t0, D);
+    if (SAVE) write_zero_rows(yk, t0, t_end - t0, D, d0, d_end);
     return;
   }
 
@@ -124,7 +131,7 @@ __global__ void __launch_bounds__(GM_THREADS)
     const int v = (tid < nr) ? (mk[r0 + tid] > 0) : 0;
     if (tid < GM_R) rowv[tid] = v;
     if (__syncthreads_count(v) == 0) {  // no valid row here
-      if (SAVE) write_zero_rows(yk, r0, nr, D);
+      if (SAVE) write_zero_rows(yk, r0, nr, D, d0, d_end);
       continue;
     }
     load_rows(xs, xk, rowv, r0, nr, D);
@@ -153,8 +160,9 @@ __global__ void __launch_bounds__(GM_THREADS)
         float h = act_fn<ACT>(a[c]);
         if (GATE) h *= g[c];
         hs[row * GM_BF + fl] = (f < f_end) ? round_to<T>(h) : 0.0f;
-        // residuals: invalid rows were zeroed on input, so a = g = 0 there
-        if (SAVE && f < f_end && row < nr) {
+        // residuals, from the first column chunk's block: invalid rows
+        // were zeroed on input, so a = g = 0 there
+        if (SAVE && dc == 0 && f < f_end && row < nr) {
           h1k[(size_t)(r0 + row) * F + f] = from_f<T>(a[c]);
           if (GATE) h2k[(size_t)(r0 + row) * F + f] = from_f<T>(g[c]);
         }
@@ -162,7 +170,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       __syncthreads();
       // y += h_chunk @ wo[f0:f0+nf, :]
       rows_times_chunk<T, false>(acc, hs, nullptr, wok, nullptr, f0,
-                                 min(GM_BF, f_end - f0), D);
+                                 min(GM_BF, f_end - f0), d0, D);
       __syncthreads();
     }
 #pragma unroll
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       if (r < nr && (SAVE || rowv[r])) {
 #pragma unroll
         for (int j = 0; j < GM_MAXJ; ++j) {
-          const int d = tid + j * GM_THREADS;
+          const int d = d0 + tid + j * GM_THREADS;
           if (d >= D) continue;
           if (SAVE)  // the whole output, rounded, zero for invalid rows
             yk[(size_t)(r0 + r) * D + d] =
@@ -221,7 +229,8 @@ static int launch(const FwdArgs& a) {
   const int f_split = SAVE ? a.F : a.f_split;
   const int n_split = (a.F + f_split - 1) / f_split;
   constexpr int bt = SAVE ? GM_BT_TRAIN : GM_BT;
-  dim3 grid((a.Tn + bt - 1) / bt, a.K, n_split);
+  dim3 grid((a.Tn + bt - 1) / bt * ((a.D + GM_DC - 1) / GM_DC), a.K,
+            n_split);
   kern<<<grid, GM_THREADS, smem, a.stream>>>(
       (const T*)a.x, (const T*)a.wi, (const T*)a.wg, (const T*)a.wo, a.mask,
       a.part, (T*)a.y, (T*)a.h1, (T*)a.h2, a.Tn, a.D, a.F, a.swi, a.swg,
@@ -247,8 +256,7 @@ static int dispatch(const FwdArgs& a) {
 
 template <bool SAVE>
 static int run(const FwdArgs& a, int dtype) {
-  if (a.K <= 0 || a.Tn <= 0 || a.D <= 0 || a.F <= 0 ||
-      a.D > GM_MAXJ * GM_THREADS ||
+  if (a.K <= 0 || a.Tn <= 0 || a.D <= 0 || a.F <= 0 || a.D > GM_MAX_D ||
       (!SAVE && (a.f_split <= 0 || a.f_split % GM_BF)))
     return (int)cudaErrorInvalidValue;
   // bf16 is grouped_mlp_fwd_bf16 and grouped_mlp_fwd_train_bf16 (tensor
@@ -263,7 +271,7 @@ static int run(const FwdArgs& a, int dtype) {
 // gate).  y: contiguous (K, T, D).  The F axis
 // is cut into f_split-wide ranges (a multiple of 64), one block each; part
 // is f32 scratch of (ceil(F / f_split), K, T, D) for their partial sums.
-// act: 0 gelu (tanh form), 1 silu.
+// D <= GM_MAX_D (3,072).  act: 0 gelu (tanh form), 1 silu.
 REPRO_EXPORT int grouped_mlp_fwd(const void* x, const void* wi, const void* wg,
                                  const void* wo, const int* mask, float* part,
                                  void* y, int K, int Tn, int D, int F,

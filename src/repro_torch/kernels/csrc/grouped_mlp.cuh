@@ -8,7 +8,13 @@
 constexpr int GM_THREADS = 256;
 constexpr int GM_R = 16;    // rows of a sub-tile
 constexpr int GM_BF = 64;   // F chunk
-constexpr int GM_MAXJ = 4;  // output columns per thread: D <= 4 * 256
+constexpr int GM_MAXJ = 4;  // output columns per thread
+// output columns of one block: wider outputs are cut into chunks of this
+// many columns, one block each (grid axis x, beside the token tiles)
+constexpr int GM_DC = GM_MAXJ * GM_THREADS;
+// the f32 kernels keep 16 input rows of D f32 values in shared memory
+// (192 KB at this D, of the 227 KB a block may use)
+constexpr int GM_MAX_D = 3072;
 constexpr int GM_RG = GM_THREADS / GM_BF;  // row groups in the F phase (4)
 constexpr int GM_RPT = GM_R / GM_RG;       // rows per thread there (4)
 constexpr int GM_BT_TRAIN = 32;  // token tile of the training form and dgrad
@@ -83,20 +89,21 @@ __device__ __forceinline__ void rows_dot_cols(const float* xs,
 
 // The D phase of one chunk: acc[r][j] += sum_ff hs[r][ff] * w1[f0 + ff][d]
 // (+ h2s[r][ff] * w2[f0 + ff][d] when TWO) for this thread's columns
-// d = tid + 256 j; w1/w2 are (F, D) row-major.
+// d = d0 + tid + 256 j of the block's column chunk; w1/w2 are (F, D)
+// row-major.
 template <typename T, bool TWO>
 __device__ __forceinline__ void rows_times_chunk(
     float acc[GM_R][GM_MAXJ], const float* hs, const float* h2s,
     const T* __restrict__ w1, const T* __restrict__ w2, int f0, int nf,
-    int D) {
-  const int tid = threadIdx.x;
+    int d0, int D) {
+  const int c0 = d0 + threadIdx.x;
 #pragma unroll 4
   for (int ff = 0; ff < nf; ++ff) {
     const T* r1 = w1 + (size_t)(f0 + ff) * D;
     const T* r2 = TWO ? w2 + (size_t)(f0 + ff) * D : nullptr;
 #pragma unroll
     for (int j = 0; j < GM_MAXJ; ++j) {
-      const int d = tid + j * GM_THREADS;
+      const int d = c0 + j * GM_THREADS;
       if (d < D) {
         const float v1 = to_f(r1[d]);
         const float v2 = TWO ? to_f(r2[d]) : 0.0f;
@@ -110,10 +117,13 @@ __device__ __forceinline__ void rows_times_chunk(
   }
 }
 
-// Zero the rows [r0, r0 + nr) of a (rows, width) row-major output.
+// Zero the rows [r0, r0 + nr) of a (rows, width) row-major output, in the
+// columns [c0, c1).
 template <typename T>
 __device__ __forceinline__ void write_zero_rows(T* __restrict__ out, int r0,
-                                                int nr, int width) {
-  for (int i = threadIdx.x; i < nr * width; i += GM_THREADS)
-    out[(size_t)r0 * width + i] = from_f<T>(0.0f);
+                                                int nr, int width, int c0,
+                                                int c1) {
+  const int w = c1 - c0;
+  for (int i = threadIdx.x; i < nr * w; i += GM_THREADS)
+    out[(size_t)(r0 + i / w) * width + c0 + i % w] = from_f<T>(0.0f);
 }

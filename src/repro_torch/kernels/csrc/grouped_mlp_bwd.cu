@@ -39,10 +39,13 @@
 // (K, F, D), contiguous copies, so that dh = g@woᵀ is the forward's x@wi
 // loop and dx = dh1@wiᵀ its h@wo loop, both with neighbouring threads on
 // neighbouring addresses.  One block per (slot, 32-row token tile:
-// GM_BT_TRAIN); it counts its valid rows itself and skips tiles and 16-row
-// sub-tiles without one.  It reads h1 and h2 at valid rows only.  It
-// writes every row of its tile: zeros for invalid rows and skipped tiles,
-// as the TPU kernel's skipped tiles write zeros (grouped_mlp.py:265-272).
+// GM_BT_TRAIN, chunk of 1,024 columns of dx: GM_DC); it counts its valid
+// rows itself and skips tiles and 16-row sub-tiles without one.  Every
+// column chunk's block computes the dh chunks of its rows, and the first
+// one writes dh1, h and dh2 (the forward's split over D).  It reads h1
+// and h2 at valid rows only.  It writes every row of its tile: zeros for
+// invalid rows and skipped tiles, as the TPU kernel's skipped tiles write
+// zeros (grouped_mlp.py:265-272).  D <= GM_MAX_D.
 //
 // wgrad, bfloat16 (the main path's; grouped_mlp_wgrad_bf16): tensor-core
 // products over the token rows.  One block per (128 × 128 output tile,
@@ -92,7 +95,10 @@ __global__ void __launch_bounds__(GM_THREADS)
   __shared__ int rowv[GM_R];
 
   const int k = blockIdx.y;
-  const int t0 = blockIdx.x * bt;
+  const int nd = (D + GM_DC - 1) / GM_DC;  // column chunks of dx
+  const int dc = blockIdx.x % nd;
+  const int d0 = dc * GM_DC, d_end = min(D, d0 + GM_DC);
+  const int t0 = blockIdx.x / nd * bt;
   const int tid = threadIdx.x;
   const T* gk = dy + (size_t)k * Tn * D;
   const T* woTk = woT + (size_t)k * D * F;
@@ -117,10 +123,12 @@ __global__ void __launch_bounds__(GM_THREADS)
       if (tid < GM_R) rowv[tid] = v;
     }
     if (skip_tile || __syncthreads_count(v) == 0) {
-      write_zero_rows(dxk, r0, nr, D);
-      write_zero_rows(dh1k, r0, nr, F);
-      write_zero_rows(hk, r0, nr, F);
-      if (GATE) write_zero_rows(dh2k, r0, nr, F);
+      write_zero_rows(dxk, r0, nr, D, d0, d_end);
+      if (dc == 0) {
+        write_zero_rows(dh1k, r0, nr, F, 0, F);
+        write_zero_rows(hk, r0, nr, F, 0, F);
+        if (GATE) write_zero_rows(dh2k, r0, nr, F, 0, F);
+      }
       continue;
     }
     load_rows(gs, gk, rowv, r0, nr, D);
@@ -160,7 +168,7 @@ __global__ void __launch_bounds__(GM_THREADS)
             h = a;
           }
         }
-        if (f < F && row < nr) {
+        if (dc == 0 && f < F && row < nr) {
           const size_t o = (size_t)(r0 + row) * F + f;
           dh1k[o] = from_f<T>(d1);
           hk[o] = from_f<T>(h);
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       __syncthreads();
       // dx += dh1_chunk @ wiᵀ[f0:f0+nf, :] [+ dh2_chunk @ wgᵀ[f0:f0+nf, :]]
       rows_times_chunk<T, GATE>(acc, d1s, d2s, wiTk, wgTk, f0,
-                                min(GM_BF, F - f0), D);
+                                min(GM_BF, F - f0), d0, D);
       __syncthreads();
     }
 #pragma unroll
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       if (r < nr) {
 #pragma unroll
         for (int j = 0; j < GM_MAXJ; ++j) {
-          const int d = tid + j * GM_THREADS;
+          const int d = d0 + tid + j * GM_THREADS;
           if (d < D)
             dxk[(size_t)(r0 + r) * D + d] =
                 from_f<T>(rowv[r] ? acc[r][j] : 0.0f);
@@ -202,7 +210,8 @@ static int launch_dgrad(const void* dy, const void* woT, const void* wiT,
       (size_t)(GM_R * D + 2 * GM_R * GM_BF) * sizeof(float);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Tn + GM_BT_TRAIN - 1) / GM_BT_TRAIN, K);
+  dim3 grid((Tn + GM_BT_TRAIN - 1) / GM_BT_TRAIN * ((D + GM_DC - 1) / GM_DC),
+            K);
   kern<<<grid, GM_THREADS, smem, stream>>>(
       (const T*)dy, (const T*)woT, (const T*)wiT, (const T*)wgT, mask,
       (const T*)h1, (const T*)h2, (T*)dx, (T*)dh1, (T*)dh2, (T*)h, Tn, D, F);
@@ -229,7 +238,8 @@ static int dispatch_dgrad(const void* dy, const void* woT, const void* wiT,
 // float32.  dy: (K, T, D); woT: (K, D, F); wiT, wgT: (K, F, D); h1, h2:
 // (K, T, F); mask: (K, T) int32; outputs dx: (K, T, D), dh1, dh2, h:
 // (K, T, F).  All contiguous.  wgT, h2 and dh2 are NULL without a gate.
-// h1 and h2 are read at valid rows only.  act: 0 gelu (tanh form), 1 silu.
+// h1 and h2 are read at valid rows only.  D <= GM_MAX_D (3,072).  act: 0
+// gelu (tanh form), 1 silu.
 REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
                                    const void* wiT, const void* wgT,
                                    const int* mask, const void* h1,
@@ -237,7 +247,7 @@ REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
                                    void* dh2, void* h, int K, int Tn, int D,
                                    int F, int act, int dtype,
                                    void* stream) {
-  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || D > GM_MAXJ * GM_THREADS ||
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || D > GM_MAX_D ||
       (wgT != nullptr && (h2 == nullptr || dh2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   // bf16 is grouped_mlp_dgrad_bf16 (tensor cores)

@@ -22,7 +22,8 @@ device-side search).  The inference form runs the forward's two products
 over a tile list of the length the host knows (every tile, -1 past the
 listed ones; ``ref.tile_list_padded``), which its C call builds on the
 device, so the serving path reads nothing back.
-Float32 keeps the FMA loops of the first port.
+Float32 keeps the FMA loops of the first port, with the output columns
+cut into chunks of 1,024 over blocks (D up to ``F32_MAX_D``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ LAUNCHES = {"grouped_mlp_fwd": 0, "grouped_mlp_fwd_train": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "silu": 1}
 _BF = 64              # the float32 kernels' F chunk
+# the float32 forward and dgrad keep 16 rows of D f32 values in shared
+# memory (csrc/grouped_mlp.cuh GM_MAX_D); bfloat16 has no limit on D
+F32_MAX_D = 3072
 TC_TILE = 64          # token rows per tile of the tensor-core kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -100,8 +104,9 @@ def _check(x, wi, wg, wo, what: str):
             wg is not None and wg.shape != wi.shape):
         raise ValueError(f"{what} shapes: x {tuple(x.shape)}, wi "
                          f"{tuple(wi.shape)}, wo {tuple(wo.shape)}")
-    if d > 1024:
-        raise ValueError(f"{what} kernel takes D <= 1024, got {d}")
+    if x.dtype == torch.float32 and d > F32_MAX_D:
+        raise ValueError(f"{what} float32 kernel takes D <= {F32_MAX_D}, "
+                         f"got {d}")
     return k_, t_, d, f_
 
 

@@ -29,6 +29,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     for m in ("repro_torch.checkpoint.store", "repro_torch.common.sharding",
               "repro_torch.train.supervisor", "repro_torch.train.metrics"):
         assert m in mods, m
+    for arch in ("gpt_moe_s", "gpt_moe_l", "bert_moe", "bert_moe_deep",
+                 "olmoe_1b_7b", "granite_moe_3b_a800m"):
+        assert f"repro_torch.configs.{arch}" in mods, arch
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

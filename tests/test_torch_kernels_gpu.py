@@ -127,7 +127,9 @@ def _offset_copy(t):
     (512, 64, 96, None), (256, 32, 40, None),
     (256, 40, 0, None), (24, 40, 0, None),     # 16-byte copies, H padded
     (256, 36, 96, None), (24, 36, 0, None),    # element-wise, H padded
-    (128, 64, 0, 0), (256, 64, 96, 1), (128, 40, 0, 2)])   # unaligned q/k/v
+    (128, 64, 0, 0), (256, 64, 96, 1), (128, 40, 0, 2),    # unaligned q/k/v
+    (512, 96, 0, None), (32, 96, 0, None),     # gpt-moe-l's heads, padded
+    (512, 128, 0, None), (256, 128, 96, None), (128, 128, 0, None)])
 def test_flash_attention_kernel_matches_tiled_ref(cuda, S, H, window, shift):
     """bf16 against the plain and the step-wise version, two calls bitwise
     equal; also H below the tiling's width (40 keeps 16-byte copies and
@@ -147,6 +149,20 @@ def test_flash_attention_kernel_matches_tiled_ref(cuda, S, H, window, shift):
     torch.testing.assert_close(got.float(), tiled.float(), **TILED_TOL)
     again = ops.flash_attention(*qkv, causal=True, window=window)
     assert torch.equal(got, again)          # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [96, 128])
+@pytest.mark.parametrize("S,causal", [(512, True), (256, True), (32, True),
+                                      (128, False)])
+def test_flash_attention_kernel_model_head_dims(cuda, dtype, H, S, causal):
+    """The head widths of gpt-moe-l (96, padded to the 128 tiling) and
+    olmoe (128) at the served buckets, both dtypes."""
+    rng = np.random.default_rng(S + H)
+    q, k, v = (_t(rng, (1, S, 4, H), 0.5, dtype, cuda) for _ in range(3))
+    got, want = _both(lambda: ops.flash_attention(q, k, v, causal=causal))
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 def _paged_pool(seed, positions, nkv, group, dev, dtype, ps=8, max_kv=512,
@@ -198,6 +214,28 @@ def test_paged_decode_kernel_warp_split_boundaries(cuda, dtype, group,
     torch.testing.assert_close(got.float(), split.float(), **SPLIT_TOL[dtype])
     again = ops.paged_decode_attention(*case, **kw)
     assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nkv,hd", [(24, 8, 64), (16, 16, 96),
+                                       (16, 16, 128), (6, 2, 128)])
+def test_paged_decode_kernel_model_heads(cuda, dtype, nq, nkv, hd):
+    """The decode heads of granite (24 query heads over 8 KV heads, a group
+    of 3), gpt-moe-l (hd 96) and olmoe (hd 128), and a group of 3 at hd
+    128, at the warp split's boundaries and the longest sequence."""
+    from repro_torch.kernels import ref
+    ps, w = 8, PAGED_WARPS
+    positions = [0, w * ps - 1, w * ps + 3, 300, 511]
+    case = _paged_pool(nq + hd, positions, nkv, nq // nkv, cuda, dtype, h=hd)
+    got, want = _both(lambda: ops.paged_decode_attention(*case,
+                                                         page_size=ps))
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    split = ref.paged_decode_attention_split_ref(*case, n_warps=w,
+                                                 page_size=ps)
+    torch.testing.assert_close(got.float(), split.float(), **SPLIT_TOL[dtype])
 
 
 def _paged(seed, positions, nkv, group, dev, h=32, num_pages=24):
@@ -319,6 +357,40 @@ def test_grouped_mlp_train_kernels_match_plain(cuda, dtype, act):
     # no atomics: the same call gives the same bits
     again = gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h)
     assert all(a is None or torch.equal(a, b) for a, b in zip(wgr, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+@pytest.mark.parametrize("D", [1536, 2048])
+def test_grouped_mlp_kernels_wide_d(cuda, dtype, act, D):
+    """d_model above one f32 block's 1,024 output columns (gpt-moe-l and
+    granite 1,536: a ragged second column chunk; olmoe 2,048: two whole
+    ones): the inference form, the training form, dgrad and wgrad against
+    their plain versions on ``_train_case``'s slots (empty, ragged with a
+    hole, full) at a ragged T, invalid rows exactly zero."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    x, wi, wg, wo, dy, mask = _train_case(cuda, dtype, act, D, D=D)
+    valid = mask.bool()
+    got, want = _both(lambda: ops.grouped_mlp(x, wi, wg, wo, None, valid,
+                                              act=act))
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[~valid] == 0).all()
+    fwd = gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask, act=act)
+    _close_all(fwd, ref.grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask,
+                                                  act=act), dtype,
+               rows=(valid, (1, 2)))
+    _, h1, h2 = fwd
+    dg = gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg, wo, act=act)
+    _close_all(dg, ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
+                                             act=act), dtype)
+    _, dh1, dh2, h = dg
+    wgr = gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h)
+    _close_all(wgr, ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2, h),
+               dtype)
+    for a in (fwd[0], dg[0], dg[1], dg[3]):
+        assert (a[~valid] == 0).all()
 
 
 # bf16 dx of the tensor-core dgrad against its step-wise plain version

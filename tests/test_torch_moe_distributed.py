@@ -149,6 +149,45 @@ for lf in (True, False):
                        jax.device_put(buf8, NamedSharding(mesh8,
                                                           P("model", "data"))))
     out[f"disp/{int(lf)}/dev_loads"] = np.asarray(aux.device_loads)
+
+# tests/test_collective_volume.py's configuration: olmoe's smoke config
+# (GLU experts with SiLU) through the ring plan, against its oracle
+import repro.configs as C
+cfgo = C.get_smoke("olmoe-1b-7b").replace(dtype="float32")
+Eo, Lo = cfgo.moe.num_experts, M.num_moe_layers(cfgo)
+sho = homogeneous_sharding(Lo, Eo, EP)
+loadso = np.linspace(2, 1, Eo)[None].repeat(Lo, 0)
+kob, kow, kox = jax.random.split(jax.random.PRNGKey(1), 3)
+ref_bufo = jax.random.normal(kob, (M.buffer_rows(cfgo, 1),
+                                   M.chunk_len(cfgo))) * 0.05
+wro = jax.random.normal(kow, (cfgo.d_model, Eo)) * 0.1
+xo = jax.random.normal(kox, (64, cfgo.d_model))
+pa1o = PlanArrays(**jax.tree.map(lambda a: a[0], M.plan_to_arrays(
+    ep_materialization(homogeneous_sharding(Lo, Eo, 1)))._asdict()))
+plano = sparse_materialization(sho, loadso, t=Eo, m=2, impl="ring")
+pa_o = PlanArrays(**jax.tree.map(lambda a: a[0],
+                  M.plan_to_arrays(plano)._asdict()))
+rto = M.MoERuntime(mesh=mesh, batch_axes=("data",), impl="ring", m=2,
+                   capacity=64)
+gixo = (sho.owner_dev * sho.rows_per_device + sho.owner_row).reshape(-1)
+bufo = jnp.zeros((sho.rows_per_device * EP, M.chunk_len(cfgo))
+                 ).at[gixo].set(ref_bufo)
+bufso = jax.device_put(bufo, NamedSharding(mesh, P("model", "data")))
+xso = jax.device_put(xo, NamedSharding(mesh, P(AX, None)))
+yo = jax.jit(lambda xx, bb: M.moe_layer(cfgo, rto, xx, wro, bb, pa_o)[0]
+             )(xso, bufso)
+go = jax.jit(jax.grad(lambda bb: jnp.sum(
+    M.moe_layer(cfgo, rto, xso, wro, bb, pa_o)[0] ** 2)))(bufso)
+oracle = M.MoERuntime(mesh=None)
+out.update({
+    "olmoe/x": np.asarray(xo), "olmoe/wr": np.asarray(wro),
+    "olmoe/loads": loadso, "olmoe/buf": np.asarray(bufo),
+    "olmoe/y": np.asarray(yo), "olmoe/g": np.asarray(go),
+    "olmoe/gix": np.asarray(gixo),
+    "olmoe/y_ref": np.asarray(M.moe_layer(cfgo, oracle, xo, wro, ref_bufo,
+                                          pa1o)[0]),
+    "olmoe/g_ref": np.asarray(jax.grad(lambda b: jnp.sum(M.moe_layer(
+        cfgo, oracle, xo, wro, b, pa1o)[0] ** 2))(ref_bufo))})
 np.savez(OUT, **out)
 print("JAX ORACLE WRITTEN")
 """
@@ -187,15 +226,23 @@ def test_port_plans_equal_the_reference_plans(both, tag):
                                       jx[f"{tag}/{t}"])
 
 
-@pytest.mark.parametrize("tag", cases.MOE_TAGS)
+def _oracle(jx, tag, what):
+    """The mesh-less oracle's output or gradient for ``tag``: the tiny
+    config's, or the olmoe case's own."""
+    return jx.get(f"{tag}/{what}", jx[what])
+
+
+@pytest.mark.parametrize("tag", cases.LAYER_TAGS)
 def test_forward_matches_jax_mesh_and_oracle(both, tag):
+    """Every plan of the tiny config, and olmoe's smoke config (GLU experts
+    with SiLU) through the ring plan."""
     jx, ranks = both
     y = _rows(ranks, tag)
     assert np.abs(y - jx[f"{tag}/y"]).max() < 1e-4
-    assert np.abs(y - jx["y_ref"]).max() < 1e-4
+    assert np.abs(y - _oracle(jx, tag, "y_ref")).max() < 1e-4
 
 
-@pytest.mark.parametrize("tag", cases.MOE_TAGS)
+@pytest.mark.parametrize("tag", cases.LAYER_TAGS)
 def test_buffer_grad_matches_jax_mesh_and_oracle(both, tag):
     """The hand-written SparseReduceScatter lands the gradient on the
     owner's rows: the assembled shards equal JAX's transpose of its gather
@@ -204,7 +251,7 @@ def test_buffer_grad_matches_jax_mesh_and_oracle(both, tag):
     g = _full_grad(ranks, tag)
     want = jx[f"{tag}/g"]
     assert np.abs(g - want).max() / np.abs(want).max() < 1e-4
-    ref = jx["g_ref"]
+    ref = _oracle(jx, tag, "g_ref")
     assert np.abs(g[jx[f"{tag}/gix"]] - ref).max() / np.abs(ref).max() < 1e-4
 
 

@@ -93,10 +93,9 @@ def _close_trees(got, want, tol):
             raise AssertionError(f"leaf {k}: {e}") from None
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jconfigs.get_smoke(ARCH)
-    cfg = configs.get_smoke(ARCH)
+def _setup_of(arch):
+    jcfg = jconfigs.get_smoke(arch)
+    cfg = configs.get_smoke(arch)
     jparams = jmdl.init_params(jcfg, jax.random.PRNGKey(0))
     np_tree = jax.tree.map(np.asarray, jparams)
     L = jmoe.num_moe_layers(jcfg)
@@ -106,6 +105,11 @@ def setup():
         placement.homogeneous_sharding(L, cfg.moe.num_experts, 1)), "cpu")
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, np_tree=np_tree,
                 jpa=jpa, pa=pa)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup_of(ARCH)
 
 
 def _params(setup):
@@ -203,26 +207,47 @@ def test_adamw_skip_is_bit_exact():
 # ---------------------------------------------------------------------------
 # loss and gradients
 # ---------------------------------------------------------------------------
-def test_chunked_xent_matches_jax_and_plain_xent(setup):
+@pytest.mark.parametrize("vocab,tied", [(None, True), (30_592, True),
+                                        (49_155, True), (50_304, False)],
+                         ids=["smoke", "bert-moe", "granite", "olmoe"])
+def test_chunked_xent_matches_jax_and_plain_xent(setup, vocab, tied):
+    """The smoke vocabulary, and bert-moe's, granite's (odd) and olmoe's
+    (untied: the ``unembed`` matrix) at the smoke width."""
     cfg, jcfg = setup["cfg"], setup["jcfg"]
     rng = np.random.default_rng(3)
+    if vocab is None:
+        emb = {"embedding": setup["np_tree"]["embed"]["embedding"]}
+    else:
+        cfg, jcfg = (c.replace(vocab_size=vocab, tie_embeddings=tied)
+                     for c in (cfg, jcfg))
+        emb = {"embedding": rng.standard_normal(
+            (vocab, cfg.d_model)).astype(np.float32) * 0.02}
+        if not tied:
+            emb["unembed"] = rng.standard_normal(
+                (cfg.d_model, vocab)).astype(np.float32) * 0.02
     h = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
     lab = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
     lab[0, :5] = -1                                   # ignored positions
-    emb = setup["np_tree"]["embed"]
 
     def jl(hh, e):
-        return jst.chunked_xent(jcfg, {"embedding": e}, hh, jnp.asarray(lab))
+        return jst.chunked_xent(jcfg, e, hh, jnp.asarray(lab))
     jv, (jgh, jge) = jax.value_and_grad(jl, argnums=(0, 1))(
-        jnp.asarray(h), jnp.asarray(emb["embedding"]))
+        jnp.asarray(h), {k: jnp.asarray(v) for k, v in emb.items()})
     th = torch.from_numpy(h).requires_grad_(True)
-    te = torch.from_numpy(emb["embedding"].copy()).requires_grad_(True)
-    tv = st.chunked_xent(cfg, {"embedding": te}, th, torch.from_numpy(lab))
+    te = {k: torch.from_numpy(v.copy()).requires_grad_(True)
+          for k, v in emb.items()}
+    tv = st.chunked_xent(cfg, te, th, torch.from_numpy(lab))
     tv.backward()
     _close(tv, jv, 1e-5)
     _close(th.grad, jgh, 1e-5)
-    _close(te.grad, jge, 1e-5)
-    full = st.cross_entropy(th @ te.t(), torch.from_numpy(lab))
+    for k in emb:          # untied: the embedding gets no gradient here
+        if te[k].grad is None:
+            assert k == "embedding" and not tied and not np.asarray(
+                jge[k]).any()
+        else:
+            _close(te[k].grad, jge[k], 1e-5)
+    w = te["unembed"] if "unembed" in te else te["embedding"].t()
+    full = st.cross_entropy(th @ w, torch.from_numpy(lab))
     _close(full, jv, 1e-5)
 
 
@@ -255,27 +280,38 @@ def _full_width_jax_grads(jcfg, jpa, jb):
     """(loss, params, grads) of JAX's loss at JAX's init, as numpy copies,
     so that no JAX buffer outlives the call."""
     jparams = jmdl.init_params(jcfg, jax.random.PRNGKey(0))
-    (jloss, _), jg = jax.value_and_grad(
+    # jitted, so that XLA reuses buffers: op by op the 1-layer gpt-moe-l
+    # case peaked at 17 GB of host memory
+    (jloss, _), jg = jax.jit(jax.value_and_grad(
         lambda p: jst.loss_fn(jcfg, jmdl.Runtime(), p, jb, jpa),
-        has_aux=True)(jparams)
+        has_aux=True))(jparams)
     return (float(jloss), jax.tree.map(np.array, jparams),
             jax.tree.map(np.array, jg))
 
 
-def test_full_width_two_layers_loss_and_grads_match_jax():
-    """gpt-moe-s at full width (d_model 768, 64 experts, vocab 50,304) cut
-    to 2 layers, f32, batch 2 x 128: the loss and every gradient leaf
-    against ``jax.value_and_grad`` of the JAX loss, from JAX's init."""
-    jcfg = jconfigs.get(ARCH).replace(num_layers=2, dtype="float32")
-    cfg = configs.get(ARCH).replace(num_layers=2, dtype="float32")
-    assert (cfg.d_model, cfg.moe.num_experts, cfg.vocab_size) == \
-        (768, 64, 50_304)
+@pytest.mark.parametrize("arch,layers,b,widths", [
+    (ARCH, 2, 2, (768, 64, 2, 1536, 50_304)),
+    ("gpt-moe-l", 1, 1, (1536, 64, 2, 3072, 50_304)),
+    ("olmoe-1b-7b", 1, 1, (2048, 64, 8, 1024, 50_304))],
+    ids=[ARCH, "gpt-moe-l", "olmoe-1b-7b"])
+def test_full_width_two_layers_loss_and_grads_match_jax(arch, layers, b,
+                                                        widths):
+    """Full width (d_model, experts, top-k, expert d_ff, vocab) cut in
+    depth, f32, batch ``b`` x 128: the loss and every gradient leaf against
+    ``jax.value_and_grad`` of the JAX loss, from JAX's init.  gpt-moe-s at
+    2 layers; gpt-moe-l (d_model 1,536, 16 heads of 96) and olmoe (d_model
+    2,048, 16 heads of 128, GLU experts with SiLU at top-8, RMS norm,
+    untied embeddings) at 1 layer, batch 1."""
+    jcfg = jconfigs.get(arch).replace(num_layers=layers, dtype="float32")
+    cfg = configs.get(arch).replace(num_layers=layers, dtype="float32")
+    assert (cfg.d_model, cfg.moe.num_experts, cfg.moe.experts_per_token,
+            cfg.moe.d_ff, cfg.vocab_size) == widths
     L = jmoe.num_moe_layers(jcfg)
     jpa = jmoe.plan_to_arrays(jplacement.ep_materialization(
         jplacement.homogeneous_sharding(L, jcfg.moe.num_experts, 1)))
     pa = moe.plan_to_arrays(placement.ep_materialization(
         placement.homogeneous_sharding(L, cfg.moe.num_experts, 1)), "cpu")
-    jb, tb = _batch(cfg, 12, b=2, s=128)
+    jb, tb = _batch(cfg, 12, b=b, s=128)
     jloss, np_params, jg = _full_width_jax_grads(jcfg, jpa, jb)
     params = params_from_jax(np_params, "cpu")
     del np_params
@@ -285,7 +321,7 @@ def test_full_width_two_layers_loss_and_grads_match_jax():
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         # _close's criterion, a block of rows at a time: the expert buffer's
-        # gradient has 302M entries
+        # gradient has 302M (gpt-moe-s) to 604M (gpt-moe-l) entries
         g, w = _np(got[k]).reshape(-1), w.reshape(-1)
         scale = max(1e-12, float(np.abs(w).max()))
         for i in range(0, w.size, 1 << 22):
@@ -336,9 +372,14 @@ def test_train_step_matches_jax(setup):
     _close_trees(ts.opt.mu, jax.tree.map(np.asarray, js.opt.mu), 5e-4)
 
 
-def test_microbatched_step_matches_full_batch(setup):
+@pytest.mark.parametrize("arch", [ARCH, "olmoe-1b-7b"])
+def test_microbatched_step_matches_full_batch(setup, arch):
     """microbatch=4 against one full batch: the aux loss is off, since the
-    load-balance term of a batch is not the mean of its microbatches'."""
+    load-balance term of a batch is not the mean of its microbatches'.
+    Also olmoe's smoke config: GLU experts with SiLU, RMS norm, untied
+    embeddings."""
+    if arch != ARCH:
+        setup = _setup_of(arch)
     cfg = setup["cfg"]
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, aux_loss_weight=0.0))
     _, tb = _batch(cfg, 7, b=8)
@@ -360,6 +401,44 @@ def test_microbatched_step_matches_full_batch(setup):
     for (k, a), (_, b) in zip(_flat(s4.params), _flat(s1.params)):
         np.testing.assert_allclose(_np(a), _np(b), atol=0.01 * 1e-3, rtol=0,
                                    err_msg=k)
+
+
+def test_expert_counts_feed_predictor():
+    """``tests/test_train_e2e.py::test_expert_counts_feed_predictor`` on
+    olmoe's smoke config: one step's expert counts are (MoE layers,
+    experts) and count every (token, k) assignment once, as JAX's; two
+    steps of the Hecate loop hand them to the load predictor, whose
+    prediction is their mean."""
+    su = _setup_of("olmoe-1b-7b")
+    cfg, jcfg = su["cfg"], su["jcfg"]
+    jb, tb = _batch(cfg, 3, b=4, s=16)
+    js = jst.init_state(jcfg, jax.random.PRNGKey(0))
+    _, jm = jax.jit(jst.build_train_step(jcfg, jmdl.Runtime(),
+                                         JTrainConfig()))(js, jb, su["jpa"])
+    params = _params(su)
+    ts = st.TrainState(params, adamw.init(params),
+                       torch.zeros((), dtype=torch.int32))
+    _, tm = st.build_train_step(cfg, mdl.Runtime(**TRAIN_RT),
+                                TrainConfig())(ts, tb, su["pa"])
+    counts = _np(tm["expert_counts"])
+    L = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    assert counts.shape == (L, cfg.moe.num_experts)
+    np.testing.assert_array_equal(counts.sum(axis=1),
+                                  4 * 16 * cfg.moe.experts_per_token)
+    np.testing.assert_array_equal(counts, np.asarray(jm["expert_counts"]))
+
+    sched = trainer.HecateScheduler(cfg, ep=1, impl="ep", device="cpu")
+    trainer.train_loop(
+        cfg, mdl.Runtime(**TRAIN_RT), TrainConfig(),
+        pipeline.make_stream(cfg.vocab_size, 16, 4, seed=3),
+        scheduler=sched, num_steps=2, log_every=0, device="cpu")
+    seen = sched.predictor.history
+    assert len(seen) == 2 and all(
+        h.shape == (L, cfg.moe.num_experts)
+        and (h.sum(axis=1) == 4 * 16 * cfg.moe.experts_per_token).all()
+        for h in seen)
+    np.testing.assert_allclose(sched.predictor.predict(),
+                               (seen[0] + seen[1]) / 2)
 
 
 def test_fault_poisoned_step_is_skipped_and_loop_aborts(setup):

@@ -15,6 +15,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.common.config import ModelConfig, MoEConfig
+from repro_torch.configs import get_smoke
 from repro_torch.core import moe as M
 from repro_torch.core.placement import (ep_materialization,
                                         homogeneous_sharding)
@@ -28,6 +29,9 @@ TINY = ModelConfig(name="tiny", arch_type="moe", num_layers=1, d_model=16,
                                  d_ff=24),
                    dtype="float32")
 MOE_TAGS = ("ring", "a2a", "dense", "ep", "a2a-hetero")
+# and olmoe's smoke config (GLU experts with SiLU) through the ring plan
+OLMOE = get_smoke("olmoe-1b-7b").replace(dtype="float32")
+LAYER_TAGS = MOE_TAGS + ("olmoe",)
 TABLES = ("local_rows", "local_experts", "extra_experts", "ring_send_rows")
 
 
@@ -63,7 +67,7 @@ class _IndexOps(TorchDispatchMode):
 
 
 def _layer(grid, tag, plan, x, wr, buf_full, capacity, use_pallas=False,
-           local_first=True, spy=False):
+           local_first=True, spy=False, cfg=TINY):
     """One forward and backward of the layer on this rank: its output rows,
     its buffer shard's gradient, the aux and the collective record."""
     pa = M.plan_to_arrays(plan, "cpu").layer(0)
@@ -78,7 +82,7 @@ def _layer(grid, tag, plan, x, wr, buf_full, capacity, use_pallas=False,
     mode = _IndexOps() if spy else None
     M.reset_collective_counts()
     with mode if spy else contextlib.nullcontext():
-        y, aux = M.moe_layer(TINY, rt, xl, torch.from_numpy(wr), buf, pa)
+        y, aux = M.moe_layer(cfg, rt, xl, torch.from_numpy(wr), buf, pa)
         fwd = M.collective_counts()
         M.reset_collective_counts()
         g = torch.autograd.grad((y ** 2).sum(),
@@ -108,6 +112,11 @@ def moe_rank(grid, npz: str):
                               z["ring/buf"], 64, use_pallas=True, spy=True)
     res["drop"] = _layer(grid, "ring", plans["ring"], x, wr, z["ring/buf"],
                          z["drop/capacity"].item())
+    E, L = OLMOE.moe.num_experts, M.num_moe_layers(OLMOE)
+    plan = sparse_materialization(homogeneous_sharding(L, E, grid.model),
+                                  z["olmoe/loads"], t=E, m=2, impl="ring")
+    res["olmoe"] = _layer(grid, "olmoe", plan, z["olmoe/x"], z["olmoe/wr"],
+                          z["olmoe/buf"], 64, cfg=OLMOE)
     # the volume laws at a small capacity, as tests/test_collective_volume.py
     res["volume"] = {tag: _layer(grid, tag, plans[tag], x, wr,
                                  z[f"{tag}/buf"], 8)
