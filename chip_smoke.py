@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 3,10]
+    python3 chip_smoke.py [--out results.json] [--phases 3,11]
 
 Run from the repository root (it imports ``src/repro_torch`` and nothing of
 JAX).  In order it:
@@ -33,7 +33,11 @@ JAX).  In order it:
    and 512-bucket prefill, GELU or GLU with SiLU, top-2 or top-8, D up to
    2,048), B4 and B5 at their heads (16 of 96, 16 of 128, 24 of 64 over 8
    KV heads) and B1-train, B2 and B3 at each training path's layout (bf16;
-   f32 on 8 slots of it);
+   f32 on 8 slots of it); then at phase 11's new shapes: B5 at Gemma-2's
+   decode (16 of 256 over 8 KV heads, window 4,096, softcap 50), B4 at
+   Jamba's exact prompt lengths (32 of 128 over 8 KV heads, causal and
+   windowed) and B1 (both forms), B2 and B3 at Jamba's experts (D 4,096,
+   F 14,336, SiLU GLU, weights at the model's fan-in scale);
 4. serves gpt-moe-s at full width (12 layers, bf16 compute, f32 master
    weights from a seed) through the continuous-batching scheduler: four
    byte-encoded prompts of mixed lengths, 16 greedy tokens each; it counts
@@ -124,13 +128,25 @@ JAX).  In order it:
    step ms, tokens/s, peak; bert-moe also one ``causal=False`` step), and
    one f32 step of gpt-moe-l at full width cut to 1 layer whose every
    gradient must match the plain versions';
-11. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
-   shapes, then at each phase-10 configuration's), then
+11. runs the decoder-only families at full width (``SLICE11``: smollm,
+   mamba2, minitron, gemma2, qwen1.5, qwen2-vl, jamba), one at a time:
+   serving as phase 10 serves, at full depth or at the deepest cut in
+   whole superblocks that one card holds (a model with mamba layers
+   prefills at exact length; exactly the kernels its layers route to
+   launch), its f32 cut against the plain versions, for mamba2 and jamba
+   also decode after prefill against the full forward, for qwen2-vl a
+   forward of stand-in embeddings at distinct M-RoPE streams; then
+   training through phase 5's loop at batch 8 x 2,048 at its depth cut
+   (qwen1.5, qwen2-vl and jamba: one superblock does not fit; CPU tests
+   only);
+12. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
+   shapes, then at each phase-10 configuration's, then the serving
+   kernels at phase 11's new shapes), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
 a CUDA device, or without the repository around it, it fails.
-``--phases`` runs a subset of phases 3-10 after the build (phase 7 reads
+``--phases`` runs a subset of phases 3-11 after the build (phase 7 reads
 phase 5's step median where phase 5 ran); a subset prints no kernel table
 and no result line.
 """
@@ -214,6 +230,25 @@ SLICE10 = (("gpt-moe-l", "grid", 4, 8, 2048),
            ("granite-moe-3b-a800m", "loop", 28, 8, 2048))
 SLICE10_NEW = 8        # greedy tokens per served request
 SLICE10_STEPS = 3      # counted training steps
+# phase 11: the decoder-only families at full width, one at a time:
+# (name, layers served (None: all), layers trained (0: not on the card),
+# batch, seq), each trained through phase 5's train_loop path.  A cut is
+# whole superblocks, the deepest whose peak one card holds
+# (tools/train_depth_probe.py for training; PERF.md §4).  Three do not
+# train at batch 8 x 2,048 on one card even at one superblock: qwen1.5
+# and qwen2-vl ran out of memory at one layer, and Jamba's superblock
+# holds 12.3B parameters, ~197 GB of training state; they train in the
+# CPU tests against the JAX package only.
+SLICE11 = (("smollm-360m", None, 32, 8, 2048),
+           ("mamba2-1.3b", None, 48, 8, 2048),
+           ("minitron-8b", None, 6, 8, 2048),
+           ("gemma2-9b", None, 10, 8, 2048),
+           ("qwen1.5-110b", 11, 0, 8, 2048),
+           ("qwen2-vl-72b", 18, 0, 8, 2048),
+           ("jamba-v0.1-52b", 8, 0, 8, 2048))
+# tokens of the step whose ep layout phase 3 checks Jamba's expert kernels
+# at (16 slots of this many rows, two assignments a token)
+JAMBA_KERNEL_TOKENS = 4096
 # bf16 dgrad dx against its step-wise plain version (dx from hi + lo): the
 # same products summed in f32 in other orders land on neighbouring bf16
 # values at most: one ulp, 2^-7 of |dx|; as in tests/test_torch_kernels_gpu.py
@@ -327,16 +362,21 @@ def ptxas_stats(log: str):
 # ---------------------------------------------------------------------------
 # phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
-def _gm_weights(torch, g, dev, K, D, Fd, glu, dt):
-    """(wi, wg, wo) of K slots, wg None without a gate."""
+def _gm_weights(torch, g, dev, K, D, Fd, glu, dt, fan_in=False):
+    """(wi, wg, wo) of K slots, wg None without a gate; entries of 0.05,
+    or with ``fan_in`` of the model's init (1/sqrt of each matrix's fan-in:
+    at D 4,096 and F 14,336 entries of 0.05 give outputs of ~18, whose f32
+    sums no model's weights produce)."""
     def rnd(shp):
-        return torch.randn(shp, generator=g, device=dev).mul_(0.05).to(dt)
+        sc = shp[1] ** -0.5 if fan_in else 0.05
+        return torch.randn(shp, generator=g, device=dev).mul_(sc).to(dt)
     return rnd((K, D, Fd)), rnd((K, D, Fd)) if glu else None, \
         rnd((K, Fd, D))
 
 
 def check_grouped_mlp(torch, ops, dev, flush, K=64, D=768, Fd=1536,
-                      act="gelu", topk=2, ts=(4, 256, 512), seed=1):
+                      act="gelu", topk=2, ts=(4, 256, 512), seed=1,
+                      fan_in=False):
     """B1's inference form against its plain version at serving shapes
     (K slots of T rows, group sizes with empty and full slots, then a
     row_valid mask), both dtypes, and timed in bf16 at the decode tick's
@@ -348,7 +388,7 @@ def check_grouped_mlp(torch, ops, dev, flush, K=64, D=768, Fd=1536,
 
     def inputs(T, dt):
         x = torch.randn((K, T, D), generator=g, device=dev).mul_(0.3).to(dt)
-        return (x, *_gm_weights(torch, g, dev, K, D, Fd, glu, dt))
+        return (x, *_gm_weights(torch, g, dev, K, D, Fd, glu, dt, fan_in))
 
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
@@ -446,7 +486,7 @@ def check_grouped_mlp_train(torch, ops, dev, flush, K=64,
                             T=TRAIN_BATCH * TRAIN_SEQ, D=768, Fd=1536,
                             act="gelu", rows=2 * TRAIN_BATCH * TRAIN_SEQ,
                             experts=64, f32_slots=None, f32_rows=None,
-                            plain_slots=None, seed=4):
+                            plain_slots=None, seed=4, fan_in=False):
     """The three training stages at a training path's shapes: K slots of
     capacity T, ``rows`` valid (token, expert) assignments spread over the
     first ``experts`` slots as the dispatch lays them out (a prefix per
@@ -480,7 +520,7 @@ def check_grouped_mlp_train(torch, ops, dev, flush, K=64,
         def rnd(shp, sc):
             return torch.randn(shp, generator=g, device=dev).mul_(sc).to(dt)
         return (rnd((k_, t_, D), 0.3),
-                *_gm_weights(torch, g, dev, k_, D, Fd, glu, dt),
+                *_gm_weights(torch, g, dev, k_, D, Fd, glu, dt, fan_in),
                 rnd((k_, t_, D), 0.1))
 
     def held(name, labels, got, plain, residuals=(), tol=None):
@@ -805,40 +845,49 @@ def check_paged_attention(torch, ops, dev, flush):
     return res
 
 
-def _time_paged(torch, flush, q, k, v, ri, pos, positions):
+def _time_paged(torch, flush, q, k, v, ri, pos, positions, window=0,
+                softcap=0.0):
     """The kernel through its wrapper, on the page table the dispatcher
     derives from ``ri`` (made once, outside the timing), the plain version
     called directly on ``ri`` (its own input; neither through the
-    dispatcher), and SDPA on gathered K/V."""
+    dispatcher), and SDPA on gathered K/V (windowed with ``window``; it
+    has no logit softcap, which the other two apply)."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     tbl = (ri[:, ::PAGE_SIZE] // PAGE_SIZE).to(torch.int32).contiguous()
     run = lambda: pa.paged_decode_attention(  # noqa: E731
-        q, k, v, tbl, pos, page_size=PAGE_SIZE)
+        q, k, v, tbl, pos, page_size=PAGE_SIZE, window=window,
+        softcap=softcap)
     first = run()
     if not torch.equal(first, run()):
         raise CheckFailed("two identical paged_decode_attention calls gave "
                           "different bits")
     ms = time_ms(torch, run, flush)
     plain = time_ms(torch, lambda: ref.paged_decode_attention_ref(
-        q, k, v, ri, pos), flush)
+        q, k, v, ri, pos, window=window, softcap=softcap), flush)
     B, nq, hd = q.shape
     nkv = k.shape[1]
     kg = k[ri.long()].permute(0, 2, 1, 3).contiguous()   # (B, nkv, kv, hd)
     vg = v[ri.long()].permute(0, 2, 1, 3).contiguous()
-    mask = (torch.arange(ri.shape[1], device=q.device)[None, :]
-            <= pos[:, None].long())[:, None, None, :]
+    kpos = torch.arange(ri.shape[1], device=q.device)[None, :]
+    mask = kpos <= pos[:, None].long()
+    if window > 0:
+        mask &= kpos > pos[:, None].long() - window
+    mask = mask[:, None, None, :]
     qs = q[:, :, None]
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, kg, vg, attn_mask=mask, enable_gqa=True), flush)
     es = q.element_size()
-    toks = sum(p + 1 for p in positions)
+    toks = sum(min(p + 1, window) if window > 0 else p + 1
+               for p in positions)
     nbytes = 2 * q.numel() * es + toks * nkv * hd * es * 2 + ri.numel() // \
         PAGE_SIZE * 4 + B * 4
     b_ms, b_by = bound(nbytes, 4 * toks * nq * hd, "bfloat16")
+    extra = (f" window {window}" if window else "") + \
+        (f" softcap {softcap:g} (SDPA without it)" if softcap else "")
     return dict(shape=f"B={B} {nq}/{nkv} heads hd={hd} page {PAGE_SIZE} "
-                f"positions {positions} bf16", ms=ms, plain_ms=plain,
+                f"positions {positions}{extra} bf16", ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -940,6 +989,110 @@ def check_slice10_kernels(torch, ops, dev, flush):
                 f32_slots=8, f32_rows=min(T, 2048), plain_slots=8,
                 seed=40 + i))
         res[name] = r
+    return res
+
+
+def check_flash_exact_length(torch, ops, dev, flush, N, H, nkv, seed):
+    """B4 at the prompts' exact lengths (``PROMPT_LENS``: a model with
+    mamba layers prefills without padding), N query heads of H over nkv
+    (expanded by the dispatcher), causal and windowed: against the plain
+    version in both dtypes, in bf16 also against the step-wise version and
+    bitwise over two calls; timed in bf16 at the longest prompt."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errs = []
+
+    def qkv(S, dt):
+        return [torch.randn((1, S, n, H), generator=g, device=dev)
+                .mul_(0.5).to(dt) for n in (N, nkv, nkv)]
+
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for S in PROMPT_LENS:
+            for window in (0, 64):
+                q, k, v = qkv(S, dt)
+                kw = dict(causal=True, window=window)
+                got = ops.flash_attention(q, k, v, **kw)
+                with ops.reference_mode():
+                    want = ops.flash_attention(q, k, v, **kw)
+                label = (f"flash_attention_fwd (1,{S},{N},{H}) over {nkv} "
+                         f"KV heads causal window={window} {dname}")
+                errs.append(compare(torch, label, got, want, *TOL[dname]))
+                if dname == "bfloat16":
+                    kx, vx = (torch.repeat_interleave(a, N // nkv, dim=2)
+                              for a in (k, v))
+                    errs.append(compare(
+                        torch, f"{label} vs step-wise", got,
+                        ref.flash_attention_tiled_ref(q, kx, vx, **kw),
+                        *TILED_TOL))
+                    if not torch.equal(got, ops.flash_attention(q, k, v,
+                                                                **kw)):
+                        raise CheckFailed("two identical flash_attention "
+                                          "calls gave different bits")
+    q, k, v = qkv(max(PROMPT_LENS), torch.bfloat16)
+    k, v = (torch.repeat_interleave(a, N // nkv, dim=2).contiguous()
+            for a in (k, v))
+    return dict(_time_flash(torch, flush, q, k, v), max_abs_err=max(errs))
+
+
+def check_paged_model(torch, ops, dev, flush, N, H, nkv, window, softcap,
+                      seed):
+    """B5 at a model's decode heads (N query heads of H over nkv) with its
+    window and logit softcap, at the served tick's positions and with a
+    parked slot, also with a window that cuts into the pages (60): against
+    the plain version in both dtypes; timed in bf16 at the tick with the
+    model's window and softcap."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errs = []
+    positions = [n + SLICE10_NEW // 2 for n in PROMPT_LENS]
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for pos in (positions, positions[:3] + [-1]):
+            for w in (window, 60):
+                q, k, v, ri, p = _paged_inputs(torch, dev, g, pos, nkv,
+                                               N // nkv, dt, hd=H)
+                kw = dict(page_size=PAGE_SIZE, window=w, softcap=softcap)
+                got = ops.paged_decode_attention(q, k, v, ri, p, **kw)
+                with ops.reference_mode():
+                    want = ops.paged_decode_attention(q, k, v, ri, p, **kw)
+                errs.append(compare(
+                    torch, f"paged_decode_attention B=4 {N}/{nkv} heads "
+                    f"hd={H} window {w} softcap {softcap:g} positions {pos} "
+                    f"{dname}", got, want, *PAGED_TOL[dname]))
+    return dict(_time_paged(torch, flush, *_paged_inputs(
+        torch, dev, g, positions, nkv, N // nkv, torch.bfloat16, hd=H),
+        positions, window=window, softcap=softcap), max_abs_err=max(errs))
+
+
+def check_slice11_kernels(torch, ops, dev, flush):
+    """Phase 3 at phase 11's new kernel shapes: B5 at Gemma-2's decode
+    (16 of 256 over 8 KV heads, window 4,096, softcap 50), B4 at Jamba's
+    exact-length prefill (32 of 128 over 8 KV heads), and B1's inference
+    form, B1-train, B2 and B3 at Jamba's experts (16, top-2, D 4,096, F
+    14,336, SiLU GLU; weights at the model's fan-in scale) on its ``ep``
+    layout of a 4,096-token step (bf16; f32 on 4 slots cut to 1,024
+    rows).  Jamba trains on the CPU only (phase 11), so its training
+    kernels run here alone."""
+    import repro_torch.configs as configs
+    gem, jam = configs.get("gemma2-9b"), configs.get("jamba-v0.1-52b")
+    res = {"gemma2-9b": {"paged_decode_attention": check_paged_model(
+        torch, ops, dev, flush, gem.num_heads, gem.head_dim,
+        gem.num_kv_heads, gem.sliding_window, gem.attn_logit_softcap, 60)}}
+    m = jam.moe
+    r = {"flash_attention_fwd": check_flash_exact_length(
+        torch, ops, dev, flush, jam.num_heads, jam.head_dim,
+        jam.num_kv_heads, 61)}
+    r["grouped_mlp_fwd"] = check_grouped_mlp(
+        torch, ops, dev, flush, K=m.num_experts, D=jam.d_model, Fd=m.d_ff,
+        act=jam.act, topk=m.experts_per_token, ts=(4, 512), seed=62,
+        fan_in=True)
+    tokens = JAMBA_KERNEL_TOKENS
+    r.update(check_grouped_mlp_train(
+        torch, ops, dev, flush, K=m.num_experts, T=tokens, D=jam.d_model,
+        Fd=m.d_ff, act=jam.act, rows=m.experts_per_token * tokens,
+        experts=m.num_experts, f32_slots=4, f32_rows=min(tokens, 1024),
+        plain_slots=2, seed=63, fan_in=True))
+    res["jamba-v0.1-52b"] = r
     return res
 
 
@@ -2443,15 +2596,7 @@ def _prefill_tick(torch, cfg, dev, prefill_fn, step_fn, snap, prompt,
     toks[0, :n] = torch.as_tensor(prompt, device=dev)
     batch = {"tokens": toks, "last_pos": torch.tensor([n - 1], device=dev)}
     lk, ck = prefill_fn(params, batch, pa, premat)
-    pages = -(-MAX_LEN // PAGE_SIZE) * MAX_SLOTS + 1
-    cache = mdl.init_paged_cache(cfg, MAX_SLOTS, pages * PAGE_SIZE, dev)
-    table = PageTable(PAGE_SIZE, MAX_LEN, list(range(1, n // PAGE_SIZE + 2)))
-    rows = torch.as_tensor(table.row_idx()[:n], device=dev).long()
-    for lay in cache:
-        for kv in ("k", "v"):
-            cache[lay][kv][:, rows] = ck[lay][kv][:, 0, :n]
-    ri = torch.zeros((MAX_SLOTS, MAX_LEN), dtype=torch.int32, device=dev)
-    ri[0] = torch.as_tensor(table.row_idx(), device=dev)
+    cache, ri = _paged_cache_of(torch, cfg, dev, ck, n)
     pos = torch.tensor([n, 0, 0, 0], dtype=torch.int32, device=dev)
     tk = torch.zeros((MAX_SLOTS, 1), dtype=torch.int32, device=dev)
     tk[0, 0] = int(lk[0, -1].argmax())
@@ -2459,13 +2604,61 @@ def _prefill_tick(torch, cfg, dev, prefill_fn, step_fn, snap, prompt,
     return lk, dk[:1]
 
 
-def serve_config(torch, ops, dev, card, name):
-    """Phase 10, serving: ``name`` at full width and depth (bf16 compute,
-    f32 master weights from seed 0) through the continuous-batching
-    scheduler, phase 4's prompts with ``SLICE10_NEW`` greedy tokens each;
-    two identical prefills and ticks bitwise equal; then full width cut to
-    1 layer in f32, one prefill and one tick through the kernels against
-    the plain versions."""
+def _paged_cache_of(torch, cfg, dev, ck, n):
+    """A fresh paged cache with a prefill's cache ``ck`` of ``n`` tokens in
+    slot 0, as the scheduler writes it (K/V rows into its pages, a mamba
+    layer's state into the slot's dense state); (cache, row_idx)."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.kv_pool import PageTable
+    pages = -(-MAX_LEN // PAGE_SIZE) * MAX_SLOTS + 1
+    cache = mdl.init_paged_cache(cfg, MAX_SLOTS, pages * PAGE_SIZE, dev)
+    table = PageTable(PAGE_SIZE, MAX_LEN, list(range(1, n // PAGE_SIZE + 2)))
+    rows = torch.as_tensor(table.row_idx()[:n], device=dev).long()
+    for j, kind in enumerate(cfg.layer_pattern):
+        dst, src = cache[f"l{j}"], ck[f"l{j}"]
+        for k in dst:
+            if kind == "mamba":
+                dst[k][:, 0] = src[k][:, 0]
+            else:
+                dst[k][:, rows] = src[k][:, 0, :n]
+    ri = torch.zeros((MAX_SLOTS, MAX_LEN), dtype=torch.int32, device=dev)
+    ri[0] = torch.as_tensor(table.row_idx(), device=dev)
+    return cache, ri
+
+
+def _serve_kernels(cfg):
+    """The kernels a config's serving path launches, as the reference
+    routes: B1 for MoE layers, B5 for attention layers' decode, B4 for
+    their prefill where there is no logit softcap."""
+    attn_layers = any(k != "mamba" for k in cfg.layer_pattern)
+    return tuple(k for k, on in (
+        ("grouped_mlp_fwd", cfg.moe.enabled),
+        ("flash_attention_fwd", attn_layers
+         and cfg.attn_logit_softcap == 0.0),
+        ("paged_decode_attention", attn_layers)) if on)
+
+
+def _f32_cut(cfg):
+    """Full width cut to its shortest whole model in f32, where no route
+    flips (C7): one superblock of the layer pattern; for a hybrid, the
+    pattern's prefix through its first attention layer (Jamba: 4 mamba
+    layers, 2 of them MoE, and the attention layer: its superblock of 8
+    would not fit in f32 beside its expert slots)."""
+    pat = cfg.layer_pattern
+    if "mamba" in pat and "attn" in pat:
+        pat = pat[:pat.index("attn") + 1]
+    return cfg.replace(num_layers=len(pat), layer_pattern=pat,
+                       dtype="float32")
+
+
+def serve_config(torch, ops, dev, card, name, layers=None):
+    """Phases 10 and 11, serving: ``name`` at full width and depth, or cut
+    to ``layers`` (bf16 compute, f32 master weights from seed 0) through
+    the continuous-batching scheduler, phase 4's prompts with
+    ``SLICE10_NEW`` greedy tokens each: exactly the kernels of
+    ``_serve_kernels`` launched; two identical prefills and ticks bitwise
+    equal; then full width cut in f32 (``_f32_cut``), one prefill and one
+    tick through the kernels against the plain versions."""
     import repro_torch.configs as configs
     from repro_torch.models import model as mdl
     from repro_torch.serve.engine import (Engine, build_paged_serve_step,
@@ -2473,10 +2666,12 @@ def serve_config(torch, ops, dev, card, name):
     from repro_torch.serve.scheduler import DONE, RequestScheduler
 
     cfg = configs.get(name)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     held_gb, freed_gb = _held_gb(torch)
     torch.cuda.reset_peak_memory_stats()
     params = mdl.init_params(cfg, 0, dev)
-    pa = _plan(torch, cfg, dev)
+    pa = _plan(torch, cfg, dev) if cfg.moe.enabled else None
     eng = Engine(cfg, mdl.Runtime(), params, max_len=MAX_LEN, pa=pa)
     t = time.perf_counter()
     eng._snapshot()
@@ -2509,10 +2704,10 @@ def serve_config(torch, ops, dev, card, name):
             len(r.generated) != SLICE10_NEW for r in reqs):
         raise CheckFailed(f"{name}: requests did not finish with "
                           f"{SLICE10_NEW} tokens each")
-    if min(launches[k] for k in SERVE_KERNELS) <= 0 or any(
-            launches[k] for k in TRAIN_KERNELS):
-        raise CheckFailed(f"{name}: a serving kernel never launched, or a "
-                          f"training kernel did: {launches}")
+    want = set(_serve_kernels(cfg))
+    if {k for k, n in launches.items() if n} != want:
+        raise CheckFailed(f"{name}: launched {launches}, expected exactly "
+                          f"{sorted(want)}")
     snap = eng._snapshot()
     p = prompts[1]
     bucket = rs._bucket(p.size)
@@ -2526,7 +2721,8 @@ def serve_config(torch, ops, dev, card, name):
     eng.close()
     del eng, rs, snap, a, b, params
     med = statistics.median(tick_ms)
-    print(f"  {name} serving: {cfg.num_layers} layers, {len(reqs)} requests "
+    print(f"  {name} serving: {cfg.num_layers} of "
+          f"{configs.get(name).num_layers} layers, {len(reqs)} requests "
           f"DONE ({SLICE10_NEW} tokens each), logits finite; launches "
           f"{launches}; flash_attention_fwd per bucket "
           f"{dict(sorted(per_bucket.items()))}; two identical prefills "
@@ -2537,10 +2733,10 @@ def serve_config(torch, ops, dev, card, name):
           f"peak {peak_gb:.2f} GB ({held_gb:.3f} GB held before, "
           f"{freed_gb:.3f} GB then freed by the garbage collector)")
 
-    # full width cut to 1 layer, f32: no route flips (C7)
-    cfg1 = cfg.replace(num_layers=1, dtype="float32")
+    # full width cut in f32: no route flips (C7)
+    cfg1 = _f32_cut(cfg)
     p1 = mdl.init_params(cfg1, 0, dev)
-    pa1 = _plan(torch, cfg1, dev)
+    pa1 = _plan(torch, cfg1, dev) if cfg1.moe.enabled else None
     run_p = build_prefill_step(cfg1, mdl.Runtime())
     run_s = build_paged_serve_step(cfg1, mdl.Runtime(), PAGE_SIZE)
     with Engine(cfg1, mdl.Runtime(), p1, max_len=MAX_LEN, pa=pa1) as e1:
@@ -2550,22 +2746,100 @@ def serve_config(torch, ops, dev, card, name):
         with ops.reference_mode():
             r1 = _prefill_tick(torch, cfg1, dev, run_p, run_s, snap1, p,
                                bucket)
+        extra = {}
+        if "mamba" in cfg.layer_pattern:
+            extra["decode_after_prefill_max_dlogit"] = \
+                _decode_after_prefill(torch, cfg1, dev, run_p, run_s, snap1,
+                                      p, name)
+        if cfg.mrope:
+            extra["embeds_prefill_max_dlogit"] = _embeds_prefill(
+                torch, ops, cfg1, dev, snap1, p.size, name)
     del snap1, p1
     d1 = [float((x - y).abs().max()) for x, y in zip(k1, r1)]
     s1 = max(float(y.abs().max()) for y in r1)
-    print(f"  {name} cut to 1 layer, f32: max |dlogit| kernels vs plain "
-          f"versions: prefill {d1[0]:.3e}, decode tick {d1[1]:.3e} (max "
-          f"|logit| {s1:.3f}; tolerance 1e-3 x max |logit|)")
+    print(f"  {name} cut to {cfg1.num_layers} layers, f32: max |dlogit| "
+          f"kernels vs plain versions: prefill {d1[0]:.3e}, decode tick "
+          f"{d1[1]:.3e} (max |logit| {s1:.3f}; tolerance 1e-3 x max "
+          f"|logit|)")
     if max(d1) > 1e-3 * s1:
-        raise CheckFailed(f"{name}: 1-layer f32 logits disagree with the "
+        raise CheckFailed(f"{name}: f32 logits at the cut disagree with the "
                           f"plain path")
     torch.cuda.empty_cache()
     return dict(layers=cfg.num_layers, launches=launches,
+                f32_cut_layers=cfg1.num_layers, **extra,
                 flash_launches_per_bucket=per_bucket, prefill_ms=prefill_ms,
                 decode_tick_ms=tick_ms, median_decode_tick_ms=med,
                 slot_cache_build_ms=slot_ms, peak_memory_gb=peak_gb,
                 held_before_gb=held_gb, freed_by_gc_gb=freed_gb,
                 max_dlogit_1_layer_f32=d1, max_logit_1_layer_f32=s1)
+
+
+def _decode_after_prefill(torch, cfg, dev, run_p, run_s, snap, prompt,
+                          name):
+    """A model with mamba layers, at its f32 cut: the prompt but its last 4
+    tokens prefilled at exact length and handed to a paged cache (the SSM
+    state into slot 0's dense state), then those 4 tokens decoded one by
+    one: each step's logits against the full forward's at that position
+    (1e-3 of its largest logit).  Returns the largest difference."""
+    from repro_torch.models import model as mdl
+    params, pa, premat = snap
+    n = prompt.size
+    k0 = n - 4
+    toks = torch.as_tensor(prompt, device=dev).to(torch.int32)[None]
+    with torch.inference_mode():
+        full, _ = mdl.forward(cfg, mdl.Runtime(), params, toks, pa=pa,
+                              premat=premat)
+    _, ck = run_p(params, {"tokens": toks[:, :k0]}, pa, premat)
+    cache, ri = _paged_cache_of(torch, cfg, dev, ck, k0)
+    errs = []
+    for i in range(k0, n):
+        tk = torch.zeros((MAX_SLOTS, 1), dtype=torch.int32, device=dev)
+        tk[0, 0] = toks[0, i]
+        pos = torch.tensor([i, 0, 0, 0], dtype=torch.int32, device=dev)
+        lg, cache = run_s(params, cache, tk, pos, ri, pa, premat)
+        errs.append(float((lg[0, 0] - full[0, i]).abs().max()))
+    scale = float(full.abs().max())
+    print(f"  {name} cut to {cfg.num_layers} layers, f32: {n - k0} decode "
+          f"steps after a prefill of {k0} tokens against the full forward: "
+          f"max |dlogit| {max(errs):.3e} (max |logit| {scale:.3f}; "
+          f"tolerance 1e-3 x max |logit|)")
+    if max(errs) > 1e-3 * scale:
+        raise CheckFailed(f"{name}: decode after prefill disagrees with "
+                          f"the full forward")
+    return max(errs)
+
+
+def _embeds_prefill(torch, ops, cfg, dev, snap, S, name):
+    """Qwen2-VL at its f32 cut: one forward of S stand-in frontend
+    embeddings at distinct temporal, height and width position streams
+    through the kernels (one flash-attention launch a layer) against the
+    plain versions (1e-3 of the largest logit).  Returns the largest
+    difference."""
+    from repro_torch.models import model as mdl
+    params = snap[0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    emb = torch.randn((1, S, cfg.d_model), generator=g, device=dev)
+    hw = torch.randint(0, 16, (2, S), generator=g, device=dev)
+    pos = torch.stack([torch.arange(S, device=dev), hw[0], hw[1]], -1)[None]
+    with torch.inference_mode():
+        n0 = ops.launch_counts()["flash_attention_fwd"]
+        got, _ = mdl.forward(cfg, mdl.Runtime(), params, embeds=emb,
+                             positions=pos)
+        flash = ops.launch_counts()["flash_attention_fwd"] - n0
+        with ops.reference_mode():
+            want, _ = mdl.forward(cfg, mdl.Runtime(), params, embeds=emb,
+                                  positions=pos)
+    d = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  {name} cut to {cfg.num_layers} layers, f32: forward of {S} "
+          f"stand-in embeddings at distinct t/h/w position streams: "
+          f"flash_attention_fwd launched {flash} times; max |dlogit| "
+          f"kernels vs plain versions {d:.3e} (max |logit| {scale:.3f}; "
+          f"tolerance 1e-3 x max |logit|)")
+    if flash != cfg.num_layers or not d <= 1e-3 * scale:
+        raise CheckFailed(f"{name}: embeds prefill through the kernels "
+                          f"disagrees with the plain path")
+    return d
 
 
 def train_config(torch, ops, dev, card, name, path, layers, batch, seq,
@@ -2579,13 +2853,14 @@ def train_config(torch, ops, dev, card, name, path, layers, batch, seq,
     import repro_torch.configs as configs
     from repro_torch.core import moe
     from repro_torch.core.moe import MoERuntime
-    from repro_torch.data.pipeline import make_stream
+    from repro_torch.data.pipeline import EmbedStubStream, make_stream
     from repro_torch.models import model as mdl
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_lib
     from repro_torch.train.trainer import HecateScheduler, train_loop
 
     cfg = configs.get(name).replace(num_layers=layers)
+    moe_on = cfg.moe.enabled
     on_grid = path == "grid"
     impl = "ring" if on_grid else "ep"
     rt = mdl.Runtime(use_pallas=False, moe=MoERuntime(
@@ -2593,6 +2868,8 @@ def train_config(torch, ops, dev, card, name, path, layers, batch, seq,
                             else {})))
     tc = _train_setup(torch, dev, cfg)[1]
     stream = make_stream(cfg.vocab_size, seq, batch, kind="bytes", seed=0)
+    if cfg.frontend is not None:        # stand-in frontend embeddings
+        stream = EmbedStubStream(stream, cfg.d_model)
 
     def fresh():
         if on_grid:
@@ -2600,22 +2877,26 @@ def train_config(torch, ops, dev, card, name, path, layers, batch, seq,
         return step_lib.init_state(cfg, 0, device=dev)
 
     def sched():
-        return HecateScheduler(cfg, ep=1, impl=impl, device=str(dev))
+        return HecateScheduler(cfg, ep=1, impl=impl, device=str(dev)) \
+            if moe_on else None
 
     held_gb, freed_gb = _held_gb(torch)
     torch.cuda.reset_peak_memory_stats()
     batch0 = {k: torch.as_tensor(v, device=dev)
               for k, v in stream.next_batch().items()}
     step_fn = step_lib.build_train_step(cfg, rt, tc)
-    pa = sched().plan_arrays()
+    pa = sched().plan_arrays() if moe_on else None
     first = None
     for _ in range(2):
         state = fresh()
         state, m = step_fn(state, batch0, pa)
         leaves = adamw.leaves(state.params)
+        # the first step's parameters wait in host memory: a copy on the
+        # card would take the room of the training state's deepest cut
         if first is None:
-            first = ([t.detach().clone() for t in leaves], float(m["loss"]))
-        elif not all(torch.equal(a, b) for a, b in zip(first[0], leaves)):
+            first = ([t.detach().cpu() for t in leaves], float(m["loss"]))
+        elif not all(torch.equal(a, b.cpu())
+                     for a, b in zip(first[0], leaves)):
             raise CheckFailed(f"{name}: two identical train steps gave "
                               f"different parameters")
         del state, m, leaves
@@ -2721,6 +3002,31 @@ def slice10(torch, ops, dev, card):
         return res
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the decoder-only families at full width
+# ---------------------------------------------------------------------------
+def slice11(torch, ops, dev, card):
+    """Phase 11: each configuration of ``SLICE11`` served at full width, at
+    full depth or at its cut, and, where one superblock trains on one
+    card, trained at full width at its depth cut through phase 5's loop,
+    one at a time."""
+    res = {}
+    for name, served, trained, batch, seq in SLICE11:
+        t = time.perf_counter()
+        res[name] = {"serving": serve_config(torch, ops, dev, card, name,
+                                             served)}
+        if trained:
+            res[name]["training"] = train_config(
+                torch, ops, dev, card, name, "loop", trained, batch, seq,
+                None)
+        else:
+            print(f"  {name} training: not on the card (one superblock "
+                  f"at batch {batch} x seq {seq} does not fit); held to the "
+                  f"JAX package in the CPU tests")
+        print(f"  {name}: {time.perf_counter() - t:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3022,7 +3328,7 @@ def main() -> None:
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 3-10 to run after "
+                    help="comma-separated phases among 3-11 to run after "
                          "the device and the build (default: all); the "
                          "kernel table and the result line need all")
     args = ap.parse_args()
@@ -3079,7 +3385,7 @@ def main() -> None:
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
-    run = set(range(3, 11)) if not args.phases else \
+    run = set(range(3, 12)) if not args.phases else \
         {int(x) for x in args.phases.split(",")}
 
     def phase(n, title):
@@ -3104,7 +3410,12 @@ def main() -> None:
             kern10 = check_slice10_kernels(torch, ops, dev, flush)
             for cname, rows in kern10.items():
                 _print_kernel_rows(card_line, rows, f"{cname} ")
-            results.update(kernels=kern, kernels_slice10=kern10)
+            print("  -- at the new shapes of phase 11's configurations")
+            kern11 = check_slice11_kernels(torch, ops, dev, flush)
+            for cname, rows in kern11.items():
+                _print_kernel_rows(card_line, rows, f"{cname} ")
+            results.update(kernels=kern, kernels_slice10=kern10,
+                           kernels_slice11=kern11)
             del flush
         if phase(4, "serving gpt-moe-s at full width"):
             results["serving"] = serve_full_width(torch, ops, dev, card_line)
@@ -3144,6 +3455,9 @@ def main() -> None:
         if phase(10, "the other MoE configurations at full width"):
             results["slice10"] = slice10(torch, ops, dev, card_line)
             torch.cuda.empty_cache()
+        if phase(11, "the decoder-only families at full width"):
+            results["slice11"] = slice11(torch, ops, dev, card_line)
+            torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
 
@@ -3152,13 +3466,13 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    if run != set(range(3, 11)):
+    if run != set(range(3, 12)):
         print(f"phases {sorted(run)} passed (script wall "
               f"{time.perf_counter() - T_START:.1f} s); the kernel table "
               f"and the result line come with every phase")
         return
     table = _kernel_table(results)
-    print(f"== 11. kernels (script wall so far "
+    print(f"== 12. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(results['kernels']))}")
     print(json.dumps({"kernels": table}))
@@ -3208,7 +3522,8 @@ KERNEL_META = {
 def _kernel_table(results):
     """The rows of the kernels JSON line: each kernel at gpt-moe-s's shapes
     with its launches in phases 4/5 (and 7, 8, 9), then at each phase-10
-    configuration's shapes with its launches in phase 10."""
+    configuration's shapes with its launches in phase 10, then the serving
+    kernels at phase 11's new shapes with their launches in phase 11."""
     def row(k, r, launches, **more):
         return {"name": k, "route": "cuda",
                 "source": "src/repro_torch/" + KERNEL_META[k][0],
@@ -3235,6 +3550,14 @@ def _kernel_table(results):
         for k, r in rows.items():
             part = ran["training" if k in TRAIN_KERNELS else "serving"]
             table.append(row(k, r, part["launches"][k], config=cname))
+    # phase 11's new shapes with their launches in phase 11's serving runs;
+    # Jamba's training kernels were checked and timed in phase 3 only (it
+    # trains on the CPU only), so they have no run of their own here
+    for cname, rows in results["kernels_slice11"].items():
+        ran = results["slice11"][cname]["serving"]
+        for k, r in rows.items():
+            if k not in TRAIN_KERNELS:
+                table.append(row(k, r, ran["launches"][k], config=cname))
     return table
 
 

@@ -23,7 +23,7 @@ import torch
 class Param:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones | scaled
+    init: str = "normal"        # normal | zeros | ones | scaled | arange
     scale: float = 1.0
     dtype: Optional[str] = None  # override param dtype
 
@@ -45,6 +45,11 @@ def _init_one(p: Param, gen: torch.Generator, param_dtype: str, device):
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "arange":  # mamba's A_log: log(1..n) on the last axis
+        n = p.shape[-1]
+        base = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                      device=device))
+        return base.expand(p.shape).to(dtype) * p.scale
     if p.init == "scaled":  # fan-in scaled normal
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = p.scale / math.sqrt(fan_in)

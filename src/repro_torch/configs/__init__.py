@@ -1,20 +1,33 @@
 """Architecture registry of the port.  ``get(name)`` -> full ModelConfig;
 ``get_smoke(name)`` -> the reduced same-family variant the CPU tests use.
-``PAPER`` and ``ASSIGNED`` name the JAX registry's MoE architectures
-(Hecate Table 1, and the assigned MoE configs); only those listed in
-``PORTED`` exist here so far.  CLI ids use dashes (``olmoe-1b-7b``), module
-names underscores."""
+``ASSIGNED`` and ``PAPER`` mirror the JAX registry's lists (the assigned
+architectures, and the paper's MoE models of Hecate Table 1); all of them
+are ported but ``whisper_medium`` (the encoder-decoder), which raises
+"not yet ported".  CLI ids use dashes (``olmoe-1b-7b``, ``mamba2-1.3b``),
+module names underscores."""
 from __future__ import annotations
 
 import importlib
 
+ASSIGNED = [
+    "minitron_8b", "mamba2_1p3b", "qwen1p5_110b", "smollm_360m",
+    "jamba_v0p1_52b", "gemma2_9b", "olmoe_1b_7b", "qwen2_vl_72b",
+    "granite_moe_3b_a800m", "whisper_medium",
+]
 PAPER = ["gpt_moe_s", "gpt_moe_l", "bert_moe", "bert_moe_deep"]
-ASSIGNED = ["olmoe_1b_7b", "granite_moe_3b_a800m"]
-PORTED = PAPER + ASSIGNED
+PORTED = PAPER + [a for a in ASSIGNED if a != "whisper_medium"]
+
+# CLI ids whose dashes and dots do not map mechanically (the JAX
+# registry's aliases)
+_ALIASES = {
+    "mamba2-1.3b": "mamba2_1p3b",
+    "qwen1.5-110b": "qwen1p5_110b",
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
+}
 
 
 def canonical(name: str) -> str:
-    return name.replace("-", "_").replace(".", "p")
+    return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
 
 
 def _module(name: str):

@@ -316,14 +316,18 @@ def _layer_slots(buf, pa_l: PlanArrays, dtype):
 def materialize_chunks(cfg: ModelConfig, buf, pa: PlanArrays, dtype=None):
     """Every MoE layer's compute slots: (L, 1, K, chunk_len) in the compute
     dtype (the world-size-1 SparseAllGather: local rows only, no
-    collective).  Built layer by layer, so the transient f32 copy is one
-    layer's."""
+    collective), the values of ``_layer_slots``.  Built one slot at a time,
+    so the transient f32 copy is one buffer row (a layer's rows in f32 are
+    11 GB at Jamba's widths, which would not fit beside its weights)."""
     dt = torch_dtype(dtype or cfg.dtype)
     L = pa.local_rows.shape[0]
     k = pa.local_rows.shape[-1]
     out = torch.empty((L, 1, k, buf.shape[1]), dtype=dt, device=buf.device)
     for l in range(L):
-        out[l, 0] = _layer_slots(buf, pa.layer(l), dt)
+        rows = pa.local_rows[l, 0].long()
+        for i in range(k):
+            out[l, 0, i].copy_(buf.index_select(0, rows[i:i + 1])[0])
+        out[l, 0].mul_((pa.local_experts[l, 0] >= 0)[:, None].to(dt))
     return out
 
 

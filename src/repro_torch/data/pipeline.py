@@ -70,6 +70,30 @@ class LMStream:
         return {"tokens": toks.astype(np.int32)}
 
 
+class EmbedStubStream:
+    """Batches of a frontend-stub architecture (Qwen2-VL), whose train
+    step takes ``{"embeds": (B, S, D) f32, "labels": (B, S) int32}``.  The
+    vision frontend is a stub in both packages; its patch and text
+    embeddings stand in here as seeded normal draws, beside the next-token
+    labels of the wrapped token stream."""
+
+    def __init__(self, stream: LMStream, d_model: int, seed: int = 0):
+        self.stream = stream
+        self.d_model = d_model
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        toks = self.stream.next_batch()["tokens"]
+        b, s = toks.shape[0], toks.shape[1] - 1
+        return {"embeds": self.rng.standard_normal((b, s, self.d_model),
+                                                   np.float32),
+                "labels": toks[:, 1:]}
+
+
 def host_slice(global_batch: int, process_index: int, process_count: int
                ) -> slice:
     per = global_batch // process_count

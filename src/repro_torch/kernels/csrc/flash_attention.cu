@@ -414,7 +414,11 @@ constexpr int FA_MAXHC = 4;   // H <= 128: columns per lane
 constexpr float FA_NEG_INF = -1e30f;
 
 // one query row per warp at a time on the FMA units; m, l and the row's
-// accumulator stay in shared memory
+// accumulator stay in shared memory.  TAIL: S is not a multiple of the
+// query tile, and the last tile's rows past S are zero and never written
+// (an instantiation of its own, so that the whole-tile one stays the
+// first port's)
+template <bool TAIL>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -436,9 +440,12 @@ __global__ void __launch_bounds__(FA_THREADS)
   const size_t row_stride = (size_t)N * H;            // one s step
   const size_t base = (size_t)b * S * row_stride + (size_t)n * H;
 
+  const int rows = TAIL ? min(bq, S - q_start) : bq;
   for (int i = tid; i < bq * H; i += FA_THREADS) {
     const int r = i / H, h = i % H;
-    qs[i] = q[base + (size_t)(q_start + r) * row_stride + h] * scale;
+    qs[i] = !TAIL || r < rows
+                ? q[base + (size_t)(q_start + r) * row_stride + h] * scale
+                : 0.0f;
     acc[i] = 0.0f;
   }
   for (int r = tid; r < bq; r += FA_THREADS) {
@@ -462,7 +469,7 @@ __global__ void __launch_bounds__(FA_THREADS)
     }
     __syncthreads();
 
-    for (int r = warp; r < bq; r += FA_WARPS) {
+    for (int r = warp; r < rows; r += FA_WARPS) {
       const int qpos = q_start + r;
       if (causal && k_start > qpos) continue;
       if (window > 0 && k_last <= qpos - window) continue;
@@ -514,31 +521,44 @@ __global__ void __launch_bounds__(FA_THREADS)
     }
   }
   __syncthreads();
-  for (int i = tid; i < bq * H; i += FA_THREADS) {
+  for (int i = tid; i < rows * H; i += FA_THREADS) {
     const int r = i / H, h = i % H;
     o[base + (size_t)(q_start + r) * row_stride + h] =
         acc[i] / fmaxf(ls[r], 1e-30f);
   }
 }
 
-static int launch_f32(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int N, int H, int causal, int window,
-                      float scale, cudaStream_t stream) {
-  const int bq = S < 128 ? S : 128;
-  if (S % bq != 0) return (int)cudaErrorInvalidValue;
+template <bool TAIL>
+static int launch_f32_t(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int N, int H, int bq, int causal,
+                        int window, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_f32_kernel<TAIL>;
   const size_t smem = (size_t)(2 * bq * H + FA_BK * (H + 1) + FA_BK * H +
                                FA_WARPS * FA_BK + 2 * bq) * sizeof(float);
-  cudaError_t e = allow_smem(flash_fwd_f32_kernel, smem);
+  cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(S / bq, N, B);
-  flash_fwd_f32_kernel<<<grid, FA_THREADS, smem, stream>>>(
+  dim3 grid((S + bq - 1) / bq, N, B);
+  kern<<<grid, FA_THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, N, H,
       bq, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-// q, k, v, o: contiguous (B, S, N, H), one dtype; S < 128 or S % 128 == 0;
-// H <= 128.  scale multiplies q (in q's dtype) before Q·Kᵀ.
+static int launch_f32(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int N, int H, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  // 128-row query tiles (S rows when S < 128); the last tile of an S that
+  // is not a multiple of 128 is cut short
+  const int bq = S < 128 ? S : 128;
+  if (S % bq != 0)
+    return launch_f32_t<true>(q, k, v, o, B, S, N, H, bq, causal, window,
+                              scale, stream);
+  return launch_f32_t<false>(q, k, v, o, B, S, N, H, bq, causal, window,
+                             scale, stream);
+}
+
+// q, k, v, o: contiguous (B, S, N, H), one dtype; any S >= 1; H <= 128.
+// scale multiplies q (in q's dtype) before Q·Kᵀ.
 REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                      const void* v, void* o, int B, int S,
                                      int N, int H, int causal, int window,

@@ -74,14 +74,19 @@
 // * h is rounded to the input dtype before the product with wo, as the TPU
 //   kernel does (grouped_mlp.py:139); all sums are f32, and y is rounded
 //   to the input dtype once, at the end;
-// * T and F may be ragged (bounds-checked loads); D <= GM_MAX_D (the
-//   block's 16 input rows of D f32 values in shared memory).
+// * T and F may be ragged (bounds-checked loads); D <= GM_MAX_D keeps the
+//   block's 16 input rows of D f32 values in shared memory for the whole
+//   tile.  Up to twice that (XH: Jamba's experts at D = 4,096) they go
+//   through shared memory in two halves of D for each F chunk, and the two
+//   halves' sums of h are added (rows_dot_cols_halves): the rows are read
+//   again for every F chunk, from L2.  The instantiations without XH are
+//   those of D <= GM_MAX_D, unchanged.
 #include "grouped_mlp_tc.cuh"
 
 constexpr int GM_BT = 128;  // token tile of the inference form
 static_assert(GM_BT % GM_R == 0 && GM_BT <= GM_THREADS, "see GM_BT_TRAIN");
 
-template <typename T, bool GATE, int ACT, bool SAVE>
+template <typename T, bool GATE, int ACT, bool SAVE, bool XH>
 __global__ void __launch_bounds__(GM_THREADS)
     grouped_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wi,
                            const T* __restrict__ wg, const T* __restrict__ wo,
@@ -92,8 +97,9 @@ __global__ void __launch_bounds__(GM_THREADS)
                            long long swo, int f_split) {
   constexpr int bt = SAVE ? GM_BT_TRAIN : GM_BT;
   extern __shared__ float smem[];
-  float* xs = smem;              // [GM_R][D] masked input rows, f32
-  float* hs = xs + GM_R * D;     // [GM_R][GM_BF] activated chunk
+  // [GM_R][D] masked input rows, f32 (XH: [GM_R][ceil(D / 2)], one half)
+  float* xs = smem;
+  float* hs = xs + GM_R * (XH ? (D + 1) / 2 : D);  // [GM_R][GM_BF] h chunk
   __shared__ int rowv[GM_R];
 
   const int k = blockIdx.y;
@@ -134,7 +140,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       if (SAVE) write_zero_rows(yk, r0, nr, D, d0, d_end);
       continue;
     }
-    load_rows(xs, xk, rowv, r0, nr, D);
+    if constexpr (!XH) load_rows(xs, xk, rowv, r0, nr, D);
     float acc[GM_R][GM_MAXJ];
 #pragma unroll
     for (int r = 0; r < GM_R; ++r)
@@ -148,7 +154,10 @@ __global__ void __launch_bounds__(GM_THREADS)
       // h chunk: rows rg, rg+4, ... of act(x@wi[:, f]) [* x@wg[:, f]]
       const int f = f0 + fl;
       float a[GM_RPT], g[GM_RPT];
-      if (f < f_end) {
+      if constexpr (XH) {
+        rows_dot_cols_halves<T, GATE>(xs, xk, rowv, r0, nr, wik, wgk, D, F,
+                                      f, f < f_end, rg, a, g);
+      } else if (f < f_end) {
         rows_dot_cols<T, GATE>(xs, wik, wgk, D, F, f, rg, a, g);
       } else {
 #pragma unroll
@@ -220,10 +229,12 @@ struct FwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, bool GATE, int ACT, bool SAVE>
+template <typename T, bool GATE, int ACT, bool SAVE, bool XH>
 static int launch(const FwdArgs& a) {
-  auto kern = grouped_mlp_fwd_kernel<T, GATE, ACT, SAVE>;
-  const size_t smem = (size_t)(GM_R * a.D + GM_R * GM_BF) * sizeof(float);
+  auto kern = grouped_mlp_fwd_kernel<T, GATE, ACT, SAVE, XH>;
+  const size_t smem =
+      (size_t)(GM_R * (XH ? (a.D + 1) / 2 : a.D) + GM_R * GM_BF) *
+      sizeof(float);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int f_split = SAVE ? a.F : a.f_split;
@@ -244,19 +255,26 @@ static int launch(const FwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool SAVE, bool XH>
+static int dispatch_xh(const FwdArgs& a) {
+  if (a.wg != nullptr) {
+    if (a.act == ACT_SILU) return launch<T, true, ACT_SILU, SAVE, XH>(a);
+    return launch<T, true, ACT_GELU, SAVE, XH>(a);
+  }
+  if (a.act == ACT_SILU) return launch<T, false, ACT_SILU, SAVE, XH>(a);
+  return launch<T, false, ACT_GELU, SAVE, XH>(a);
+}
+
 template <typename T, bool SAVE>
 static int dispatch(const FwdArgs& a) {
-  if (a.wg != nullptr) {
-    if (a.act == ACT_SILU) return launch<T, true, ACT_SILU, SAVE>(a);
-    return launch<T, true, ACT_GELU, SAVE>(a);
-  }
-  if (a.act == ACT_SILU) return launch<T, false, ACT_SILU, SAVE>(a);
-  return launch<T, false, ACT_GELU, SAVE>(a);
+  if (a.D > GM_MAX_D) return dispatch_xh<T, SAVE, true>(a);
+  return dispatch_xh<T, SAVE, false>(a);
 }
 
 template <bool SAVE>
 static int run(const FwdArgs& a, int dtype) {
-  if (a.K <= 0 || a.Tn <= 0 || a.D <= 0 || a.F <= 0 || a.D > GM_MAX_D ||
+  if (a.K <= 0 || a.Tn <= 0 || a.D <= 0 || a.F <= 0 ||
+      a.D > 2 * GM_MAX_D ||
       (!SAVE && (a.f_split <= 0 || a.f_split % GM_BF)))
     return (int)cudaErrorInvalidValue;
   // bf16 is grouped_mlp_fwd_bf16 and grouped_mlp_fwd_train_bf16 (tensor
@@ -271,7 +289,7 @@ static int run(const FwdArgs& a, int dtype) {
 // gate).  y: contiguous (K, T, D).  The F axis
 // is cut into f_split-wide ranges (a multiple of 64), one block each; part
 // is f32 scratch of (ceil(F / f_split), K, T, D) for their partial sums.
-// D <= GM_MAX_D (3,072).  act: 0 gelu (tanh form), 1 silu.
+// D <= 2 * GM_MAX_D (6,144).  act: 0 gelu (tanh form), 1 silu.
 REPRO_EXPORT int grouped_mlp_fwd(const void* x, const void* wi, const void* wg,
                                  const void* wo, const int* mask, float* part,
                                  void* y, int K, int Tn, int D, int F,

@@ -13,7 +13,9 @@ constexpr int GM_MAXJ = 4;  // output columns per thread
 // many columns, one block each (grid axis x, beside the token tiles)
 constexpr int GM_DC = GM_MAXJ * GM_THREADS;
 // the f32 kernels keep 16 input rows of D f32 values in shared memory
-// (192 KB at this D, of the 227 KB a block may use)
+// (192 KB at this D, of the 227 KB a block may use); a wider D goes
+// through shared memory in two halves (rows_dot_cols_halves), up to twice
+// this
 constexpr int GM_MAX_D = 3072;
 constexpr int GM_RG = GM_THREADS / GM_BF;  // row groups in the F phase (4)
 constexpr int GM_RPT = GM_R / GM_RG;       // rows per thread there (4)
@@ -83,6 +85,44 @@ __device__ __forceinline__ void rows_dot_cols(const float* xs,
       const float xv = xs[(rg + GM_RG * c) * D + d];
       a[c] = fmaf(xv, v1, a[c]);
       if (TWO) g[c] = fmaf(xv, v2, g[c]);
+    }
+  }
+}
+
+// rows_dot_cols for a D wider than GM_MAX_D, whose rows do not fit in
+// shared memory at once: the rows [r0, r0 + nr) of the slot's (rows, D)
+// input are staged into xs in two halves of ceil(D / 2) columns (zero for
+// rows whose rowv is 0), and the second half's sums are added to the
+// first's.  Every thread of the block calls it (it synchronises); threads
+// with ``on`` false get zeros.
+template <typename T, bool TWO>
+__device__ __forceinline__ void rows_dot_cols_halves(
+    float* xs, const T* __restrict__ xk, const int* rowv, int r0, int nr,
+    const T* __restrict__ w1, const T* __restrict__ w2, int D, int F, int f,
+    bool on, int rg, float a[GM_RPT], float g[GM_RPT]) {
+  const int dh = (D + 1) / 2;
+#pragma unroll
+  for (int c = 0; c < GM_RPT; ++c) a[c] = g[c] = 0.0f;
+  for (int lo = 0; lo < D; lo += dh) {
+    const int n = min(dh, D - lo);
+    __syncthreads();  // the previous half's readers are done
+    for (int i = threadIdx.x; i < GM_R * n; i += GM_THREADS) {
+      const int r = i / n;
+      xs[i] = (r < nr && rowv[r])
+                  ? to_f(xk[(size_t)(r0 + r) * D + lo + i % n])
+                  : 0.0f;
+    }
+    __syncthreads();
+    if (on) {
+      float a2[GM_RPT], g2[GM_RPT];
+      rows_dot_cols<T, TWO>(xs, w1 + (size_t)lo * F,
+                            TWO ? w2 + (size_t)lo * F : nullptr, n, F, f, rg,
+                            a2, g2);
+#pragma unroll
+      for (int c = 0; c < GM_RPT; ++c) {
+        a[c] += a2[c];
+        if (TWO) g[c] += g2[c];
+      }
     }
   }
 }

@@ -45,7 +45,9 @@
 // one writes dh1, h and dh2 (the forward's split over D).  It reads h1
 // and h2 at valid rows only.  It writes every row of its tile: zeros for
 // invalid rows and skipped tiles, as the TPU kernel's skipped tiles write
-// zeros (grouped_mlp.py:265-272).  D <= GM_MAX_D.
+// zeros (grouped_mlp.py:265-272).  D <= GM_MAX_D holds the tile's dy rows
+// in shared memory; up to twice that (XH) they go through it in two halves
+// of D for each F chunk, as in the forward.
 //
 // wgrad, bfloat16 (the main path's; grouped_mlp_wgrad_bf16): tensor-core
 // products over the token rows.  One block per (128 × 128 output tile,
@@ -76,7 +78,7 @@
 // ---------------------------------------------------------------------------
 // dgrad
 // ---------------------------------------------------------------------------
-template <typename T, bool GATE, int ACT>
+template <typename T, bool GATE, int ACT, bool XH>
 __global__ void __launch_bounds__(GM_THREADS)
     grouped_mlp_dgrad_kernel(const T* __restrict__ dy,
                              const T* __restrict__ woT,
@@ -89,8 +91,9 @@ __global__ void __launch_bounds__(GM_THREADS)
                              T* __restrict__ ho, int Tn, int D, int F) {
   constexpr int bt = GM_BT_TRAIN;
   extern __shared__ float smem[];
-  float* gs = smem;               // [GM_R][D] masked dy rows, f32
-  float* d1s = gs + GM_R * D;     // [GM_R][GM_BF] dh1 chunk, f32
+  // [GM_R][D] masked dy rows, f32 (XH: [GM_R][ceil(D / 2)], one half)
+  float* gs = smem;
+  float* d1s = gs + GM_R * (XH ? (D + 1) / 2 : D);  // [GM_R][GM_BF] dh1
   float* d2s = d1s + GM_R * GM_BF;  // [GM_R][GM_BF] dh2 chunk (GATE)
   __shared__ int rowv[GM_R];
 
@@ -131,7 +134,7 @@ __global__ void __launch_bounds__(GM_THREADS)
       }
       continue;
     }
-    load_rows(gs, gk, rowv, r0, nr, D);
+    if constexpr (!XH) load_rows(gs, gk, rowv, r0, nr, D);
     float acc[GM_R][GM_MAXJ];
 #pragma unroll
     for (int r = 0; r < GM_R; ++r)
@@ -144,7 +147,10 @@ __global__ void __launch_bounds__(GM_THREADS)
     for (int f0 = 0; f0 < F; f0 += GM_BF) {
       const int f = f0 + fl;
       float dh[GM_RPT], unused[GM_RPT];
-      if (f < F) {
+      if constexpr (XH) {
+        rows_dot_cols_halves<T, false>(gs, gk, rowv, r0, nr, woTk, nullptr,
+                                       D, F, f, f < F, rg, dh, unused);
+      } else if (f < F) {
         rows_dot_cols<T, false>(gs, woTk, nullptr, D, F, f, rg, dh, unused);
       } else {
 #pragma unroll
@@ -199,15 +205,16 @@ __global__ void __launch_bounds__(GM_THREADS)
   }
 }
 
-template <typename T, bool GATE, int ACT>
+template <typename T, bool GATE, int ACT, bool XH>
 static int launch_dgrad(const void* dy, const void* woT, const void* wiT,
                         const void* wgT, const int* mask, const void* h1,
                         const void* h2, void* dx, void* dh1, void* dh2,
                         void* h, int K, int Tn, int D, int F,
                         cudaStream_t stream) {
-  auto kern = grouped_mlp_dgrad_kernel<T, GATE, ACT>;
+  auto kern = grouped_mlp_dgrad_kernel<T, GATE, ACT, XH>;
   const size_t smem =
-      (size_t)(GM_R * D + 2 * GM_R * GM_BF) * sizeof(float);
+      (size_t)(GM_R * (XH ? (D + 1) / 2 : D) + 2 * GM_R * GM_BF) *
+      sizeof(float);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Tn + GM_BT_TRAIN - 1) / GM_BT_TRAIN * ((D + GM_DC - 1) / GM_DC),
@@ -218,7 +225,7 @@ static int launch_dgrad(const void* dy, const void* woT, const void* wiT,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool XH>
 static int dispatch_dgrad(const void* dy, const void* woT, const void* wiT,
                           const void* wgT, const int* mask, const void* h1,
                           const void* h2, void* dx, void* dh1, void* dh2,
@@ -227,19 +234,21 @@ static int dispatch_dgrad(const void* dy, const void* woT, const void* wiT,
 #define GM_DGRAD_ARGS dy, woT, wiT, wgT, mask, h1, h2, dx, dh1, dh2, h, K, Tn, \
                       D, F, s
   if (wgT != nullptr) {
-    if (act == ACT_SILU) return launch_dgrad<T, true, ACT_SILU>(GM_DGRAD_ARGS);
-    return launch_dgrad<T, true, ACT_GELU>(GM_DGRAD_ARGS);
+    if (act == ACT_SILU)
+      return launch_dgrad<T, true, ACT_SILU, XH>(GM_DGRAD_ARGS);
+    return launch_dgrad<T, true, ACT_GELU, XH>(GM_DGRAD_ARGS);
   }
-  if (act == ACT_SILU) return launch_dgrad<T, false, ACT_SILU>(GM_DGRAD_ARGS);
-  return launch_dgrad<T, false, ACT_GELU>(GM_DGRAD_ARGS);
+  if (act == ACT_SILU)
+    return launch_dgrad<T, false, ACT_SILU, XH>(GM_DGRAD_ARGS);
+  return launch_dgrad<T, false, ACT_GELU, XH>(GM_DGRAD_ARGS);
 #undef GM_DGRAD_ARGS
 }
 
 // float32.  dy: (K, T, D); woT: (K, D, F); wiT, wgT: (K, F, D); h1, h2:
 // (K, T, F); mask: (K, T) int32; outputs dx: (K, T, D), dh1, dh2, h:
 // (K, T, F).  All contiguous.  wgT, h2 and dh2 are NULL without a gate.
-// h1 and h2 are read at valid rows only.  D <= GM_MAX_D (3,072).  act: 0
-// gelu (tanh form), 1 silu.
+// h1 and h2 are read at valid rows only.  D <= 2 * GM_MAX_D (6,144).  act:
+// 0 gelu (tanh form), 1 silu.
 REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
                                    const void* wiT, const void* wgT,
                                    const int* mask, const void* h1,
@@ -247,13 +256,18 @@ REPRO_EXPORT int grouped_mlp_dgrad(const void* dy, const void* woT,
                                    void* dh2, void* h, int K, int Tn, int D,
                                    int F, int act, int dtype,
                                    void* stream) {
-  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || D > GM_MAX_D ||
+  if (K <= 0 || Tn <= 0 || D <= 0 || F <= 0 || D > 2 * GM_MAX_D ||
       (wgT != nullptr && (h2 == nullptr || dh2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   // bf16 is grouped_mlp_dgrad_bf16 (tensor cores)
   if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
-  return dispatch_dgrad<float>(dy, woT, wiT, wgT, mask, h1, h2, dx, dh1, dh2,
-                               h, K, Tn, D, F, act, (cudaStream_t)stream);
+  if (D > GM_MAX_D)
+    return dispatch_dgrad<float, true>(dy, woT, wiT, wgT, mask, h1, h2, dx,
+                                       dh1, dh2, h, K, Tn, D, F, act,
+                                       (cudaStream_t)stream);
+  return dispatch_dgrad<float, false>(dy, woT, wiT, wgT, mask, h1, h2, dx,
+                                      dh1, dh2, h, K, Tn, D, F, act,
+                                      (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -40,7 +40,14 @@
 //   trash page 0 never contributes to a live sequence, and an idle slot
 //   parked on it (all-zero table, position 0) reduces over row 0 alone,
 //   as the plain version does.  All arithmetic is f32 (the TPU kernel
-//   rounds nothing).
+//   rounds nothing);
+// * hd up to 256 (Gemma-2's 256): an instantiation of its own with a
+//   256-wide merge buffer, so the hd <= 128 ones keep theirs.  A bf16 row
+//   of 256 is 32 lanes of 16 bytes, as a row of 128 is 16; in f32 each
+//   lane loads two 16-byte chunks of a row.  A step takes half the rows a
+//   lane of the hd <= 128 kernels (2 in bf16, 1 in f32), which halves the
+//   K/V double buffer that the wider rows and the query heads' doubled
+//   accumulators would otherwise push into spills.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -75,8 +82,8 @@ __device__ __forceinline__ Chunk<T, VEC> load_chunk(const T* p, bool in) {
 
 // T: element type; VEC: elements per lane-load (16 bytes, or 1);
 // NCH: loads per lane per row (hd > VEC · lanes per row); NR: rows per
-// lane per page step; GM: query heads per block
-template <typename T, int VEC, int NCH, int NR, int GM>
+// lane per page step; GM: query heads per block; HDM: the largest hd
+template <typename T, int VEC, int NCH, int NR, int GM, int HDM>
 __global__ void __launch_bounds__(PA_THREADS)
     paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                         const T* __restrict__ vpool,
@@ -85,7 +92,7 @@ __global__ void __launch_bounds__(PA_THREADS)
                         int nq, int nkv, int hd, int num_rows, int n_blk,
                         int ps, int lpr, int window, float softcap,
                         float scale) {
-  __shared__ float sm_acc[PA_WARPS][GM][128];
+  __shared__ float sm_acc[PA_WARPS][GM][HDM];
   __shared__ float sm_m[PA_WARPS][GM], sm_l[PA_WARPS][GM];
 
   const int g = blockIdx.x, b = blockIdx.y;
@@ -269,7 +276,7 @@ __global__ void __launch_bounds__(PA_THREADS)
   }
 }
 
-template <typename T, int VEC, int NCH, int NR>
+template <typename T, int VEC, int NCH, int NR, int HDM>
 static int launch_nr(const void* q, const void* kpool, const void* vpool,
                      const int* tbl, const int* positions, void* out, int B,
                      int nq, int nkv, int hd, int num_rows, int n_blk, int ps,
@@ -279,7 +286,8 @@ static int launch_nr(const void* q, const void* kpool, const void* vpool,
   const int gm = G <= 1 ? 1 : G <= 2 ? 2 : PA_GM;
   dim3 grid(nkv, B, (G + gm - 1) / gm);
 #define PA_LAUNCH(GMV)                                                       \
-  paged_decode_kernel<T, VEC, NCH, NR, GMV><<<grid, PA_THREADS, 0, stream>>>( \
+  paged_decode_kernel<T, VEC, NCH, NR, GMV, HDM>                            \
+      <<<grid, PA_THREADS, 0, stream>>>(                                     \
       (const T*)q, (const T*)kpool, (const T*)vpool, tbl, positions,         \
       (T*)out, nq, nkv, hd, num_rows, n_blk, ps, lpr, window, softcap, scale)
   if (gm == 1)
@@ -311,21 +319,28 @@ static int launch(const void* q, const void* kpool, const void* vpool,
 #define PA_ARGS                                                             \
   q, kpool, vpool, tbl, positions, out, B, nq, nkv, hd, num_rows, n_blk, ps, \
       lpr, window, softcap, scale, stream
-  if (!vec) return launch_nr<T, 1, 4, 4>(PA_ARGS);   // hd <= 4 · 32
-  if (need <= 2) return launch_nr<T, V16, 1, 2>(PA_ARGS);
-  return launch_nr<T, V16, 1, 4>(PA_ARGS);
+  if (hd > 128) {    // hd <= 256: half the rows a step of hd <= 128's
+    if (!vec) return launch_nr<T, 1, 8, 1, 256>(PA_ARGS);
+    if constexpr (V16 == 8)                      // bf16: 32 lanes of 8
+      return launch_nr<T, V16, 1, 2, 256>(PA_ARGS);
+    else                                         // f32: 2 chunks a lane
+      return launch_nr<T, V16, 2, 1, 256>(PA_ARGS);
+  }
+  if (!vec) return launch_nr<T, 1, 4, 4, 128>(PA_ARGS);   // hd <= 4 · 32
+  if (need <= 2) return launch_nr<T, V16, 1, 2, 128>(PA_ARGS);
+  return launch_nr<T, V16, 1, 4, 128>(PA_ARGS);
 #undef PA_ARGS
 }
 
 // q, out: contiguous (B, nq, hd); k/v pool: contiguous (num_rows, nkv, hd);
 // tbl: (B, n_blk) int32 pool pages; positions: (B,) int32.  One dtype for
-// q, pools and out.  nq % nkv == 0, num_rows % page_size == 0, hd <= 128.
+// q, pools and out.  nq % nkv == 0, num_rows % page_size == 0, hd <= 256.
 REPRO_EXPORT int paged_decode_attention(
     const void* q, const void* kpool, const void* vpool, const int* tbl,
     const int* positions, void* out, int B, int nq, int nkv, int hd,
     int num_rows, int n_blk, int page_size, int window, float softcap,
     float scale, int dtype, void* stream) {
-  if (B <= 0 || nkv <= 0 || nq % nkv != 0 || hd <= 0 || hd > 128 ||
+  if (B <= 0 || nkv <= 0 || nq % nkv != 0 || hd <= 0 || hd > 256 ||
       page_size <= 0 || n_blk <= 0 || num_rows % page_size != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -29,7 +29,9 @@ def _lib():
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q/k/v: (B, S, N, H) contiguous CUDA tensors of one dtype (float32 or
-    bfloat16), equal heads; S < 128 or S % 128 == 0; H <= 128."""
+    bfloat16), equal heads; any S >= 1 (the tail tile's query rows are
+    zero-filled and not written, its keys zero-filled and masked);
+    H <= 128."""
     global launches
     b, s, n, h = q.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -40,9 +42,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention shapes differ: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not (s < 128 or s % 128 == 0):
-        raise ValueError(f"flash_attention takes S < 128 or S % 128 == 0, "
-                         f"got S={s}")
+    if s < 1:
+        raise ValueError(f"flash_attention takes S >= 1, got S={s}")
     if h > 128:
         raise ValueError(f"flash_attention kernel takes H <= 128, got {h}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -23,7 +23,8 @@ over a tile list of the length the host knows (every tile, -1 past the
 listed ones; ``ref.tile_list_padded``), which its C call builds on the
 device, so the serving path reads nothing back.
 Float32 keeps the FMA loops of the first port, with the output columns
-cut into chunks of 1,024 over blocks (D up to ``F32_MAX_D``).
+cut into chunks of 1,024 over blocks (D up to ``F32_MAX_D``; above 3,072
+the input rows go through shared memory in two halves of D).
 """
 from __future__ import annotations
 
@@ -42,8 +43,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"gelu": 0, "silu": 1}
 _BF = 64              # the float32 kernels' F chunk
 # the float32 forward and dgrad keep 16 rows of D f32 values in shared
-# memory (csrc/grouped_mlp.cuh GM_MAX_D); bfloat16 has no limit on D
-F32_MAX_D = 3072
+# memory up to D = 3,072 (csrc/grouped_mlp.cuh GM_MAX_D), and half of them
+# at a time up to twice that; bfloat16 has no limit on D
+F32_MAX_D = 6144
 TC_TILE = 64          # token rows per tile of the tensor-core kernels
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

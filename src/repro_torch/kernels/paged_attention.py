@@ -35,7 +35,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, positions, *,
     """q: (B, nq, hd); k/v_pool: (num_rows, nkv, hd) flat page pool;
     block_tbl: (B, max_kv/page_size) int32 pool-page ids; positions: (B,)
     int32 write positions.  CUDA tensors; q and the pools of one dtype
-    (float32 or bfloat16).  Returns (B, nq, hd) in q's dtype."""
+    (float32 or bfloat16); hd <= 256.  Returns (B, nq, hd) in q's
+    dtype."""
     global launches
     b, nq, h = q.shape
     num_rows, nkv, hk = k_pool.shape
@@ -56,8 +57,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, positions, *,
             f"paged_decode_attention shapes: q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, table {tuple(block_tbl.shape)}, "
             f"positions {tuple(positions.shape)}, page_size {page_size}")
-    if h > 128:
-        raise ValueError(f"paged_decode_attention takes hd <= 128, got {h}")
+    if h > 256:
+        raise ValueError(f"paged_decode_attention takes hd <= 256, got {h}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode_attention needs contiguous tensors")
     out = torch.empty_like(q)

@@ -133,7 +133,7 @@ def _train(args, grid):
     from repro_torch.common.config import TrainConfig
     from repro_torch.core.moe import MoERuntime
     from repro_torch.core.schedule import ReshardingPolicy
-    from repro_torch.data.pipeline import make_stream
+    from repro_torch.data.pipeline import EmbedStubStream, make_stream
     from repro_torch.models import model as mdl
     from repro_torch.train.supervisor import TrainSupervisor
     from repro_torch.train.trainer import (HecateScheduler, save_train_state,
@@ -162,6 +162,8 @@ def _train(args, grid):
                      auto_resume=not args.no_resume)
     stream = make_stream(cfg.vocab_size, args.seq_len, args.global_batch,
                          kind=args.data, seed=args.seed, skew=args.skew)
+    if cfg.frontend is not None:        # stand-in frontend embeddings
+        stream = EmbedStubStream(stream, cfg.d_model, seed=args.seed)
     scheduler = None
     if cfg.moe.enabled:
         scheduler = HecateScheduler(

@@ -1,5 +1,5 @@
-"""GQA attention with RoPE, softcap, sliding window, and the dense and the
-block-paged KV caches.
+"""GQA attention with RoPE / M-RoPE, softcap, sliding window, and the dense
+and the block-paged KV caches.
 
 The plain path is einsum-based; the flash-attention kernel takes over the
 prefill when ``use_pallas`` is set (the JAX package's name for "use the
@@ -18,7 +18,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.params import Param
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, default_mrope_sections
 
 NEG_INF = -1e30
 
@@ -84,20 +84,28 @@ def make_mask(sq: int, skv: int, *, causal: bool, window: int = 0,
     return m[None, None]
 
 
-def _check_rope(cfg: ModelConfig):
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not yet ported to repro_torch")
+def _rope(cfg: ModelConfig, x, positions):
+    """RoPE of q or k at ``positions`` ((B, S), or (B, S, 3) with M-RoPE,
+    whose sections are the JAX package's ``default_mrope_sections``)."""
+    mr = default_mrope_sections(cfg.head_dim) if cfg.mrope else None
+    return apply_rope(x, positions, cfg.rope_theta, mr)
+
+
+def _decode_positions(cfg: ModelConfig, posb):
+    """(B, 1) decode positions; M-RoPE broadcasts them to its three
+    streams, as text positions."""
+    return posb[..., None].expand(*posb.shape, 3) if cfg.mrope else posb
 
 
 def attention(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
               causal: bool = True, use_pallas: bool = False,
               return_kv: bool = False):
     """Full-sequence self-attention (prefill).  Returns (B,S,D), and the
-    rotated (k, v) when ``return_kv`` (the prefill cache fill)."""
-    _check_rope(cfg)
+    rotated (k, v) when ``return_kv`` (the prefill cache fill).
+    positions: (B, S), or (B, S, 3) with M-RoPE."""
     q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
     window = cfg.sliding_window if kind == "local" else 0
     mask = None
     if causal or window:
@@ -134,12 +142,12 @@ def decode_attention(p, cfg: ModelConfig, x, cache, pos: int, *,
     write and the mask need no value from the device).  The new K/V row
     is written IN PLACE at ``pos``; attention spans cache[0..pos],
     windowed for ``kind="local"``.  Returns (out, cache)."""
-    _check_rope(cfg)
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x)
-    posb = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    posb = _decode_positions(cfg, torch.full((b, 1), pos, dtype=torch.long,
+                                             device=x.device))
+    q = _rope(cfg, q, posb)
+    k_new = _rope(cfg, k_new, posb)
     cache["k"][:, pos] = k_new[:, 0]                # in place
     cache["v"][:, pos] = v_new[:, 0]
     window = cfg.sliding_window if kind == "local" else 0
@@ -177,11 +185,10 @@ def decode_attention_paged(p, cfg: ModelConfig, x, cache, positions,
     CPU tensors, see ``kernels/ops.py``); the JAX package's separate gather
     path behind ``cfg.paged_attn_kernel=False`` computes the same function
     and is not ported.  Returns (out, cache)."""
-    _check_rope(cfg)
     q, k_new, v_new = _project_qkv(p, x)
-    posb = positions[:, None]                       # (B, 1)
-    q = apply_rope(q, posb, cfg.rope_theta)
-    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    posb = _decode_positions(cfg, positions[:, None])   # (B, 1[, 3])
+    q = _rope(cfg, q, posb)
+    k_new = _rope(cfg, k_new, posb)
     write_rows = torch.gather(row_idx.long(), 1,
                               positions.long()[:, None])[:, 0]
     cache["k"][write_rows] = k_new[:, 0]            # in place

@@ -83,14 +83,39 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float = 10_000.0):
-    """x: (..., S, H, hd); positions: (..., S).  Split-half rotation: the
-    first and second halves of hd form the rotated pairs."""
+def apply_rope(x, positions, theta: float = 10_000.0,
+               mrope_sections=None):
+    """x: (..., S, H, hd); positions: (..., S), or (..., S, 3) for M-RoPE.
+    Split-half rotation: the first and second halves of hd form the
+    rotated pairs.
+
+    M-RoPE (Qwen2-VL, arXiv:2409.12191): the hd/2 rotary frequencies are
+    split into temporal, height and width sections (``mrope_sections``),
+    each rotated by its own position stream.  For text tokens the three
+    streams coincide and M-RoPE reduces to RoPE."""
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
-    ang = positions[..., None].float() * inv              # (..., S, hd/2)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * inv          # (..., S, hd/2)
+    else:
+        assert positions.shape[-1] == 3, "M-RoPE needs (..., S, 3) positions"
+        secs, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            secs.append(positions[..., i, None].float()
+                        * inv[start:start + sec])
+            start += sec
+        ang = torch.cat(secs, dim=-1)
     cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def default_mrope_sections(head_dim: int):
+    """Qwen2-VL uses [16, 24, 24] for hd=128; scale proportionally."""
+    half = head_dim // 2
+    t = half // 4
+    rest = half - t
+    h = rest // 2
+    return (t, h, rest - h)

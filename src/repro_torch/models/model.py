@@ -2,7 +2,9 @@
 dense and paged decode.
 
 A model is a stack of ``num_superblocks`` identical superblocks (one tile
-of ``cfg.layer_pattern``).  Parameters are stacked along a leading
+of ``cfg.layer_pattern``: attention layers, ``attn`` or ``local``, and
+Mamba-2 layers, ``mamba``; decoder-only, the encoder-decoder is not
+ported).  Parameters are stacked along a leading
 superblock axis exactly as in the JAX package (``blocks/l{j}/...``), and
 the JAX package's ``scan`` over superblocks becomes a Python loop here.
 MoE FFNs read from the one cross-layer chunk buffer through
@@ -29,6 +31,7 @@ from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import MoERuntime, PlanArrays
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
+from repro_torch.models import mamba2 as mb
 
 
 def checkpoint(fn, *args, **kw):
@@ -83,32 +86,38 @@ def _moe_positions(cfg: ModelConfig) -> Tuple[int, ...]:
 
 def _check_ported(cfg: ModelConfig):
     kinds = set(cfg.layer_pattern)
-    if cfg.is_encoder_decoder or not kinds <= {"attn", "local"}:
+    if cfg.is_encoder_decoder or not kinds <= {"attn", "local", "mamba"}:
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only attention models are ported to "
+            f"{cfg.name}: only decoder-only models are ported to "
             f"repro_torch so far (layer kinds {sorted(kinds)})")
 
 
 # ---------------------------------------------------------------------------
 # Parameter declaration
 # ---------------------------------------------------------------------------
-def _sublayer_decl(cfg: ModelConfig, is_moe: bool):
+def _sublayer_decl(cfg: ModelConfig, kind: str, is_moe: bool):
+    """An attention sublayer has an FFN (dense or MoE); a mamba one only
+    when it is an MoE layer (the hybrid's), with its norm."""
     d = cfg.d_model
-    p: Dict[str, Any] = {"ln1": ly.norm_params(d),
-                         "attn": attn.attn_params(cfg),
-                         "ln2": ly.norm_params(d)}
-    if not is_moe:
+    p: Dict[str, Any] = {"ln1": ly.norm_params(d)}
+    if kind == "mamba":
+        p["mamba"] = mb.mamba_params(cfg)
+    else:
+        p["attn"] = attn.attn_params(cfg)
+    if kind != "mamba" or is_moe:
+        p["ln2"] = ly.norm_params(d)
+    if kind != "mamba" and not is_moe:
         p["mlp"] = ly.mlp_params(d, cfg.d_ff, cfg.act)
     return p
 
 
 def param_decls(cfg: ModelConfig, ep: int = 1):
     """Full parameter declaration tree (Param descriptors), the JAX
-    package's tree for decoder-only attention models."""
+    package's tree for decoder-only models."""
     _check_ported(cfg)
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
-    sb = {f"l{j}": _sublayer_decl(cfg, j in moe_pos)
-          for j in range(len(cfg.layer_pattern))}
+    sb = {f"l{j}": _sublayer_decl(cfg, kind, j in moe_pos)
+          for j, kind in enumerate(cfg.layer_pattern)}
     decls: Dict[str, Any] = {
         "embed": ly.embed_params(cfg.vocab_size, cfg.d_model,
                                  cfg.tie_embeddings),
@@ -184,20 +193,32 @@ def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
 # ---------------------------------------------------------------------------
 # Full-sequence forward (training and prefill)
 # ---------------------------------------------------------------------------
+def _mixer(cfg: ModelConfig, rt: Runtime, kind: str, positions,
+           causal: bool, p, h, collect_cache: bool = False):
+    """A sublayer's sequence mixer on its normed input ``h``: attention, or
+    the Mamba-2 block for ``kind="mamba"``; with ``collect_cache`` also its
+    decode cache (the rotated K/V, or the conv tail and the SSM state)."""
+    if kind == "mamba":
+        return mb.mamba_forward(p["mamba"], cfg, h,
+                                return_state=collect_cache)
+    return attn.attention(p["attn"], cfg, h, positions, kind=kind,
+                          causal=causal, use_pallas=rt.use_pallas,
+                          return_kv=collect_cache)
+
+
 def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
                 positions, causal: bool, collect_cache: bool, x):
-    """One superblock: returns (x, [MoEAux per MoE layer], {l{j}: (k, v)}
-    when ``collect_cache``)."""
+    """One superblock: returns (x, [MoEAux per MoE layer], {l{j}: cache}
+    when ``collect_cache``: an attention sublayer's {"k", "v"}, a mamba
+    one's {"conv", "ssm"})."""
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
     p_sb = _block(params, sb)
     aux_list, cache = [], {}
     mi = sb * len(moe_pos)
     for j, kind in enumerate(cfg.layer_pattern):
         p = p_sb[f"l{j}"]
-        h = ly.apply_norm(p["ln1"], x, cfg.norm)
-        y = attn.attention(p["attn"], cfg, h, positions, kind=kind,
-                           causal=causal, use_pallas=rt.use_pallas,
-                           return_kv=collect_cache)
+        y = _mixer(cfg, rt, kind, positions, causal, p,
+                   ly.apply_norm(p["ln1"], x, cfg.norm), collect_cache)
         if collect_cache:
             y, cache[f"l{j}"] = y
         x = x + y
@@ -210,7 +231,7 @@ def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
             x = x + y
             aux_list.append(aux)
             mi += 1
-        else:
+        elif kind != "mamba":
             x = _dense_ffn(cfg, p, x)
     return x, aux_list, cache
 
@@ -231,10 +252,9 @@ def _use_bwd_pipe(cfg: ModelConfig, rt: Runtime) -> bool:
 
 def _mix(cfg: ModelConfig, rt: Runtime, kind: str, positions, causal: bool,
          p, x):
-    """A sublayer's attention segment: x + attention(norm(x))."""
-    h = ly.apply_norm(p["ln1"], x, cfg.norm)
-    return x + attn.attention(p["attn"], cfg, h, positions, kind=kind,
-                              causal=causal, use_pallas=rt.use_pallas)
+    """A sublayer's mixer segment: x + mixer(norm(x))."""
+    return x + _mixer(cfg, rt, kind, positions, causal, p,
+                      ly.apply_norm(p["ln1"], x, cfg.norm))
 
 
 def _dense_ffn(cfg: ModelConfig, p, x):
@@ -300,7 +320,8 @@ def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
             p = p_sb[f"l{j}"]
             x = seg(partial(_mix, cfg, rt, kind, positions, causal), p, x)
             if j not in moe_pos:
-                x = seg(partial(_dense_ffn, cfg), p, x)
+                if kind != "mamba":
+                    x = seg(partial(_dense_ffn, cfg), p, x)
                 continue
             if premat is not None:
                 slots = premat[mi]
@@ -321,15 +342,22 @@ def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
     return x, aux_list
 
 
-def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
-            pa: Optional[PlanArrays] = None, positions=None,
+def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
+            embeds=None, pa: Optional[PlanArrays] = None, positions=None,
             causal: bool = True, collect_cache: bool = False,
             return_hidden: bool = False, premat=None):
     """tokens: (B, S) int -> (logits (B, S, V) f32, aux) — or
     (logits, aux, cache) with ``collect_cache``: the cache holds every
-    layer's rotated K/V as ``{"l{j}": {"k", "v"}}`` of shape
-    (n_superblocks, B, S, nkv, hd), the JAX package's stacked layout.
-    aux: one MoEAux per MoE layer, in layer order.
+    attention layer's rotated K/V as ``{"l{j}": {"k", "v"}}`` of shape
+    (n_superblocks, B, S, nkv, hd), and every mamba layer's state after
+    the sequence as ``{"l{j}": {"conv", "ssm"}}`` (n_superblocks, B, ...),
+    the JAX package's stacked layouts.  aux: one MoEAux per MoE layer, in
+    layer order.
+
+    ``embeds`` (B, S, D) replaces ``tokens`` for a frontend stub
+    (Qwen2-VL's patch and text embeddings): taken as they are, without the
+    √d scale of the token embedding.  ``positions`` defaults to 0..S-1 per
+    sequence, broadcast to the three streams (B, S, 3) under M-RoPE.
 
     ``return_hidden`` returns the final-norm hidden states (B, S, D) in
     place of the logits: the train path computes its loss chunked from
@@ -350,11 +378,16 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
     checkpoint above with each layer's gather inside it."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
-    # scaled in the compute dtype, as the JAX package scales
-    x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)
+    if embeds is None:
+        # scaled in the compute dtype, as the JAX package scales
+        x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)
+    else:
+        x = embeds.to(dt)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+        if cfg.mrope:
+            positions = positions[..., None].expand(b, s, 3)
     if cfg.moe.enabled:
         assert pa is not None, "MoE arch needs PlanArrays"
     if premat is not None and rt.grid is not None \
@@ -364,8 +397,7 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
                          "rematerialize != 'block')")
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     aux_list = []
-    caches = {f"l{j}": {"k": [], "v": []}
-              for j in range(len(cfg.layer_pattern))}
+    caches = {f"l{j}": [] for j in range(len(cfg.layer_pattern))}
     if (cfg.moe.enabled and rt.grid is not None and not collect_cache
             and cfg.moe.rematerialize != "block"):
         x, aux_list = _grid_blocks(cfg, rt, params, x, positions, pa, causal,
@@ -380,15 +412,14 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
                 x, auxs, cache = blk(x)
             aux_list.extend(auxs)
             for name, c in cache.items():
-                for kv in ("k", "v"):
-                    caches[name][kv].append(c[kv])
+                caches[name].append(c)
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux_list
     logits = ly.unembed(params["embed"], x, cfg.final_logit_softcap)
     if collect_cache:
-        cache = {name: {kv: torch.stack(v) for kv, v in c.items()}
-                 for name, c in caches.items()}
+        cache = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                 for name, cs in caches.items()}
         return logits, aux_list, cache
     return logits, aux_list
 
@@ -396,32 +427,44 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens, *,
 # ---------------------------------------------------------------------------
 # Decode (one token against a dense or a block-paged cache)
 # ---------------------------------------------------------------------------
+def _stacked(cfg: ModelConfig, one):
+    """One sublayer's cache tensors with a leading num_superblocks axis."""
+    return {k: t.expand(cfg.num_superblocks, *t.shape).clone()
+            for k, t in one.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Dense decode cache: every attention sublayer holds
-    (num_superblocks, batch, max_len, nkv, hd) K and V, as in the JAX
-    package."""
+    (num_superblocks, batch, max_len, nkv, hd) K and V, every mamba
+    sublayer its (num_superblocks, batch, ...) f32 conv and SSM state, as
+    in the JAX package."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
-    return {f"l{j}": {kv: t.expand(cfg.num_superblocks, *t.shape).clone()
-                      for kv, t in attn.init_kv_cache(
-                          cfg, batch, max_len, dt, device).items()}
-            for j in range(len(cfg.layer_pattern))}
+    return {f"l{j}": _stacked(cfg, mb.init_mamba_cache(cfg, batch, device)
+                              if kind == "mamba" else attn.init_kv_cache(
+                                  cfg, batch, max_len, dt, device))
+            for j, kind in enumerate(cfg.layer_pattern)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_rows: int,
                      device="cuda"):
     """Block-paged decode cache: every attention sublayer owns a flat pool
-    of ``num_rows`` token rows, with a leading ``num_superblocks`` axis, as
-    in the JAX package (``num_slots`` sizes per-slot state, which only
-    recurrent layers have; none is ported yet)."""
+    of ``num_rows`` token rows, while a mamba sublayer, whose state does
+    not grow with the sequence, keeps one dense state per scheduler slot
+    (``num_slots``); a leading ``num_superblocks`` axis on each, as in the
+    JAX package.  A slot's state is overwritten whole by its request's
+    prefill, so nothing of an earlier request reaches a later one."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     n_sb = cfg.num_superblocks
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {f"l{j}": {kv: torch.zeros((n_sb, num_rows, nkv, hd), dtype=dt,
-                                      device=device)
-                      for kv in ("k", "v")}
-            for j in range(len(cfg.layer_pattern))}
+
+    def one(kind):
+        if kind == "mamba":
+            return _stacked(cfg, mb.init_mamba_cache(cfg, num_slots, device))
+        return {kv: torch.zeros((n_sb, num_rows, nkv, hd), dtype=dt,
+                                device=device) for kv in ("k", "v")}
+    return {f"l{j}": one(kind) for j, kind in enumerate(cfg.layer_pattern)}
 
 
 def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
@@ -436,7 +479,9 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
     int32 tensor of per-sequence write positions, and ``page_size`` the
     pool's page size (the paged decode kernel reads one page per step).
     premat: optional (L_moe, 1, K, chunk_len) compute slots
-    (``moe.materialize_chunks``).  The cache is updated IN PLACE.  Returns
+    (``moe.materialize_chunks``).  A mamba sublayer advances its dense
+    state of each of the B sequences (in paged mode, of each scheduler
+    slot) by one token.  The cache is updated IN PLACE.  Returns
     (logits (B, 1, V) f32, cache)."""
     if row_idx is not None and page_size is None:
         raise NotImplementedError("the paged path's gather fallback is not "
@@ -452,25 +497,30 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
         p_sb = _block(params, sb)
         for j, kind in enumerate(cfg.layer_pattern):
             p = p_sb[f"l{j}"]
-            kv_sb = {kv: cache[f"l{j}"][kv][sb] for kv in ("k", "v")}
+            c_sb = {k: t[sb] for k, t in cache[f"l{j}"].items()}
             h = ly.apply_norm(p["ln1"], x, cfg.norm)
-            if row_idx is None:
-                y, _ = attn.decode_attention(p["attn"], cfg, h, kv_sb, pos,
+            if kind == "mamba":     # one dense state per sequence or slot
+                y, new = mb.mamba_decode_step(p["mamba"], cfg, h, c_sb)
+                for k, t in new.items():
+                    c_sb[k].copy_(t)                # in place
+            elif row_idx is None:
+                y, _ = attn.decode_attention(p["attn"], cfg, h, c_sb, pos,
                                              kind=kind)
             else:
                 y, _ = attn.decode_attention_paged(
-                    p["attn"], cfg, h, kv_sb, pos, row_idx, kind=kind,
+                    p["attn"], cfg, h, c_sb, pos, row_idx, kind=kind,
                     page_size=page_size)
             x = x + y
-            h = ly.apply_norm(p["ln2"], x, cfg.norm)
             if j in moe_pos:
+                h = ly.apply_norm(p["ln2"], x, cfg.norm)
                 y, _ = _moe_ffn(cfg, rt, h, params["router"][mi],
                                 params["moe_buffer"], pa.layer(mi),
                                 premat=None if premat is None
                                 else premat[mi])
+                x = x + y
                 mi += 1
-            else:
-                y = ly.apply_mlp(p["mlp"], h, cfg.act)
-            x = x + y
+            elif kind != "mamba":
+                h = ly.apply_norm(p["ln2"], x, cfg.norm)
+                x = x + ly.apply_mlp(p["mlp"], h, cfg.act)
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
     return ly.unembed(params["embed"], x, cfg.final_logit_softcap), cache

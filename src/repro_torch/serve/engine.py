@@ -103,15 +103,23 @@ def build_prefill_step(cfg: ModelConfig, rt: mdl.Runtime):
     """fn(params, batch, pa, premat=None) -> (last-position logits
     (B,1,V), cache).
 
-    The cache holds every layer's rotated K/V for the whole prompt.
-    ``batch["last_pos"]`` (optional, (B,) int) picks each sequence's last
-    REAL position instead of -1: prompts padded up to a shape bucket keep
-    their real positions unaffected under the causal mask."""
+    The cache holds every attention layer's rotated K/V for the whole
+    prompt and every mamba layer's state after it.  ``batch["embeds"]``
+    (B, S, D), where given, replaces ``batch["tokens"]`` (a frontend
+    stub's embeddings; ``batch["positions"]`` may give M-RoPE's (B, S, 3)
+    streams).  ``batch["last_pos"]`` (optional, (B,) int) picks each
+    sequence's last REAL position instead of -1: prompts padded up to a
+    shape bucket keep their real positions unaffected under the causal
+    mask (a model with mamba layers is prefilled at exact length: their
+    state would take in the padding)."""
     @torch.inference_mode()
     def prefill_step(params, batch, pa: Optional[PlanArrays], premat=None):
-        logits, _, cache = mdl.forward(cfg, rt, params, batch["tokens"],
-                                       pa=pa, collect_cache=True,
-                                       premat=premat)
+        inputs = ({"embeds": batch["embeds"]} if "embeds" in batch
+                  else {"tokens": batch["tokens"]})
+        logits, _, cache = mdl.forward(cfg, rt, params, pa=pa,
+                                       positions=batch.get("positions"),
+                                       collect_cache=True, premat=premat,
+                                       **inputs)
         if "last_pos" in batch:
             idx = batch["last_pos"].long()
             last = logits[torch.arange(logits.shape[0],

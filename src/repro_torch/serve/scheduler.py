@@ -150,6 +150,10 @@ class RequestScheduler:
         self.eos_id = eos_id
         self.max_prefill_retries = max_prefill_retries
         self.clock = clock
+        # prompts pad up to shape buckets, except where a recurrent (mamba)
+        # layer would take the padding tokens into its state: such models
+        # prefill at the prompt's exact length, as in the JAX package
+        self._pad_prompts = "mamba" not in self.cfg.layer_pattern
         self._step_fn = build_paged_serve_step(self.cfg, self.rt,
                                                page_size=page_size)
         self._prefill_fn = build_prefill_step(self.cfg, self.rt)
@@ -302,8 +306,11 @@ class RequestScheduler:
 
     # ---- prefill --------------------------------------------------------
     def _bucket(self, n: int) -> int:
-        """Prompts pad up to a power-of-two bucket (>= 8), the shapes the
-        prefill kernels take."""
+        """Prompts pad up to a power-of-two bucket (>= 8), so that mixed
+        lengths share a few prefill shapes; a model with mamba layers takes
+        the exact length."""
+        if not self._pad_prompts:
+            return n
         b = 8
         while b < n:
             b *= 2
@@ -349,11 +356,17 @@ class RequestScheduler:
         return True
 
     def _write_prompt_kv(self, slot: int, pcache, p_len: int) -> None:
-        """Copy the prompt's K/V rows into the slot's pages (in place)."""
+        """Copy the prompt's K/V rows into the slot's pages, and a mamba
+        layer's state after the prompt into the slot's dense state, whole
+        (in place)."""
         rows = torch.as_tensor(self._row_idx[slot][:p_len],
                                device=self.device).long()
-        for j in range(len(self.cfg.layer_pattern)):
+        for j, kind in enumerate(self.cfg.layer_pattern):
             dst, src = self.cache[f"l{j}"], pcache[f"l{j}"]
+            if kind == "mamba":
+                for k in dst:
+                    dst[k][:, slot] = src[k][:, 0]
+                continue
             for kv in ("k", "v"):
                 dst[kv][:, rows] = src[kv][:, 0, :p_len]
 

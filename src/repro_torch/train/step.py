@@ -103,16 +103,24 @@ def chunked_nll(cfg: ModelConfig, embed_params, hidden, labels,
     return nll, cnt
 
 
+def _unpack_batch(cfg: ModelConfig, batch):
+    """(forward kwargs, labels): a frontend arch that is not
+    encoder-decoder (Qwen2-VL) takes ``{"embeds": (B, S, D), "labels": (B,
+    S)}``, the others ``{"tokens": (B, S+1)}``, next-token labels."""
+    if cfg.frontend is not None and not cfg.is_encoder_decoder:
+        return {"embeds": batch["embeds"]}, batch["labels"]
+    toks = batch["tokens"]
+    return {"tokens": toks[:, :-1]}, toks[:, 1:]
+
+
 def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
             pa: Optional[PlanArrays], causal: bool = True, premat=None):
-    """Next-token loss of ``batch["tokens"]`` (B, S+1) plus the MoE aux and
-    z terms; returns (loss, metrics).  ``premat``: step-hoisted slots for
-    ``forward``."""
-    toks = batch["tokens"]
-    hidden, aux = mdl.forward(cfg, rt, params, toks[:, :-1], pa=pa,
-                              causal=causal, return_hidden=True,
-                              premat=premat)
-    labels = toks[:, 1:]
+    """Next-token loss of ``batch`` (``_unpack_batch``) plus the MoE aux
+    and z terms; returns (loss, metrics).  ``premat``: step-hoisted slots
+    for ``forward``."""
+    kwargs, labels = _unpack_batch(cfg, batch)
+    hidden, aux = mdl.forward(cfg, rt, params, pa=pa, causal=causal,
+                              return_hidden=True, premat=premat, **kwargs)
     grid = getattr(rt, "grid", None)
     if grid is None:
         loss = chunked_xent(cfg, params["embed"], hidden, labels)

@@ -1,14 +1,17 @@
-"""The port's MoE architectures against the JAX package on the CPU: the
+"""The port's architectures against the JAX package on the CPU: the
 counterpart of ``tests/test_arch_smoke.py`` for the configs that
-``repro_torch.configs.PORTED`` lists.
+``repro_torch.configs.PORTED`` lists (every one of the JAX registry but
+whisper-medium).
 
 Each full ``config()`` equals the JAX registry's field by field.  On each
 reduced ``smoke()`` config (f32), JAX initializes the parameters, the
-weight bridge carries them over and numpy makes the tokens from a seed;
-then one train step (``jax.jit(build_train_step)`` against the port's
-``build_train_step``, ``ep`` plan of the Hecate scheduler) and one decode
-step (``decode_step`` on a dense cache) run in both packages.  bert-moe
-also takes a bidirectional step (``causal=False``).  Tolerances as in
+weight bridge carries them over and numpy makes the tokens (Qwen2-VL: the
+stub frontend's embeddings and the labels) from a seed; then one train
+step (``jax.jit(build_train_step)`` against the port's
+``build_train_step``, ``ep`` plan of the Hecate scheduler for the MoE
+archs) and one decode step (``decode_step`` on a dense cache) run in both
+packages.  bert-moe also takes a bidirectional step (``causal=False``),
+Qwen2-VL a forward of embeddings at distinct M-RoPE position streams.  Tolerances as in
 ``tests/test_torch_train.py``: 1e-5 for losses, 5e-4 of each tensor's
 largest entry for gradients and the gradient norm, 1e-5 of the largest
 logit for decode; the parameters after one AdamW step as
@@ -41,9 +44,18 @@ from repro_torch.train import step as st  # noqa: E402
 from repro_torch.train.trainer import HecateScheduler  # noqa: E402
 
 ARCHS = ["gpt-moe-s", "gpt-moe-l", "bert-moe", "bert-moe-deep",
-         "olmoe-1b-7b", "granite-moe-3b-a800m"]
+         "olmoe-1b-7b", "granite-moe-3b-a800m", "smollm-360m", "minitron-8b",
+         "qwen1.5-110b", "gemma2-9b", "mamba2-1.3b", "jamba-v0.1-52b",
+         "qwen2-vl-72b"]
 B, S = 2, 32
 TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+# Gradients (and first moments) against JAX's, relative to each tensor's
+# largest entry.  Qwen2-VL's step on unit-normal stand-in embeddings is
+# ill-conditioned in f32: JAX's own f32 gradients lie up to 3.3e-3 from
+# its float64 ones there, the port's 2.1e-3, and the two packages' f32
+# gradients 1.36e-3 from each other (measured on the CPU); every other
+# arch is held to 5e-4.
+GRAD_TOL = {"qwen2-vl-72b": 2e-3}
 
 
 def _np(a):
@@ -85,28 +97,43 @@ def _params_after_step(got, want, want_mu, tc):
 
 def _setup(name):
     """Both packages' smoke config, JAX's initial parameters (numpy), the
-    ``ep`` plan of each package's scheduler and a batch of tokens."""
+    ``ep`` plan of each package's scheduler (None without MoE) and a batch
+    of tokens (Qwen2-VL: embeddings and labels)."""
     jcfg, cfg = jconfigs.get_smoke(name), configs.get_smoke(name)
     jparams = jmdl.init_params(jcfg, jax.random.PRNGKey(0))
-    toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    if cfg.frontend == "vision":
+        nb = {"embeds": rng.standard_normal((B, S, cfg.d_model), np.float32),
+              "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                  np.int32)}
+    else:
+        nb = {"tokens": rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(
+            np.int32)}
+    moe = cfg.moe.enabled
     return dict(
         jcfg=jcfg, cfg=cfg, jparams=jparams,
         np_tree=jax.tree.map(np.asarray, jparams),
-        jpa=JScheduler(jcfg, ep=1, impl="ep").plan_arrays(),
-        pa=HecateScheduler(cfg, ep=1, impl="ep", device="cpu").plan_arrays(),
-        jb={"tokens": jnp.asarray(toks)}, tb={"tokens": torch.from_numpy(toks)})
+        jpa=JScheduler(jcfg, ep=1, impl="ep").plan_arrays() if moe else None,
+        pa=HecateScheduler(cfg, ep=1, impl="ep", device="cpu").plan_arrays()
+        if moe else None,
+        jb={k: jnp.asarray(v) for k, v in nb.items()},
+        tb={k: torch.from_numpy(v) for k, v in nb.items()})
 
 
 def test_ported_configs():
-    assert configs.PORTED == ["gpt_moe_s", "gpt_moe_l", "bert_moe",
-                              "bert_moe_deep", "olmoe_1b_7b",
-                              "granite_moe_3b_a800m"]
+    """The registry mirrors the JAX one's lists and ports all of them but
+    the encoder-decoder whisper-medium; the CLI ids resolve as the JAX
+    registry's aliases do."""
     assert configs.PAPER == jconfigs.PAPER
-    assert configs.ASSIGNED == [a for a in jconfigs.ASSIGNED
-                                if jconfigs.get(a).arch_type == "moe"]
+    assert configs.ASSIGNED == jconfigs.ASSIGNED
+    assert configs.PORTED == [a for a in jconfigs.PAPER + jconfigs.ASSIGNED
+                              if a != "whisper_medium"]
+    assert sorted(configs.canonical(a) for a in ARCHS) == \
+        sorted(configs.PORTED)
+    for a in ARCHS:
+        assert configs.canonical(a) == jconfigs.canonical(a)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get("smollm-360m")
+        configs.get("whisper-medium")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -125,6 +152,17 @@ def test_full_config_equals_jax(name):
                 cfg.num_kv_heads, cfg.moe.d_ff, cfg.vocab_size,
                 cfg.moe.num_experts, cfg.moe.experts_per_token) == \
             assigned[name]
+    dense = {  # tests/test_arch_smoke.py's table: L, d, heads, kv, d_ff, V
+        "minitron-8b": (32, 4096, 32, 8, 16384, 256000),
+        "mamba2-1.3b": (48, 2048, 1, 1, 0, 50280),
+        "qwen1.5-110b": (80, 8192, 64, 8, 49152, 152064),
+        "smollm-360m": (32, 960, 15, 5, 2560, 49152),
+        "jamba-v0.1-52b": (32, 4096, 32, 8, 14336, 65536),
+        "gemma2-9b": (42, 3584, 16, 8, 14336, 256000),
+        "qwen2-vl-72b": (80, 8192, 64, 8, 29568, 152064)}
+    if name in dense:
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size) == dense[name]
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -144,17 +182,21 @@ def test_arch_train_and_decode_match_jax(name):
                        torch.zeros((), dtype=torch.int32))
     ts, tm = st.build_train_step(cfg, mdl.Runtime(use_pallas=False), tc)(
         ts, su["tb"], su["pa"])
+    assert sorted(tm) == sorted(jm)
     for k in ("loss", "xent", "aux_loss"):
-        _close(tm[k], jm[k], 1e-5, k)
-    _close(tm["grad_norm"], jm["grad_norm"], 5e-4, "grad_norm")  # gradients
+        if k in jm:
+            _close(tm[k], jm[k], 1e-5, k)
+    gtol = GRAD_TOL.get(name, 5e-4)
+    _close(tm["grad_norm"], jm["grad_norm"], gtol, "grad_norm")  # gradients
     assert float(tm["step_ok"]) == float(jm["step_ok"]) == 1.0
-    np.testing.assert_array_equal(_np(tm["expert_counts"]),
-                                  np.asarray(jm["expert_counts"]))
+    if "expert_counts" in jm:
+        np.testing.assert_array_equal(_np(tm["expert_counts"]),
+                                      np.asarray(jm["expert_counts"]))
     assert sorted(dict(_flat(ts.params))) == sorted(dict(_flat(js.params)))
     _params_after_step(ts.params, js.params, js.opt.mu, tc)
     mu = dict(_flat(params_to_numpy(ts.opt.mu)))
     for k, w in _flat(jax.tree.map(np.asarray, js.opt.mu)):
-        _close(mu[k], w, 5e-4, k)
+        _close(mu[k], w, gtol, k)
 
     # one decode step at position 3 on a fresh dense cache, from JAX's init
     toks = np.random.default_rng(1).integers(
@@ -209,3 +251,28 @@ def test_bert_bidirectional_step_matches_jax():
     _close(tm["loss"], jm["loss"], 1e-5, "loss")
     _close(tm["grad_norm"], jm["grad_norm"], 5e-4, "grad_norm")
     _params_after_step(ts.params, js.params, js.opt.mu, tc)
+
+
+def test_qwen2_vl_embeds_with_distinct_position_streams_match_jax():
+    """Qwen2-VL's forward of stub-frontend embeddings at distinct
+    temporal, height and width position streams (B, S, 3), against JAX's;
+    the logits differ from those at text positions (all three streams
+    equal), so the streams reach M-RoPE.  Held at 1e-4 of the largest
+    logit: on unit-normal stand-in embeddings both packages' f32 logits
+    lie up to 4.7e-5 of it from JAX's float64 ones (measured on the CPU),
+    and 4.6e-5 from each other."""
+    su = _setup("qwen2-vl-72b")
+    cfg, jcfg = su["cfg"], su["jcfg"]
+    rng = np.random.default_rng(3)
+    emb = su["tb"]["embeds"]
+    pos = np.stack([np.broadcast_to(np.arange(S), (B, S)),
+                    rng.integers(0, 8, (B, S)), rng.integers(0, 8, (B, S))],
+                   axis=-1).astype(np.int32)
+    jl, _ = jmdl.forward(jcfg, jmdl.Runtime(), su["jparams"],
+                         embeds=su["jb"]["embeds"], positions=jnp.asarray(pos))
+    params = params_from_jax(su["np_tree"], "cpu")
+    tl, _ = mdl.forward(cfg, mdl.Runtime(), params, embeds=emb,
+                        positions=torch.from_numpy(pos))
+    _close(tl, np.asarray(jl), 1e-4, "logits")
+    text, _ = mdl.forward(cfg, mdl.Runtime(), params, embeds=emb)
+    assert float((text - tl).abs().max()) > 1e-3

@@ -710,3 +710,107 @@ def test_flash_attention_kernel_refuses_grad(cuda):
         ops.flash_attention(q.requires_grad_(True), k, v)
     with torch.no_grad():
         assert ops.flash_attention(q, k, v).shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only families' shapes: Gemma-2's decode at hd 256, Jamba's
+# exact-length prefill and its experts at D 4,096
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap,shift", [
+    (0, 50.0, None), (4096, 50.0, None), (60, 50.0, None), (0, 0.0, None),
+    (60, 50.0, 0), (0, 50.0, 1)])                # unaligned q, K pool
+def test_paged_decode_kernel_hd256(cuda, dtype, window, softcap, shift):
+    """Gemma-2's decode: 16 query heads over 8 KV heads of 256, softcap 50,
+    window 4,096 on its local layers (here also 60, which cuts into the
+    pages), at the warp split's boundaries and the longest sequence;
+    against the plain and the step-wise version, two calls bitwise equal.
+    An unaligned q or K pool takes the element-wise loads."""
+    from repro_torch.kernels import ref
+    ps, w = 8, PAGED_WARPS
+    positions = [0, w * ps - 1, w * ps + 3, 300, 511]
+    case = list(_paged_pool(256 + window, positions, 8, 2, cuda, dtype,
+                            h=256))
+    if shift is not None:
+        case[shift] = _offset_copy(case[shift])
+    kw = dict(page_size=ps, window=window, softcap=softcap)
+    got, want = _both(lambda: ops.paged_decode_attention(*case, **kw))
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    split = ref.paged_decode_attention_split_ref(*case, n_warps=w, **kw)
+    torch.testing.assert_close(got.float(), split.float(), **SPLIT_TOL[dtype])
+    assert torch.equal(got, ops.paged_decode_attention(*case, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 17, 90, 200, 300])
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_kernel_any_length(cuda, dtype, S, window):
+    """Jamba's exact-length prefill: 32 query heads of 128 over 8 KV heads
+    (expanded by the dispatcher), causal, at prompt lengths that are no
+    power of two and no multiple of 128 (the tail tile's rows zero-filled
+    and its keys masked), also windowed; against the plain version, and in
+    bf16 also against the step-wise one; two calls bitwise equal."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(S + window)
+    q = _t(rng, (1, S, 32, 128), 0.5, dtype, cuda)
+    k, v = (_t(rng, (1, S, 8, 128), 0.5, dtype, cuda) for _ in range(2))
+    got, want = _both(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                  window=window))
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        kx, vx = (torch.repeat_interleave(a, 4, dim=2) for a in (k, v))
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention_tiled_ref(
+                q, kx, vx, causal=True, window=window).float(), **TILED_TOL)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu_glu", "gelu"])
+def test_grouped_mlp_kernels_jamba_experts(cuda, dtype, act):
+    """Jamba's experts, D 4,096 and F 14,336 (above the f32 kernels'
+    3,072 columns of rows in shared memory, which then go through it in two
+    halves): the inference form, the training form, dgrad and wgrad
+    against their plain versions on ``_train_case``'s slots (empty, ragged
+    with a hole, full), invalid rows exactly zero; weights at the scale of
+    the model's fan-in init."""
+    from repro_torch.kernels import grouped_mlp as gm
+    from repro_torch.kernels import ref
+    D, F = 4096, 14336
+    x, _, _, _, dy, mask = _train_case(cuda, dtype, act, 7, K=3, T=160,
+                                       D=D, F=8)
+    rng = np.random.default_rng(8)
+    wi = _t(rng, (3, D, F), 0.02, dtype, cuda)
+    wg = _t(rng, (3, D, F), 0.02, dtype, cuda) if act.endswith("_glu") \
+        else None
+    wo = _t(rng, (3, F, D), 0.01, dtype, cuda)
+    valid = mask.bool()
+    got, want = _both(lambda: ops.grouped_mlp(x, wi, wg, wo, None, valid,
+                                              act=act))
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (got[~valid] == 0).all()
+    fwd, n = _launched(lambda: gm.grouped_mlp_fwd_train(x, wi, wg, wo, mask,
+                                                        act=act))
+    assert n == {"grouped_mlp_fwd_train": 1}
+    _close_all(fwd, ref.grouped_mlp_fwd_train_ref(x, wi, wg, wo, mask,
+                                                  act=act), dtype,
+               rows=(valid, (1, 2)))
+    _, h1, h2 = fwd
+    dg, n = _launched(lambda: gm.grouped_mlp_dgrad(dy, mask, h1, h2, wi, wg,
+                                                   wo, act=act))
+    assert n == {"grouped_mlp_dgrad": 1}
+    _close_all(dg, ref.grouped_mlp_dgrad_ref(dy, mask, h1, h2, wi, wg, wo,
+                                             act=act), dtype)
+    _, dh1, dh2, h = dg
+    wgr, n = _launched(lambda: gm.grouped_mlp_wgrad(x, dy, mask, dh1, dh2, h))
+    assert n == {"grouped_mlp_wgrad": 1}
+    _close_all(wgr, ref.grouped_mlp_wgrad_ref(x, dy, mask, dh1, dh2, h),
+               dtype)
+    for a in (fwd[0], dg[0], dg[1], dg[3]):
+        assert (a[~valid] == 0).all()
