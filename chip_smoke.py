@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--phases 3,11]
+    python3 chip_smoke.py [--out results.json] [--phases 3,12]
 
 Run from the repository root (it imports ``src/repro_torch`` and nothing of
 JAX).  In order it:
@@ -139,14 +139,29 @@ JAX).  In order it:
    training through phase 5's loop at batch 8 x 2,048 at its depth cut
    (qwen1.5, qwen2-vl and jamba: one superblock does not fit; CPU tests
    only);
-12. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
-   shapes, then at each phase-10 configuration's, then the serving
-   kernels at phase 11's new shapes), then
+12. serves and publishes gpt-moe-s on the process grid at full width and
+   depth, world size 1 over NCCL: ``train_loop`` through phase 7's grid
+   path (ring plan, K = 68, bf16, batch 8 x 2,048, 6 steps) publishing
+   every 2 steps into a ``PublicationBus`` of two grid engines with one
+   host tag (one stacked build per publication, shared: ``dedup_hits``
+   equal to the publications), a forced row-permuting reshard at step 2
+   whose next publication alone carries the plan, and after each
+   publication the bus flushed and phase 4's four prompts served through
+   the scheduler on the grid engine (8 greedy tokens each; no
+   SparseAllGather in any decode tick); B1 in both forms, B2, B3, B4 and
+   B5 launched; the memory held before the loop read as in phase 7; after
+   the last promotion the replica serves a fresh engine's tokens at the
+   trainer's (params, pa, version); step, tick, build and
+   publish-to-promotion ms and the peak;
+13. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
+   shapes with its launches in phases 4/5, 7, 8, 9 and 12, then at each
+   phase-10 configuration's, then the serving kernels at phase 11's new
+   shapes), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
 a CUDA device, or without the repository around it, it fails.
-``--phases`` runs a subset of phases 3-11 after the build (phase 7 reads
+``--phases`` runs a subset of phases 3-12 after the build (phase 7 reads
 phase 5's step median where phase 5 ran); a subset prints no kernel table
 and no result line.
 """
@@ -213,6 +228,12 @@ REMAT_LAW = {"save": 2, "gather": 3, "block": 3}
 # what the cyclic garbage collector may free before a measured run: a
 # dropped state is freed at once, so anything more is a reference cycle
 GC_FREED_LIMIT_GB = 0.05
+# phase 12: serving and publication on the process grid at world size 1 over
+# NCCL: counted training steps (batch 8 x 2,048), publication every 2 of
+# them into a two-replica bus, the forced reshard's step, and the greedy
+# tokens of each of phase 4's prompts served after each publication
+GRID_SERVE_STEPS, GRID_PUBLISH_EVERY, GRID_RESHARD_AT = 6, 2, 2
+GRID_SERVE_NEW = 8
 # phase 9: checkpoint, resume, rollback and restored serving at full width
 # cut to 2 layers, batch 8 x 2,048, 6 steps, checkpoints every 2 (keep 2)
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = 2, 6, 2
@@ -1722,21 +1743,17 @@ def dense_generate_full_width(torch, ops, dev, card):
                 run_wall_s=wall_s, launches=launches, profiled_step=prof)
 
 
-def _profile_dense_step(torch, step, eng, tokens, card):
-    """One dense decode step under torch.profiler: launches, device-busy
-    time, its idle share and B1's part."""
+def _profile_call(torch, fn):
+    """``fn()`` under torch.profiler, the second of two passes (the first
+    sets CUPTI up): ``(device events, its kernel launches, device-busy ms,
+    wall ms)``."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import model as mdl
-    params, pa, premat = eng._snapshot()
-    cache = mdl.init_cache(eng.cfg, tokens.shape[0], eng.max_len,
-                           tokens.device)
-    for _ in range(2):                      # the first pass sets CUPTI up
+    for _ in range(2):
         torch.cuda.synchronize()
         t = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            step(params, cache, tokens, DENSE_PROMPT, pa, premat)
+            fn()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     ev = prof.key_averages()
@@ -1745,6 +1762,18 @@ def _profile_dense_step(torch, step, eng, tokens, card):
     dev_ev = [e for e in ev
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    return dev_ev, launches, busy, wall
+
+
+def _profile_dense_step(torch, step, eng, tokens, card):
+    """One dense decode step under torch.profiler: launches, device-busy
+    time, its idle share and B1's part."""
+    from repro_torch.models import model as mdl
+    params, pa, premat = eng._snapshot()
+    cache = mdl.init_cache(eng.cfg, tokens.shape[0], eng.max_len,
+                           tokens.device)
+    dev_ev, launches, busy, wall = _profile_call(
+        torch, lambda: step(params, cache, tokens, DENSE_PROMPT, pa, premat))
     b1 = _device_ms(dev_ev, *B1_SERVE_KERNELS)
     print(f"  [{card}] one dense decode step under the profiler: {launches} "
           f"kernel launches, device busy {busy:.3f} ms of {wall:.3f} ms "
@@ -3323,12 +3352,260 @@ def checkpoint_world_one(torch, ops, dev, card):
         dist.destroy_process_group()
 
 
+
+# ---------------------------------------------------------------------------
+# phase 12: serving and publication on the process grid
+# ---------------------------------------------------------------------------
+def serve_grid_world_one(torch, ops, dev, card):
+    """Full-width, full-depth gpt-moe-s at world size 1 over a real NCCL
+    group: ``train_loop`` through phase 7's grid path (ring plan, K = 68,
+    bf16, batch 8 x 2,048) publishing every ``GRID_PUBLISH_EVERY`` steps
+    into a ``PublicationBus`` of two grid engines with one host tag, whose
+    one stacked build per publication both replicas share; a forced
+    row-permuting reshard makes the next publication carry the fresh
+    plan.  After each publication the bus is flushed (both replicas
+    promote) and phase 4's four prompts are served through the
+    continuous-batching scheduler on the first replica."""
+    import threading
+
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.core import moe, placement
+    from repro_torch.core.moe import MoERuntime
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.bus import PublicationBus
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import DECODING, DONE, RequestScheduler
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    from repro_torch.common.params import snapshot
+
+    grid = _nccl_world()
+    stack = moe.materialize_stack
+    builds = []                     # (thread, start event, end event)
+
+    def timed_stack(*a, **kw):
+        s = torch.cuda.current_stream()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record(s)
+        out = stack(*a, **kw)
+        e1.record(s)
+        builds.append((threading.current_thread().name, e0, e1))
+        return out
+
+    def spag_calls():
+        return sum(v["calls"] for k, v in moe.collective_counts().items()
+                   if k.startswith("spag"))
+    moe.materialize_stack = timed_stack
+    bus = rs = None
+    engines = []
+    try:
+        cfg = configs.get("gpt-moe-s")
+        _, tc, stream = _train_setup(torch, dev, cfg)
+        rt_train = mdl.Runtime(use_pallas=False, moe=MoERuntime(
+            use_pallas=True, grid=grid, impl="ring"))
+        # serving: a capacity of the longest call's tokens drops nothing
+        rt_serve = mdl.Runtime(moe=MoERuntime(grid=grid, impl="ring",
+                                              capacity=MAX_LEN))
+        sched = HecateScheduler(cfg, ep=1, impl="ring", device=str(dev),
+                                resharding=_PermuteRows(at=GRID_RESHARD_AT))
+        pa0 = sched.plan_arrays()
+        K = pa0.local_rows.shape[-1] + pa0.extra_experts.shape[-1]
+        state = step_lib.init_state(cfg, 0, 1, dev, grid)
+        live = snapshot(state.params)
+        engines = [Engine(cfg, rt_serve, live, max_len=MAX_LEN, pa=pa0,
+                          name=f"replica-{i}") for i in range(2)]
+        del live
+        bus = PublicationBus([(e.name, e, "host-0") for e in engines])
+        pages = -(-MAX_LEN // PAGE_SIZE) * MAX_SLOTS + 1
+        rs = RequestScheduler(engines[0], max_slots=MAX_SLOTS,
+                              num_pages=pages, page_size=PAGE_SIZE,
+                              max_kv=MAX_LEN, default_ttl_s=3600.0)
+        prompts = _prompts(cfg.vocab_size)
+        warm = rs.submit(prompts[0], max_new_tokens=2)   # the live slots
+        rs.run(max_ticks=10)
+        if warm.state != DONE:
+            raise CheckFailed(f"warm-up request ended {warm.state}")
+        print(f"  {dist.get_backend()} world of {dist.get_world_size()}; "
+              f"two grid engines on one host behind a PublicationBus; ring "
+              f"plan K={K}; serving capacity {MAX_LEN} rows a cell")
+        tick_ms, tick_spag, pub, promote_ms, rounds = [], [], [], [], []
+        step_fn = rs._step_fn
+
+        def tick(*a, **kw):
+            n0 = spag_calls()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(*a, **kw)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+            tick_spag.append(spag_calls() - n0)
+            return out
+        rs._step_fn = tick
+        publish = bus.publish_params
+
+        def timed_publish(params, version=None, **kw):
+            pub.append((time.perf_counter(), version, kw.get("pa")))
+            return publish(params, version=version, **kw)
+        bus.publish_params = timed_publish
+
+        def serve_round():
+            reqs = [rs.submit(p, max_new_tokens=GRID_SERVE_NEW)
+                    for p in prompts]
+            rs.run(max_ticks=10 * GRID_SERVE_NEW)
+            if any(r.state != DONE for r in reqs):
+                raise CheckFailed(f"phase 12 requests ended "
+                                  f"{[r.state for r in reqs]}")
+            return [r.output() for r in reqs]
+
+        def after_step(i, s, m):
+            if (i + 1) % GRID_PUBLISH_EVERY:
+                return
+            bus.flush()                 # both replicas promote
+            torch.cuda.synchronize()
+            promote_ms.append((time.perf_counter() - pub[-1][0]) * 1e3)
+            rounds.append(serve_round())
+        held_gb, freed_gb = _held_gb(torch)
+        torch.cuda.reset_peak_memory_stats()
+        builds.clear()
+        ops.reset_launch_counts()               # the main path's run starts
+        state, hist = train_loop(cfg, rt_train, tc, stream, scheduler=sched,
+                                 state=state, num_steps=GRID_SERVE_STEPS,
+                                 log_every=0, device=dev,
+                                 callback=after_step, publish_engine=bus,
+                                 publish_every=GRID_PUBLISH_EVERY)
+        bus.flush()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()          # ... and ends
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rs._step_fn, bus.publish_params = step_fn, publish
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["time_s"] * 1e3 for h in hist]
+        build_ms = [a.elapsed_time(b) for _, a, b in builds]
+        threads = [name for name, _, _ in builds]
+        with_plan = [p is not None for _, _, p in pub]
+        plans = [p for _, _, p in pub if p is not None]
+        n_pub = len(pub)
+        print(f"  {GRID_SERVE_STEPS} steps publishing every "
+              f"{GRID_PUBLISH_EVERY} (versions {[v for _, v, _ in pub]}, "
+              f"with a plan {with_plan}; reshard at step {GRID_RESHARD_AT}); "
+              f"losses {[round(x, 4) for x in losses]}; dedup_hits "
+              f"{bus.dedup_hits}; stacked builds {len(builds)} on "
+              f"{sorted(set(threads))}; launches {launches}")
+        print(f"  [{card}] step ms {[round(x, 1) for x in step_ms]}; host "
+              f"build device ms {[round(x, 2) for x in build_ms]}; publish-"
+              f"to-promotion ms {[round(x, 1) for x in promote_ms]} (the "
+              f"step's readback included); decode tick ms median "
+              f"{statistics.median(tick_ms):.3f} over {len(tick_ms)} ticks, "
+              f"SparseAllGathers in them {sum(tick_spag)}; device memory "
+              f"peak {peak_gb:.2f} GB, {held_gb:.2f} GB held before the loop "
+              f"(the garbage collector then freed {freed_gb:.2f} GB)")
+        if not all(map(math.isfinite, losses)):
+            raise CheckFailed(f"phase 12 loss not finite: {losses}")
+        if {k for k, v in launches.items() if v} != set(SERVE_KERNELS) | \
+                set(TRAIN_KERNELS):
+            raise CheckFailed(f"phase 12 launches {launches}")
+        want_pub = GRID_SERVE_STEPS // GRID_PUBLISH_EVERY
+        if (n_pub != want_pub or bus.dedup_hits != n_pub
+                or len(builds) != n_pub
+                or set(threads) != {"publication-bus"}
+                or hist[-1]["publish_drops"]):
+            raise CheckFailed(f"phase 12: {n_pub} publications, dedup_hits "
+                              f"{bus.dedup_hits}, builds {threads}, drops "
+                              f"{hist[-1]['publish_drops']}")
+        first_after = GRID_RESHARD_AT // GRID_PUBLISH_EVERY
+        if with_plan != [k == first_after for k in range(n_pub)]:
+            raise CheckFailed(f"phase 12: the publication after the reshard "
+                              f"does not carry the plan alone: {with_plan}")
+        if sum(tick_spag):
+            raise CheckFailed(f"phase 12: {sum(tick_spag)} SparseAllGathers "
+                              f"in the decode ticks")
+        if any(e.pa is not plans[-1] or e.version != pub[-1][1]
+               for e in engines):
+            raise CheckFailed("phase 12: a replica is not at the last "
+                              "publication's (plan, version)")
+        if freed_gb > GC_FREED_LIMIT_GB:
+            raise CheckFailed(f"phase 12: the collector freed {freed_gb} GB")
+        served = serve_round()
+
+        def serve_profiled(eng):
+            """Phase 4's prompts through a scheduler on ``eng``, one
+            decode tick of the four under the profiler: (tokens, its
+            launches, device-busy ms, wall ms)."""
+            with RequestScheduler(eng, max_slots=MAX_SLOTS,
+                                  num_pages=pages, page_size=PAGE_SIZE,
+                                  max_kv=MAX_LEN,
+                                  default_ttl_s=3600.0) as r:
+                reqs = [r.submit(p, max_new_tokens=GRID_SERVE_NEW)
+                        for p in prompts]
+                for _ in range(10):
+                    if all(q.state == DECODING for q in reqs):
+                        break
+                    r.step()
+                prof = _profile_call(torch, r.step)[1:]
+                r.run(max_ticks=10 * GRID_SERVE_NEW)
+                if any(q.state != DONE for q in reqs):
+                    raise CheckFailed(f"phase 12 requests ended "
+                                      f"{[q.state for q in reqs]}")
+                return ([q.output() for q in reqs],) + prof
+        with Engine(cfg, rt_serve, state.params, max_len=MAX_LEN,
+                    pa=plans[-1], version=engines[0].version) as fresh:
+            ref, *grid_prof = serve_profiled(fresh)
+        # the same tick without the grid: the world-size-1 engine, on the
+        # EP plan of the trainer's sharding
+        ep_pa = moe.plan_to_arrays(placement.ep_materialization(
+            sched.sharding), str(dev))
+        with Engine(cfg, mdl.Runtime(moe=MoERuntime(capacity=MAX_LEN)),
+                    state.params, max_len=MAX_LEN, pa=ep_pa,
+                    version=engines[0].version) as plain:
+            _, *plain_prof = serve_profiled(plain)
+        same = all((a == b).all() for a, b in zip(served, ref))
+        print(f"  after the last promotion (version {engines[0].version}): "
+              f"the replica's tokens equal a fresh engine's at the trainer's "
+              f"(params, pa, version): {same}")
+        tick_prof = {}
+        for name, (n, busy, wall) in (("grid", grid_prof),
+                                      ("world_size_1", plain_prof)):
+            tick_prof[name] = dict(launches=n, device_busy_ms=busy,
+                                   wall_ms=wall, idle_share=1 - busy / wall)
+            print(f"  [{card}] one decode tick of the four prompts under the "
+                  f"profiler, {name} engine: {n} kernel launches, device "
+                  f"busy {busy:.3f} ms of {wall:.3f} ms wall (device idle "
+                  f"share {1 - busy / wall:.3f})")
+        if not same:
+            raise CheckFailed("phase 12: the replica does not serve the "
+                              "trainer's (params, pa, version)")
+        return dict(losses=losses, step_ms=step_ms,
+                    median_step_ms=statistics.median(step_ms),
+                    build_device_ms=build_ms,
+                    publish_to_promotion_ms=promote_ms,
+                    decode_tick_ms=tick_ms,
+                    median_decode_tick_ms=statistics.median(tick_ms),
+                    profiled_tick=tick_prof,
+                    peak_memory_gb=peak_gb, held_before_gb=held_gb,
+                    freed_by_gc_gb=freed_gb, dedup_hits=bus.dedup_hits,
+                    publications=n_pub, with_plan=with_plan, K=K,
+                    launches=launches,
+                    served=[[o.tolist() for o in r] for r in rounds])
+    finally:
+        moe.materialize_stack = stack
+        if rs is not None:
+            rs.close()
+        if bus is not None:
+            bus.close()
+        for e in engines:
+            e.close()
+        del rs, bus, engines
+        dist.destroy_process_group()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 3-11 to run after "
+                    help="comma-separated phases among 3-12 to run after "
                          "the device and the build (default: all); the "
                          "kernel table and the result line need all")
     args = ap.parse_args()
@@ -3385,7 +3662,7 @@ def main() -> None:
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
-    run = set(range(3, 12)) if not args.phases else \
+    run = set(range(3, 13)) if not args.phases else \
         {int(x) for x in args.phases.split(",")}
 
     def phase(n, title):
@@ -3458,6 +3735,10 @@ def main() -> None:
         if phase(11, "the decoder-only families at full width"):
             results["slice11"] = slice11(torch, ops, dev, card_line)
             torch.cuda.empty_cache()
+        if phase(12, "serving and publication on the process grid"):
+            results["serve_grid"] = serve_grid_world_one(torch, ops, dev,
+                                                         card_line)
+            torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
 
@@ -3466,13 +3747,13 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    if run != set(range(3, 12)):
+    if run != set(range(3, 13)):
         print(f"phases {sorted(run)} passed (script wall "
               f"{time.perf_counter() - T_START:.1f} s); the kernel table "
               f"and the result line come with every phase")
         return
     table = _kernel_table(results)
-    print(f"== 12. kernels (script wall so far "
+    print(f"== 13. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(results['kernels']))}")
     print(json.dumps({"kernels": table}))
@@ -3521,7 +3802,7 @@ KERNEL_META = {
 
 def _kernel_table(results):
     """The rows of the kernels JSON line: each kernel at gpt-moe-s's shapes
-    with its launches in phases 4/5 (and 7, 8, 9), then at each phase-10
+    with its launches in phases 4/5 (and 7, 8, 9, 12), then at each phase-10
     configuration's shapes with its launches in phase 10, then the serving
     kernels at phase 11's new shapes with their launches in phase 11."""
     def row(k, r, launches, **more):
@@ -3544,7 +3825,8 @@ def _kernel_table(results):
             launches_fssdp=results["fssdp"]["launches"][k],
             launches_overlap={mode: r8["launches"][k] for mode, r8 in
                               results["overlap"]["modes"].items()},
-            launches_checkpoint=results["checkpoint"]["launches"][k]))
+            launches_checkpoint=results["checkpoint"]["launches"][k],
+            launches_serve_grid=results["serve_grid"]["launches"][k]))
     for cname, rows in results["kernels_slice10"].items():
         ran = results["slice10"][cname]
         for k, r in rows.items():

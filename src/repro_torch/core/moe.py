@@ -318,7 +318,13 @@ def materialize_chunks(cfg: ModelConfig, buf, pa: PlanArrays, dtype=None):
     dtype (the world-size-1 SparseAllGather: local rows only, no
     collective), the values of ``_layer_slots``.  Built one slot at a time,
     so the transient f32 copy is one buffer row (a layer's rows in f32 are
-    11 GB at Jamba's widths, which would not fit beside its weights)."""
+    11 GB at Jamba's widths, which would not fit beside its weights).
+    Tables of more than one rank are refused: on a process grid each rank
+    holds its own shard, and its slots come from ``materialize_stack``."""
+    if pa.local_rows.shape[1] != 1:
+        raise ValueError(f"materialize_chunks builds the slots of world size "
+                         f"1; these tables are {pa.local_rows.shape[1]} "
+                         f"ranks': use materialize_stack on the grid")
     dt = torch_dtype(dtype or cfg.dtype)
     L = pa.local_rows.shape[0]
     k = pa.local_rows.shape[-1]
@@ -599,19 +605,22 @@ def _mask_col(mask, dtype):
     return mask[:, None].to(dtype)
 
 
-def _spag_ep(buf, pa, grid, impl: str, dt):
+def _spag_ep(buf, pa, grid, impl: str, dt, rows_per=None):
     """The EP half of one layer's SparseAllGather on this rank: the f32
     shard ``buf`` (rows_local, chunk_loc) -> this rank's column shard
     (K, chunk_loc) of the compute slots in ``dt``.  The rows are taken,
     then cast, so only they are converted, and every collective moves the
-    compute dtype.  The owned slots are a take of the local rows; the m
-    extra slots come over the EP group (ring, a2a or dense).  The FSDP
-    half (``_spag_issue``) all-gathers the column shards."""
+    compute dtype.  The owned slots are a take of the local rows,
+    ``rows_per`` rows at a time (default: all at once), which bounds the
+    transient f32 copy; the m extra slots come over the EP group (ring,
+    a2a or dense).  The FSDP half (``_spag_issue``) all-gathers the column
+    shards."""
     M, me, ranks = grid.model, grid.e, grid.ep_ranks
     m = pa.extra_experts.shape[-1]
-    owned = buf[pa.local_rows[me].long()].to(dt) \
-        * _mask_col(pa.local_experts[me] >= 0, dt)
-    slots = [owned]
+    rows, own = pa.local_rows[me].long(), pa.local_experts[me] >= 0
+    n = rows_per or max(rows.shape[0], 1)
+    slots = [buf[rows[i:i + n]].to(dt) * _mask_col(own[i:i + n], dt)
+             for i in range(0, rows.shape[0], n)]
     my_e = pa.extra_experts[me].long()
     if impl == "ring" and m:
         send = buf[pa.ring_send_rows[me].long()].to(dt)        # (m, chunk)
@@ -674,7 +683,7 @@ class _Pending:
         self.works, self.keep = [], []
 
 
-def _spag_issue(buf, pa, grid, impl: str, dt, out=None):
+def _spag_issue(buf, pa, grid, impl: str, dt, out=None, rows_per=None):
     """Issue one layer's SparseAllGather on this rank and return
     ``(gathered, pending)``: the (g·K, chunk_loc) tensor that the FSDP
     all-gather writes, the column shards of the g ranks of the FSDP group
@@ -687,9 +696,10 @@ def _spag_issue(buf, pa, grid, impl: str, dt, out=None):
     ``async_op=True``.  ``out``: a (K, chunk_len) tensor to gather into
     when the FSDP group is one rank (then the two layouts are one).  On
     the CPU (gloo) the EP half's collectives are waited by the host
-    before the FSDP half, which stays in flight until ``wait``."""
+    before the FSDP half, which stays in flight until ``wait``.
+    ``rows_per``: ``_spag_ep``'s."""
     with _comm_stream(grid, buf.device):
-        chunks = _spag_ep(buf, pa, grid, impl, dt)
+        chunks = _spag_ep(buf, pa, grid, impl, dt, rows_per)
         k_, c = chunks.shape
         g = dist.get_world_size(grid.fsdp_group)
         flat = out.view(k_, c) if out is not None and g == 1 \
@@ -842,14 +852,17 @@ def sparse_reduce_scatter_stack(ct, pa: PlanArrays, grid, impl: str,
 
 
 def materialize_stack(cfg: ModelConfig, rt: MoERuntime, buf,
-                      pa: PlanArrays, dtype=None):
+                      pa: PlanArrays, dtype=None, rows_per=None):
     """Every MoE layer's SparseAllGather on this rank of ``rt.grid`` in one
     call: (L, 1, K, chunk_len) compute slots in ``dtype``, with no
     gradient.  All L gathers are issued before any is waited.  It is
     linear in ``buf``, and ``sparse_reduce_scatter_stack`` is its
     transpose.  The train step builds the slots once per step with it,
     every microbatch consumes them (``forward(premat=)``), and the summed
-    slot cotangent goes through the transpose once."""
+    slot cotangent goes through the transpose once; the serving engine on
+    a grid builds its slot cache with it, one owned row at a time
+    (``rows_per=1``, as ``materialize_chunks`` builds them).  A build
+    issues L·m ring hops (``impl="ring"``) and L FSDP all-gathers."""
     dt = torch_dtype(dtype or cfg.dtype)
     grid = rt.grid
     L = pa.local_rows.shape[0]
@@ -860,7 +873,8 @@ def materialize_stack(cfg: ModelConfig, rt: MoERuntime, buf,
         for l in range(L):
             _event("spag", l)
             slots.append(Slots(*_spag_issue(buf, pa.layer(l), grid,
-                                            rt.impl, dt, out=out[l, 0]),
+                                            rt.impl, dt, out=out[l, 0],
+                                            rows_per=rows_per),
                                grid.data))
         for l, s in enumerate(slots):
             got = s.wait()

@@ -59,6 +59,27 @@ class ProcessGrid:
         return self.rank % self.model
 
 
+def _axis_groups(data: int, model: int, rank: int):
+    """Make the EP group of every data index and the FSDP group of every
+    model index (collective: every rank of the world calls it, in the same
+    order) and return this rank's ``(ep_group, ep_ranks, fsdp_group)``,
+    or Nones for a rank outside the ``data * model`` grid."""
+    n = data * model
+    d_me, e_me = rank // model, rank % model
+    ep_group = fsdp_group = ep_ranks = None
+    for d in range(data):                     # every rank, same order
+        ranks = [d * model + e for e in range(model)]
+        g = dist.new_group(ranks=ranks)
+        if rank < n and d == d_me:
+            ep_group, ep_ranks = g, ranks
+    for e in range(model):
+        ranks = [d * model + e for d in range(data)]
+        g = dist.new_group(ranks=ranks)
+        if rank < n and e == e_me:
+            fsdp_group = g
+    return ep_group, ep_ranks, fsdp_group
+
+
 def make_grid(data: int, model: int) -> ProcessGrid:
     """The grid over an initialized default group of ``data * model``
     ranks.  Collective: every rank of the world must call it."""
@@ -70,20 +91,34 @@ def make_grid(data: int, model: int) -> ProcessGrid:
         raise ValueError(f"a {data} x {model} grid needs {data * model} "
                          f"ranks, the world has {world}")
     rank = dist.get_rank()
-    d_me, e_me = rank // model, rank % model
-    ep_group = fsdp_group = ep_ranks = None
-    for d in range(data):                     # every rank, same order
-        ranks = [d * model + e for e in range(model)]
-        g = dist.new_group(ranks=ranks)
-        if d == d_me:
-            ep_group, ep_ranks = g, ranks
-    for e in range(model):
-        ranks = [d * model + e for d in range(data)]
-        g = dist.new_group(ranks=ranks)
-        if e == e_me:
-            fsdp_group = g
+    ep_group, ep_ranks, fsdp_group = _axis_groups(data, model, rank)
     return ProcessGrid(data, model, rank, ep_group, fsdp_group,
                        dist.group.WORLD, ep_ranks)
+
+
+def private_grid(grid: ProcessGrid) -> ProcessGrid:
+    """A grid over the same ranks as ``grid`` with process groups of its
+    own (EP, FSDP and world), for collectives issued from another thread
+    than the grid's: two threads issuing on one group can interleave their
+    calls in a different order on each rank.  The serving engine builds
+    its slot cache on such a grid.  Collective over the world: every rank
+    calls it, in the same order."""
+    rank = dist.get_rank()
+    world = dist.new_group(ranks=list(range(grid.size)))
+    ep_group, ep_ranks, fsdp_group = _axis_groups(grid.data, grid.model,
+                                                  rank)
+    return ProcessGrid(grid.data, grid.model, grid.rank, ep_group,
+                       fsdp_group, world, ep_ranks)
+
+
+def destroy_grid(grid: ProcessGrid) -> None:
+    """Destroy the process groups of a ``private_grid`` once no collective
+    on them is in flight on this rank."""
+    done = []
+    for g in (grid.ep_group, grid.fsdp_group, grid.world_group):
+        if g is not None and all(g is not d for d in done):
+            dist.destroy_process_group(g)
+            done.append(g)
 
 
 def make_debug_mesh(data: int = 2, model: int = 4) -> ProcessGrid:
@@ -91,7 +126,6 @@ def make_debug_mesh(data: int = 2, model: int = 4) -> ProcessGrid:
     already hold ``data * model`` ranks, e.g. under
     ``launch.distributed.spawn``."""
     return make_grid(data, model)
-
 
 
 def surviving_grid(grid: ProcessGrid, model: int) -> Optional[ProcessGrid]:
@@ -105,19 +139,8 @@ def surviving_grid(grid: ProcessGrid, model: int) -> Optional[ProcessGrid]:
     data = grid.data
     n = data * model
     rank = dist.get_rank()
-    d_me, e_me = rank // model, rank % model
     sub = dist.new_group(ranks=list(range(n)))
-    ep_group = fsdp_group = ep_ranks = None
-    for d in range(data):
-        ranks = [d * model + e for e in range(model)]
-        g = dist.new_group(ranks=ranks)
-        if rank < n and d == d_me:
-            ep_group, ep_ranks = g, ranks
-    for e in range(model):
-        ranks = [d * model + e for d in range(data)]
-        g = dist.new_group(ranks=ranks)
-        if rank < n and e == e_me:
-            fsdp_group = g
+    ep_group, ep_ranks, fsdp_group = _axis_groups(data, model, rank)
     if rank >= n:
         return None
     return ProcessGrid(data, model, rank, ep_group, fsdp_group, sub,

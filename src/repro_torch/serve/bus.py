@@ -25,10 +25,25 @@ Each registered replica is in one state::
 * REJOINING: ``rejoin`` replays the newest published triple into it and
   waits for the build, so it serves what the other replicas serve.
 
-Every replica builds its own slots on its engine's builder thread.  The
-JAX package's bus shares one stacked gather between the replicas of a
-host; that needs a mesh, which the port does not have yet, so
-``dedup_hits`` stays 0.
+Same-host dedup: the replicas of one ``host`` tag share one slot build
+per publication, as in the JAX package.  The broadcast worker builds the
+slots once per host group, on a CUDA stream and (on a process grid) on
+process groups of the bus's own (``launch.mesh.private_grid``, made when
+the first replica on a grid is added, destroyed by ``close``), and hands every replica of the
+group the same slots (``Engine.publish_params(slots=)``), whose staged
+build is then a hand-off; each replica still promotes on its own.
+``dedup_hits`` counts the builds avoided (the group's size less one, per
+group and publication).  If the host build fails, the replicas build
+their own slots.  A rejoin or a lagging replica's catch-up is handed the
+newest host build of its group, so it costs no collective.
+
+On a grid of more than one rank every rank runs its own bus over its own
+engines, in lockstep, and the worker broadcasts every publication in
+order (elsewhere the newest staged publication supersedes an
+unbroadcast one): each publication's host build is a collective, so every
+rank must build the same ones.  The worker stages a publication into the
+engines at its own moment on each rank; the engines' boundaries agree
+over the ranks before a triple promotes (``Engine._agree``).
 
 Fault sites (``repro_torch.common.faults``): ``bus.broadcast_drop`` and
 ``replica.crash`` in the per-replica send path, ``replica.build_hang`` on
@@ -41,10 +56,13 @@ import dataclasses
 import threading
 import time
 import warnings
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from repro_torch.common import faults
+from repro_torch.launch.mesh import destroy_grid, private_grid
 
 HEALTHY = "HEALTHY"
 LAGGING = "LAGGING"
@@ -52,6 +70,7 @@ EVICTED = "EVICTED"
 REJOINING = "REJOINING"
 
 _KEEP = object()            # publication without a plan: keep bus.pa
+_SELF_BUILD = object()      # host build failed: replicas build their own
 
 
 class ReplicaHandle:
@@ -112,7 +131,11 @@ class PublicationBus:
         self.pa = pa                    # newest published plan tables
         self.version = 0                # newest fully broadcast version
         self._latest = None             # (params, pa, version) for rejoin
-        self._pending = None            # latest-wins staged triple
+        self._latest_slots = {}         # host -> its newest host build
+        self._jobs = deque()            # staged publications, oldest first
+        self._keep_all = False          # a grid: broadcast every one
+        self._grid = None               # the host builds' groups on a grid
+        self._stream = None             # the host builds' CUDA stream
         self._evt = threading.Event()
         self._lock = threading.Lock()       # small shared state
         self._fleet_lock = threading.Lock()  # broadcast/poll/rejoin body
@@ -142,6 +165,16 @@ class PublicationBus:
             self._replicas[name] = h
             if self.pa is None:         # adopt the fleet's plan tables
                 self.pa = getattr(engine, "pa", None)
+        # the host builds' stream and, on a grid, groups: made here, off
+        # the publication path (making a first side stream waits for the
+        # card's queue; making groups is collective)
+        buf = engine._buf_of(engine.params)
+        if buf is not None and buf.is_cuda and self._stream is None:
+            self._stream = torch.cuda.Stream(device=buf.device)
+        if engine._build_grid is not None and self._grid is None:
+            self._grid = private_grid(engine.rt.grid)
+            self._grid.comm_stream = self._stream
+            self._keep_all = engine.rt.grid.size > 1
         return h
 
     def healthy(self) -> List[ReplicaHandle]:
@@ -169,12 +202,21 @@ class PublicationBus:
         engine."""
         if self._closed:
             raise RuntimeError("PublicationBus is closed")
+        staged_ev = None
+        buf = params.get("moe_buffer")
+        if buf is not None and buf.is_cuda:
+            staged_ev = torch.cuda.Event()
+            # the publisher's stream, as of now: the host build reads the
+            # published tree as it stood here
+            staged_ev.record(torch.cuda.current_stream(buf.device))
         with self._lock:
             if version is None:
                 version = self._next_version + 1
             self._next_version = max(self._next_version, version)
-            self._pending = (params, pa if pa is not None else _KEEP,
-                             version)
+            if not self._keep_all:
+                self._jobs.clear()      # latest wins
+            self._jobs.append((params, pa if pa is not None else _KEEP,
+                               version, staged_ev))
             self.publications += 1
             self._ensure_worker()
             self._evt.set()
@@ -189,7 +231,7 @@ class PublicationBus:
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             with self._lock:
-                idle = (self._pending is None and not self._busy
+                idle = (not self._jobs and not self._busy
                         and not self._evt.is_set())
             if idle:
                 break
@@ -217,8 +259,9 @@ class PublicationBus:
         while True:
             self._evt.wait()
             with self._lock:
-                job, self._pending = self._pending, None
-                self._evt.clear()
+                job = self._jobs.popleft() if self._jobs else None
+                if not self._jobs:
+                    self._evt.clear()
                 closed = self._closed
                 self._busy = job is not None
             if job is not None:
@@ -234,25 +277,57 @@ class PublicationBus:
             elif closed:
                 return
 
-    def _broadcast(self, params, pa, version) -> None:
+    def _broadcast(self, params, pa, version, staged_ev) -> None:
         if pa is _KEEP:
             pa = self.pa
+        groups: "OrderedDict[str, List[ReplicaHandle]]" = OrderedDict()
         for h in self.healthy():
-            self._send(h, params, pa, version)
+            groups.setdefault(h.host, []).append(h)
+        built = {}
+        for host, group in groups.items():
+            slots = self._host_build(group[0].engine, params, pa,
+                                     staged_ev)
+            if slots is not _SELF_BUILD:
+                self.dedup_hits += len(group) - 1
+            built[host] = slots
+            for h in group:
+                self._send(h, params, pa, version, slots)
         with self._lock:
             self._latest = (params, pa, version)
+            self._latest_slots = built
             self.version = max(self.version, version)
             self.pa = pa
         self._poll_locked()
 
-    def _send(self, h: ReplicaHandle, params, pa, version) -> bool:
+    def _host_build(self, engine, params, pa, staged_ev):
+        """One slot build for every replica of a host group, as
+        ``(slots, event marking their end or None)`` (``(None, None)``
+        when the triple has no slots), on the bus's stream and groups;
+        ``_SELF_BUILD`` if it failed, so the replicas build their own: a
+        broken shared build degrades, it does not drop the
+        publication."""
+        try:
+            buf = engine._buf_of(params)
+            if buf is None or pa is None:
+                return None, None
+            return engine._build_async(pa, buf, staged_ev, self._stream,
+                                       self._grid)
+        except Exception as e:
+            self.last_publish_error = e
+            return _SELF_BUILD
+
+    def _send(self, h: ReplicaHandle, params, pa, version,
+              slots=_SELF_BUILD) -> bool:
         """Deliver one triple to one replica, with retry and backoff; a
-        send that exhausts its retries evicts the replica."""
+        send that exhausts its retries evicts the replica.  ``slots``: the
+        host group's build to hand over, or ``_SELF_BUILD``."""
         for attempt in range(self.max_retries + 1):
             try:
                 faults.fire("bus.broadcast_drop", h.name)
                 faults.fire("replica.crash", h.name)
                 kw: Dict[str, Any] = {} if pa is None else {"pa": pa}
+                if slots is not _SELF_BUILD:
+                    kw["slots"] = slots
                 h.engine.publish_params(params, version=version, **kw)
                 h.sent_version = version
                 h.last_error = None
@@ -311,8 +386,9 @@ class PublicationBus:
                 h.state = HEALTHY
                 with self._lock:
                     latest = self._latest
+                    slots = self._latest_slots.get(h.host, _SELF_BUILD)
                 if latest is not None and h.sent_version != latest[2]:
-                    self._send(h, *latest)
+                    self._send(h, *latest, slots)
 
     def rejoin(self, name: str, engine=None, *,
                timeout: Optional[float] = None) -> bool:
@@ -330,8 +406,9 @@ class PublicationBus:
             h.last_error = None
             with self._lock:
                 latest = self._latest
+                slots = self._latest_slots.get(h.host, _SELF_BUILD)
             if latest is not None:
-                if not self._send(h, *latest):
+                if not self._send(h, *latest, slots):
                     return False        # _send evicted it again
                 try:
                     h.engine.flush(timeout=timeout)
@@ -365,7 +442,8 @@ class PublicationBus:
         """Stop the broadcast worker after it drains a staged publication.
         Idempotent; the replica engines belong to the caller and stay
         open.  The worker is a daemon: a wedged broadcast delays this join
-        at most ``timeout``."""
+        at most ``timeout``.  The host builds' process groups are destroyed
+        once the worker has ended."""
         with self._lock:
             if self._closed:
                 return
@@ -374,6 +452,11 @@ class PublicationBus:
             w = self._worker
         if w is not None and w.is_alive():
             w.join(timeout=timeout)
+        with self._lock:
+            self._latest_slots = {}     # the engines keep what they serve
+        if self._grid is not None and not (w is not None and w.is_alive()):
+            destroy_grid(self._grid)
+            self._grid = None
 
     def __enter__(self):
         return self

@@ -40,6 +40,26 @@ reads the published tree as it stood then, and records the build's end;
 ``_promote`` makes the promoting thread's stream wait for that event
 before any decode step reads the new slots, and marks the slots as used
 there (``record_stream``), as the builder marks the buffer it reads.
+
+On a process grid (``rt.grid``) every rank runs its own engine over its
+shard of the chunk buffer, and every rank makes the same calls in the
+same order (lockstep): publications, plan swaps, ``generate``, the
+scheduler's ticks.  The slot cache is then this rank's (L_moe, 1, K,
+chunk_len) slots from the stacked SparseAllGather
+(``moe.materialize_stack``), as the JAX engine builds them on a mesh.
+The builder thread issues its collectives on process groups of the
+engine's own (``launch.mesh.private_grid``, made collectively with the
+engine), so they never interleave with the decode or train step's on the
+grid's groups; its single thread keeps the builds in staging order.
+Every boundary and every flush runs one MIN all-reduce over the world,
+whether or not this rank has a triple staged (behind a bus each rank
+stages at its own moment), of the staged build's state and its staging
+number.  A triple promotes only when every rank has staged it and built
+it, so every rank serves the same version in every step; a build that
+failed on any rank is dropped on all.  ``close`` destroys the engine's
+groups.  ``generate`` runs each rank's rows of the batch
+(``data.pipeline.host_slice``, as the grid train step takes its rows)
+and all-gathers the last logits, so every rank samples the same tokens.
 """
 from __future__ import annotations
 
@@ -52,12 +72,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common import faults
 from repro_torch.common.config import ModelConfig
 from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import PlanArrays
+from repro_torch.data.pipeline import host_slice
+from repro_torch.launch.mesh import destroy_grid, private_grid
 from repro_torch.models import model as mdl
+
+# a staged build's state, agreed over the ranks of a grid by its minimum
+_PENDING, _FAILED, _BUILT = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +186,8 @@ class Engine:
         self.step_fn = build_serve_step(cfg, rt)
         self._premat = None
         self._premat_key = (None, None, None)   # (plan, version, buffer)
-        self._staged = None     # dict: pa, params, version, fut, base, ...
+        self._staged = None     # dict: pa, params, version, fut, seq, ...
+        self._stages = 0        # triples staged so far (their seq)
         self._executor = None
         # the builder's CUDA stream, made here: making a process's first
         # side stream waits for the work queued on the card, which must
@@ -168,6 +195,13 @@ class Engine:
         buf = self._buf_of(params)
         self._stream = (torch.cuda.Stream(device=buf.device)
                         if buf is not None and buf.is_cuda else None)
+        # the builder thread's process groups on a grid (collective), and
+        # whether boundaries are agreed over the ranks
+        self._build_grid = None
+        self._lockstep = rt.grid is not None and rt.grid.size > 1
+        if buf is not None and rt.grid is not None:
+            self._build_grid = private_grid(rt.grid)
+            self._build_grid.comm_stream = self._stream
         self._lock = threading.Lock()
         self._closed = False
         # load probe installed by an attached request scheduler:
@@ -190,12 +224,20 @@ class Engine:
         return params.get("moe_buffer") if self.cfg.moe.enabled else None
 
     # ---- background slot builder ----------------------------------------
-    def _build_slots(self, pa, buf):
-        """The slot cache of (pa, buf): (L_moe, 1, K, chunk_len) or None."""
+    def _build_slots(self, pa, buf, grid=None):
+        """The slot cache of (pa, buf): (L_moe, 1, K, chunk_len) or None.
+        On a process grid it is this rank's stacked SparseAllGather over
+        ``grid`` (default ``rt.grid``, the decode thread's groups), one
+        owned row at a time."""
         if buf is None or pa is None:
             return None
         with torch.inference_mode():
-            return moe_core.materialize_chunks(self.cfg, buf, pa)
+            if self.rt.grid is None:
+                return moe_core.materialize_chunks(self.cfg, buf, pa)
+            return moe_core.materialize_stack(
+                self.cfg, dataclasses.replace(self.rt.moe,
+                                              grid=grid or self.rt.grid),
+                buf, pa, rows_per=1)
 
     def _pool(self):
         if self._executor is None:
@@ -203,27 +245,41 @@ class Engine:
                 max_workers=1, thread_name_prefix="engine-build")
         return self._executor
 
-    def _staged_build(self, pa, buf, staged_ev):
-        """The builder thread's body: (slots, event marking their end on
-        the device, or None on the CPU).  The fault sites live here, not
-        in ``_build_slots``, so an injected failure hits the publication
-        path only; ``replica.build_hang`` carries the engine's name so a
-        fleet test can wedge one replica's builder."""
-        faults.fire("engine.publish_build")
-        faults.fire("replica.build_hang", self.name)
+    def _build_async(self, pa, buf, staged_ev, stream, grid):
+        """(slots, event marking their end on the device, or None on the
+        CPU): the build on ``stream`` once ``staged_ev`` (the publisher's
+        stream when the triple was staged) has passed, over ``grid``'s
+        groups.  The engine's builder thread runs it on its own stream and
+        groups, a ``PublicationBus`` on the bus's."""
+        args = (pa, buf) if grid is None else (pa, buf, grid)
         if staged_ev is None:
-            return self._build_slots(pa, buf), None
-        with torch.cuda.stream(self._stream):
-            self._stream.wait_event(staged_ev)
-            slots = self._build_slots(pa, buf)
+            return self._build_slots(*args), None
+        with torch.cuda.stream(stream):
+            stream.wait_event(staged_ev)
+            slots = self._build_slots(*args)
             if buf is not None:
-                buf.record_stream(self._stream)
+                buf.record_stream(stream)
             done = torch.cuda.Event()
-            done.record(self._stream)
+            done.record(stream)
         return slots, done
 
+    def _staged_build(self, pa, buf, staged_ev, slots=_UNSET):
+        """The builder thread's body: ``_build_async`` on the engine's
+        stream and groups.  The fault sites live here, not in
+        ``_build_slots``, so an injected failure hits the publication path
+        only; ``replica.build_hang`` carries the engine's name so a fleet
+        test can wedge one replica's builder.  With prebuilt ``slots`` (a
+        bus shared one build between the replicas of a host) the build is
+        a hand-off, and the sites still fire."""
+        faults.fire("engine.publish_build")
+        faults.fire("replica.build_hang", self.name)
+        if slots is not Engine._UNSET:
+            return slots
+        return self._build_async(pa, buf, staged_ev, self._stream,
+                                 self._build_grid)
+
     # ---- staging: set_plan / publish_params -----------------------------
-    def _stage(self, pa, params, version) -> None:
+    def _stage(self, pa, params, version, slots=_UNSET) -> None:
         """Submit the triple's slot build and make it the staged state
         (lock held).  ``_closed`` is re-checked under the lock that
         ``close`` sets it under, so no build is submitted after close.  A
@@ -240,9 +296,11 @@ class Engine:
             staged_ev = torch.cuda.Event()
             # the publisher's stream, as of now
             staged_ev.record(torch.cuda.current_stream(buf.device))
-        fut = self._pool().submit(self._staged_build, pa, buf, staged_ev)
+        fut = self._pool().submit(self._staged_build, pa, buf, staged_ev,
+                                  slots)
+        self._stages += 1
         self._staged = dict(pa=pa, params=params, version=version, fut=fut,
-                            buf=buf, base=self.params,
+                            seq=self._stages, buf=buf, base=self.params,
                             staged_at=time.monotonic())
 
     def set_plan(self, pa: Optional[PlanArrays], *,
@@ -269,14 +327,18 @@ class Engine:
             self._staged = None
 
     def publish_params(self, params, version: Optional[int] = None, *,
-                       pa=_UNSET, wait: bool = False) -> int:
+                       pa=_UNSET, wait: bool = False, slots=_UNSET) -> int:
         """Stage a new parameter tree at ``version`` (default: the last
         published version + 1).  Its slots build in the background
         against the current plan (or the staged one), and the whole state
         swaps at the next step boundary.  ``pa`` stages a new plan with
-        the params as one atomic pair.  ``wait`` blocks until the build
-        has finished (the swap still waits for a boundary).  Returns the
-        staged version."""
+        the params as one atomic pair: a publication after a reshard needs
+        it, since the old plan's tables point at the rows' old owners.
+        ``wait`` blocks until the build has finished (the swap still waits
+        for a boundary).  ``slots``: prebuilt slots of this triple as
+        ``(slots, event marking the end of their build or None)``, which
+        a ``PublicationBus`` hands every replica of a host, so the staged
+        build is a hand-off.  Returns the staged version."""
         self._check_open()
         with self._lock:
             st = self._staged
@@ -285,7 +347,7 @@ class Engine:
                            else self.version) + 1
             if pa is Engine._UNSET:
                 pa = st["pa"] if st is not None else self.pa
-            self._stage(pa, params, version)
+            self._stage(pa, params, version, slots)
             self.publications += 1
             fut = self._staged["fut"]
         if wait:
@@ -294,19 +356,49 @@ class Engine:
 
     # ---- promotion -------------------------------------------------------
     def _drop_failed(self, st) -> None:
-        """A staged build raised: drop the triple (lock held).  The live
-        state keeps serving."""
-        self.last_publish_error = st["fut"].exception()
+        """A staged build raised (on this rank or, on a grid, another):
+        drop the triple (lock held).  The live state keeps serving."""
+        err = st["fut"].exception() if st["fut"].done() else None
+        self.last_publish_error = err or RuntimeError(
+            "the staged build failed on another rank of the grid")
         self._staged = None
         self.publish_drops += 1
 
+    def _agree(self, st, expired: bool = False):
+        """``(state, expired)`` of the staged triple ``st`` (None when
+        nothing is staged): its build's state, ``_PENDING``, ``_FAILED``
+        or ``_BUILT``, and whether a flush's wait timed out.  On a grid of
+        more than one rank both are agreed by one MIN all-reduce on the
+        decode thread's world group, together with the triple's staging
+        number (-1 for none), which every rank runs at every boundary and
+        flush, staged or not; a triple that not every rank has staged
+        counts as ``_PENDING``."""
+        code, seq = _PENDING, -1
+        if st is not None:
+            seq, fut = st["seq"], st["fut"]
+            if fut.done():
+                code = _FAILED if fut.exception() is not None else _BUILT
+        if not self._lockstep:
+            return code, expired
+        grid = self.rt.grid
+        dev = "cuda" if dist.get_backend(grid.world_group) == "nccl" \
+            else "cpu"
+        t = torch.tensor([code, seq, -seq, -int(expired)],
+                         dtype=torch.int64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=grid.world_group)
+        code, lo, neg_hi, neg_expired = t.tolist()
+        return (code if lo == -neg_hi else _PENDING), neg_expired < 0
+
     def _boundary_locked(self) -> None:
         st = self._staged
+        if st is None and not self._lockstep:
+            return
+        code, _ = self._agree(st)
         if st is None:
             return
-        if not st["fut"].done():
+        if code == _PENDING:
             self.deferred_boundaries += 1
-        elif st["fut"].exception() is not None:
+        elif code == _FAILED:
             self._drop_failed(st)
         else:
             self._promote(st)
@@ -338,21 +430,34 @@ class Engine:
 
     def flush(self, timeout: Optional[float] = None) -> None:
         """A boundary that waits: join the pending build and promote it.
-        A build that raised is dropped as at a boundary; only a timeout
-        is raised."""
+        A build that raised is dropped as at a boundary; a timeout (on
+        any rank of a grid) is raised, and so is a grid whose ranks have
+        staged different triples."""
         self._check_open()
         with self._lock:
             st = self._staged
+            if st is None and not self._lockstep:
+                return
+            expired = False
+            if st is not None:
+                try:
+                    st["fut"].result(timeout=timeout)
+                except FuturesTimeout:
+                    expired = True
+                except Exception:
+                    pass                # dropped below
+            code, expired = self._agree(st, expired)
+            if expired:
+                raise FuturesTimeout("Engine.flush timed out")
             if st is None:
                 return
-            try:
-                st["fut"].result(timeout=timeout)
-            except FuturesTimeout:
-                raise
-            except Exception:
+            if code == _PENDING:        # built here, not staged everywhere
+                raise RuntimeError("Engine.flush: the ranks of the grid "
+                                   "staged different triples")
+            if code == _FAILED:
                 self._drop_failed(st)
-                return
-            self._promote(st)
+            else:
+                self._promote(st)
 
     def close(self) -> None:
         """Join the builder, drop the staged state unpromoted and the slot
@@ -365,6 +470,9 @@ class Engine:
             self._staged = None
         if ex is not None:
             ex.shutdown(wait=True)      # joins an in-flight build
+        if self._build_grid is not None:
+            destroy_grid(self._build_grid)
+            self._build_grid = None
         with self._lock:
             self._premat = None
             self._premat_key = (None, None, None)
@@ -450,31 +558,60 @@ class Engine:
         token at a time through the decode step, then decodes ``steps``
         tokens, greedy or sampled with a ``torch.Generator`` seeded by
         ``seed``; every step runs a boundary and reads one snapshot.
-        Returns (B, P + steps) int32."""
+        Returns (B, P + steps) int32.  On a grid of more than one rank
+        (B a multiple of its size) each rank decodes its rows of the batch
+        and every rank returns the whole array."""
         self._check_open()
         dev = self.params["embed"]["embedding"].device
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                                device=dev)
         b, p = toks.shape
+        rows = self._rows(b)
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
         with torch.inference_mode():
-            cache = mdl.init_cache(self.cfg, b, self.max_len, dev)
+            cache = mdl.init_cache(self.cfg, toks[rows].shape[0],
+                                   self.max_len, dev)
             out, logits = [toks], None
             for i in range(p):                  # loop prefill
                 params, pa, premat = self._snapshot()
-                logits, cache = self.step_fn(params, cache, toks[:, i:i + 1],
-                                             i, pa, premat)
+                logits, cache = self.step_fn(params, cache,
+                                             toks[rows, i:i + 1], i, pa,
+                                             premat)
             for s in range(steps):
                 params, pa, premat = self._snapshot()
-                nxt = _sample(logits[:, -1], temperature,
+                nxt = _sample(self._all_rows(logits[:, -1]), temperature,
                               gen)[:, None].to(torch.int32)
                 out.append(nxt)
-                logits, cache = self.step_fn(params, cache, nxt, p + s, pa,
-                                             premat)
+                logits, cache = self.step_fn(params, cache, nxt[rows],
+                                             p + s, pa, premat)
             return torch.cat(out, dim=1).cpu().numpy()
+
+    # ---- the rows of a grid ---------------------------------------------
+    def _rows(self, b: int) -> slice:
+        """This rank's rows of a batch of ``b`` (all of them off a grid of
+        more than one rank), as the grid train step takes them."""
+        grid = self.rt.grid
+        if grid is None or grid.size == 1:
+            return slice(None)
+        if b % grid.size:
+            raise ValueError(f"a batch of {b} rows does not split over the "
+                             f"{grid.size} ranks of the grid")
+        return host_slice(b, grid.rank, grid.size)
+
+    def _all_rows(self, t):
+        """Every rank's rows of ``t`` (this rank's ``_rows``), in rank
+        order: one all-gather over the grid's world (``t`` itself off a
+        grid of more than one rank)."""
+        grid = self.rt.grid
+        if grid is None or grid.size == 1:
+            return t
+        t = t.contiguous()
+        out = t.new_empty((grid.size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=grid.world_group)
+        return out
 
 
 def _sample(logits, temperature: float, generator=None):

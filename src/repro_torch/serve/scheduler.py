@@ -48,6 +48,17 @@ The overload policy
 Each decode tick batches all slots into one fixed-shape paged decode step
 (idle slots park on the trash page 0) that reads the engine's slot cache.
 Counters mirror into ``RobustnessCounters`` (:meth:`robustness`).
+
+Over an engine on a process grid of more than one rank the scheduler runs
+in lockstep: every rank drives its own scheduler with the same requests,
+and every host decision (admission, preemption, page tables, deadlines)
+comes out the same on every rank because every rank samples from the same
+logits.  A tick runs each rank's rows of the slots (``Engine._rows``; a
+rank whose rows are all idle still runs the step, so the collectives
+match) and all-gathers the last logits; a prefill runs on every rank and
+every rank takes the logits of the rank whose rows hold the slot.  The
+KV pool is whole on every rank; a rank writes its own slots' rows.  A
+fault site armed on one rank only breaks the lockstep.
 """
 from __future__ import annotations
 
@@ -58,6 +69,7 @@ from typing import Callable, Deque, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common import faults
 from repro_torch.models import model as mdl
@@ -159,6 +171,8 @@ class RequestScheduler:
         self._prefill_fn = build_prefill_step(self.cfg, self.rt)
         self.cache = mdl.init_paged_cache(self.cfg, max_slots,
                                           self.pool.num_rows, self.device)
+        # this rank's slots on a grid (all of them elsewhere)
+        self._rows = engine._rows(max_slots)
 
         self._queue: Deque[Request] = deque()
         self._slots: List[Optional[Request]] = [None] * max_slots
@@ -341,6 +355,12 @@ class RequestScheduler:
         batch = {"tokens": torch.as_tensor(toks, device=self.device),
                  "last_pos": torch.tensor([p_len - 1], device=self.device)}
         logits, pcache = self._prefill_fn(params, batch, pa, premat)
+        grid = self.rt.grid
+        if grid is not None and grid.size > 1:
+            # the token comes from the rank that decodes the slot
+            logits = logits.clone()     # not an inference tensor
+            dist.broadcast(logits, slot // (self.max_slots // grid.size),
+                           group=grid.world_group)
         table = PageTable(self.pool.page_size, self.max_kv, pages)
         self._slots[slot] = req
         self._tables[slot] = table
@@ -455,14 +475,14 @@ class RequestScheduler:
             except Exception:   # only an armed fault raises here
                 hung.add(b)
         params, pa, premat = self.engine._snapshot()
-        dev = self.device
-        logits, self.cache = self._step_fn(
-            params, self.cache,
-            torch.as_tensor(self._last_tok[:, None], device=dev),
-            torch.as_tensor(self._positions, device=dev),
-            torch.as_tensor(self._row_idx, device=dev), pa, premat)
+        dev, sl = self.device, self._rows
+        logits, _ = self._step_fn(
+            params, self._rank_cache(),
+            torch.as_tensor(self._last_tok[sl, None], device=dev),
+            torch.as_tensor(self._positions[sl], device=dev),
+            torch.as_tensor(self._row_idx[sl], device=dev), pa, premat)
         self.decode_ticks += 1
-        lg = logits[:, -1]
+        lg = self.engine._all_rows(logits[:, -1])
         greedy = (_sample(lg, 0.0).cpu().numpy()
                   if self.temperature <= 0.0 else None)
         advanced = 0
@@ -477,6 +497,17 @@ class RequestScheduler:
             self._append(req, b, tok)
             advanced += 1
         return advanced
+
+    def _rank_cache(self):
+        """The paged cache this rank's decode step updates in place: the
+        whole pool of an attention layer (its rows are paged), a mamba
+        layer's per-slot states cut to this rank's slots (views)."""
+        if self._rows == slice(None):
+            return self.cache
+        return {f"l{j}": ({k: t[:, self._rows]
+                           for k, t in self.cache[f"l{j}"].items()}
+                          if kind == "mamba" else self.cache[f"l{j}"])
+                for j, kind in enumerate(self.cfg.layer_pattern)}
 
     # ---- lifecycle ------------------------------------------------------
     def close(self) -> None:

@@ -88,10 +88,6 @@ class TrainAbortError(RuntimeError):
         self.step = step
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
 def placement_latency_safe(ctx, plan, loads, layer, device_weights=None):
     """``costs.placement_latency``, or 0.0 where the model cannot price the
     plan (the calibration stage then keeps the current plan)."""
@@ -831,12 +827,15 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
       run's start, so a run resumed at step k runs steps k..num_steps-1
       and skips the k batches the first run consumed.
     * **Publication** (``publish_engine``, an engine or a
-      ``PublicationBus``, every ``publish_every`` steps, world size 1):
-      a snapshot of the updated parameters, made on the step's stream,
-      versioned by the global step; versions stay monotone across
-      rollbacks.  A failing engine never stops training
-      (``publish_drops``, and a bus's fleet counters as deltas); a closed
-      engine ends publication for the run.
+      ``PublicationBus``, every ``publish_every`` steps): a snapshot of
+      the updated parameters, made on the step's stream, versioned by the
+      global step; versions stay monotone across rollbacks.  Once the
+      buffer's rows have moved (a reshard, an elastic shrink or a
+      grow-back) the next publication carries the fresh plan with the
+      params as one pair (``publish_params(pa=)``): the engine's old plan
+      tables point at the rows' old owners.  A failing engine never stops
+      training (``publish_drops``, and a bus's fleet counters as deltas);
+      a closed engine ends publication for the run.
     * **Elastic recovery** (``supervisor``, a ``train.supervisor.
       TrainSupervisor``): its probe runs after every readback.  On
       ``DeviceLossError`` the loop shrinks in-process to the surviving
@@ -860,12 +859,11 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     size are made up front (``TrainSupervisor.attach_grid``); after a
     shrink the ranks outside the surviving grid stay in the loop as
     spares (the same stream, probe and checkpoint boundaries, no step)
-    and rejoin at grow-back.  Publication from a grid of more than one
-    rank is not yet ported and raises."""
+    and rejoin at grow-back.  Every rank publishes its own shard's
+    snapshot at the same step into its own engine or bus (serving on a
+    grid runs in lockstep: ``serve.engine``); while a shrunk grid trains,
+    the spares publish nothing, and neither does the grid."""
     grid = getattr(rt, "grid", None)
-    if grid is not None and grid.size > 1 and publish_engine is not None:
-        raise _not_ported("publication into a live engine from a process "
-                          "grid")
     full_grid = grid
     if supervisor is not None and grid is not None:
         supervisor.attach_grid(grid)
@@ -902,6 +900,7 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
     loop_pub_failures = 0
     eng_drops = 0
     last_pub_version = 0
+    pending_replan = False          # rows moved since the last publication?
     # elastic recovery: the raw batches consumed since a little before the
     # last checkpoint, replayed in order after a rollback
     replay = deque(maxlen=max(2 * (tc.checkpoint_every or 1), 8)) \
@@ -934,6 +933,7 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                     perm = scheduler.maybe_reshard(i)
                     if perm is not None:
                         state = apply_reshard(state, perm, grid)
+                        pending_replan = True
                     pa = scheduler.plan_arrays()
                 t0 = time.perf_counter()
                 state, metrics = train_step_fn(state, batch, pa)
@@ -942,10 +942,16 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                         and (i + 1) % publish_every == 0
                         # replayed steps revisit old gsteps: never hand
                         # the engine a version it has seen
-                        and gstep > last_pub_version):
+                        and gstep > last_pub_version
+                        # a shrunk grid's spares cannot take part
+                        and grid is full_grid):
                     try:
+                        kw = {}
+                        if pending_replan and pa is not None:
+                            kw["pa"] = pa
                         publish_engine.publish_params(
-                            snapshot(state.params), version=gstep)
+                            snapshot(state.params), version=gstep, **kw)
+                        pending_replan = False
                         last_pub_version = gstep
                     except Exception as e:
                         loop_pub_failures += 1
@@ -973,6 +979,7 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                         history, replay, pending, gstep, i, start,
                         step_base, full_grid, device)
                     bad_streak = 0
+                    pending_replan = True
                     continue
             if spare:
                 rec = None
@@ -1021,9 +1028,11 @@ def train_loop(cfg: ModelConfig, rt, tc: TrainConfig,
                 _save(tc, gstep, state, scheduler, grid, full_grid)
                 if supervisor is not None and _from_rank0(
                         supervisor.can_grow_back(), full_grid):
+                    grown = counters.grow_backs
                     state, rt, grid, train_step_fn = _grow_back(
                         cfg, tc, supervisor, scheduler, counters, state, rt,
                         grid, train_step_fn, gstep, full_grid, device)
+                    pending_replan |= counters.grow_backs > grown
             if log_every and rec is not None and i % log_every == 0:
                 print(f"step {i:5d}  loss {rec['loss']:.4f}  "
                       f"xent {rec['xent']:.4f}  {dt*1e3:.0f} ms")

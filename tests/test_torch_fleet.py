@@ -156,7 +156,9 @@ def _bus_idle(b) -> bool:
     """No staged publication and no broadcast in flight (what
     ``PublicationBus.flush`` waits for)."""
     with b._lock:
-        return b._pending is None and not b._busy and not b._evt.is_set()
+        staged = (b._jobs if hasattr(b, "_jobs")       # the port's queue
+                  else b._pending is not None)
+        return not staged and not b._busy and not b._evt.is_set()
 
 
 def _run(sides, script):
@@ -172,9 +174,9 @@ def _fresh_tokens(s, params, version, steps=3):
 
 def test_broadcast_promotes_every_replica_bit_exact(sides, make_fleet):
     """One publish lands the same (params, version) on every replica, each
-    serving a fresh engine's tokens.  Without a mesh the port's replicas
-    build their own slots, so it counts no deduplicated build where the
-    JAX bus counts one shared (empty) build per host group."""
+    serving a fresh engine's tokens.  The three replicas share one host
+    build, so both buses count two deduplicated builds (the JAX bus's
+    shared build is empty without a mesh, the port's holds the slots)."""
     def script(s):
         _, engines, b = make_fleet(s, 3)
         params2 = s.params(1)
@@ -188,7 +190,7 @@ def test_broadcast_promotes_every_replica_bit_exact(sides, make_fleet):
         return ref, b.dedup_hits
     (want, jdedup), (got, dedup) = _run(sides, script)
     np.testing.assert_array_equal(got, want)
-    assert (jdedup, dedup) == (2, 0)
+    assert (jdedup, dedup) == (2, 2)
 
 
 def test_crash_evicts_one_replica_fleet_serves_rejoin_bit_exact(

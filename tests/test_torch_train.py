@@ -598,24 +598,18 @@ def test_launch_train_refuses_unported_flags(flags, monkeypatch):
 
 
 def test_unported_training_features_raise(setup, tmp_path):
-    """Publication from a process grid of more than one rank is not yet
-    ported and raises; checkpointing, the elastic supervisor and a metric
-    logger run (one checkpoint written, the supervisor's counters in the
-    record); the Algorithm 1 scheduler is ported; publication into a live
-    engine at world size 1 runs (every step publishes a version)."""
+    """Checkpointing, the elastic supervisor and a metric logger run (one
+    checkpoint written, the supervisor's counters in the record); the
+    Algorithm 1 scheduler is ported; publication into a live engine at
+    world size 1 runs (every step publishes a version).  Publication from
+    a process grid is ported too: ``tests/test_torch_serve_grid_fleet.py``
+    holds it on gloo ranks."""
     from repro_torch.train.metrics import MetricLogger
     from repro_torch.train.supervisor import TrainSupervisor
     cfg = setup["cfg"]
     sched = trainer.HecateScheduler(cfg, ep=4, impl="ring", device="cpu")
     assert sched.plan().impl == "ring"
     assert sched.plan_arrays().local_rows.shape[1] == 4
-    from repro_torch.launch.mesh import ProcessGrid
-    grid_rt = mdl.Runtime(use_pallas=False, moe=moe.MoERuntime(
-        grid=ProcessGrid(2, 2, 0, None, None)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trainer.train_loop(cfg, grid_rt, TrainConfig(), iter([]),
-                           num_steps=1, device="cpu", publish_engine=object(),
-                           publish_every=1)
     stream = pipeline.make_stream(cfg.vocab_size, 8, 2, seed=0)
     rt = mdl.Runtime(**TRAIN_RT)
     _, hist = trainer.train_loop(

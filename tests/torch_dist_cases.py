@@ -604,6 +604,22 @@ def _steps(cfg, rt, tc, state, pa, batches, grid):
     return state, losses, dropped
 
 
+def _rejoin_after_shrink():
+    """A supervisor of ep 4 whose lost device rejoins once the shrink is
+    done (its ``mesh.device_lost`` fault cleared)."""
+    from repro_torch.common import faults
+    from repro_torch.train.supervisor import TrainSupervisor
+
+    class RejoinAfterShrink(TrainSupervisor):
+        def on_shrunk(self, ep_new, steps_lost):
+            super().on_shrunk(ep_new, steps_lost)
+            faults.clear("mesh.device_lost")
+
+    sup = RejoinAfterShrink(ep=4, min_ep=1, runtime_factory=lambda ep:
+                            _elastic_rt(sup.grid_for(ep)))
+    return sup
+
+
 def elastic_rank(grid, workdir: str):
     """On 4 ranks.  (1) The elastic restore of ``tests/test_serve_fleet.
     py``: 8 steps on a (2, 2) grid; 4 steps, a checkpoint, and a resume
@@ -685,15 +701,7 @@ def elastic_rank(grid, workdir: str):
         ref.update({h["step"]: h["loss"] for h in h2})
     dist.barrier()
 
-    class RejoinAfterShrink(TrainSupervisor):
-        """The lost device rejoins once the shrink is done."""
-
-        def on_shrunk(self, ep_new, steps_lost):
-            super().on_shrunk(ep_new, steps_lost)
-            faults.clear("mesh.device_lost")
-
-    sup = RejoinAfterShrink(ep=4, min_ep=1, runtime_factory=lambda ep:
-                            _elastic_rt(sup.grid_for(ep)))
+    sup = _rejoin_after_shrink()
     faults.inject("mesh.device_lost", only=3, after=4, times=None)
     try:
         state, hist = train_loop(cfg, _elastic_rt(g14), tc_for("ckB"),
@@ -753,3 +761,356 @@ def straggler_rank(grid):
             "owner_dev": sched.sharding.owner_dev,
             "dropped": max(h["dropped_frac"] for h in hist),
             "losses": [h["loss"] for h in hist]}
+
+
+# ---------------------------------------------------------------------------
+# serving and publication on the grid: smoke gpt-moe-s on a 2 x 4 grid
+# ---------------------------------------------------------------------------
+SPAG = ("spag_ring", "spag_a2a", "spag_dense", "spag_fsdp")
+# what a decode step on cached slots may issue: the gate's all-reduce, the
+# token all-to-alls and the kept counts beside them, and the loads' sum
+LAYER_ONLY = {"gate_stats", "tokens_out", "tokens_back", "counts",
+              "dev_loads"}
+
+
+def _spag_calls():
+    c = M.collective_counts()
+    return {k: c[k]["calls"] for k in SPAG if k in c}
+
+
+class _StackBuilds:
+    """Counts ``materialize_stack`` calls (the engine's slot builds)."""
+
+    def __init__(self):
+        self.n, self._orig = 0, M.materialize_stack
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+        M.materialize_stack = counted
+
+    def close(self):
+        M.materialize_stack = self._orig
+
+
+def _serve_setup(grid, npz):
+    from repro_torch.models import model as mdl
+    z = np.load(npz)
+    cfg = get_smoke("gpt-moe-s")
+    rt = mdl.Runtime(use_pallas=False, moe=M.MoERuntime(
+        grid=grid, impl="ring", capacity=16))
+    params = {k: mdl.shard_params(_np_tree(z, k), grid)
+              for k in ("params", "params2", "params3")}
+    return z, cfg, rt, params, _ring_pa(cfg, grid.model)
+
+
+def serve_grid_rank(grid, npz: str):
+    """The engine on a 2 x 4 grid, the laws of ``tests/
+    test_serve_publish.py`` and ``tests/test_serve_batching.py``: this
+    rank's slots and greedy tokens (for the JAX engine's on the mesh), the
+    decode step's collectives with and without cached slots (dense and
+    paged), one stacked build per publication and none at steady state,
+    the straddle record and a direct ``eng.params`` swap."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.kv_pool import PageTable
+    z, cfg, rt, params, pa = _serve_setup(grid, npz)
+    p1, p2, p3 = params["params"], params["params2"], params["params3"]
+    prompts = z["prompts"]
+    L, m = M.num_moe_layers(cfg), pa.extra_experts.shape[-1]
+    out = {"L": L, "m": m}
+    builds = _StackBuilds()
+    try:
+        eng = Engine(cfg, rt, p1, max_len=32, pa=pa)
+        M.reset_collective_counts()
+        slots = eng._materialized()             # the initial lazy build
+        out["slots"] = slots.numpy()
+        out["build_calls"] = _spag_calls()
+        # the decode step: no SparseAllGather on cached slots
+        rows = prompts[eng._rows(prompts.shape[0])]
+        tok = torch.from_numpy(rows[:, :1].astype(np.int32))
+        steps = {}
+        with torch.inference_mode():
+            for name, premat in (("with", slots), ("without", None)):
+                M.reset_collective_counts()
+                mdl.decode_step(cfg, rt, p1, mdl.init_cache(cfg, 1, 32, "cpu"),
+                                tok, 0, pa, premat=premat)
+                steps[("dense", name)] = M.collective_counts()
+                table = torch.from_numpy(np.asarray(
+                    [PageTable(4, 16, [1, 2]).row_idx()], np.int32))
+                M.reset_collective_counts()
+                mdl.decode_step(cfg, rt, p1,
+                                mdl.init_paged_cache(cfg, 1, 12, "cpu"),
+                                tok, torch.tensor([3], dtype=torch.int32),
+                                pa, premat=premat, row_idx=table,
+                                page_size=4)
+                steps[("paged", name)] = M.collective_counts()
+        out["steps"] = steps
+        # greedy generate; steady state; one publication
+        builds.n = 0
+        M.reset_collective_counts()
+        out["out0"] = eng.generate(prompts, steps=4)
+        out["out0b"] = eng.generate(prompts, steps=4)
+        out["steady"] = (builds.n, _spag_calls())
+        M.reset_collective_counts()
+        eng.publish_params(p2, wait=True)
+        out["publish"] = (builds.n, _spag_calls(), eng.version)
+        # the straddle: a publication lands in the middle of the 4th step
+        record = []
+        orig_step = eng.step_fn
+
+        def recording_step(p, c, t, pos, pa_, pm):
+            which = 2 if p is p2 else (3 if p is p3 else 0)
+            record.append((eng.version, id(pm), which))
+            if len(record) == 4:
+                eng.publish_params(p3, version=2, wait=True)
+            return orig_step(p, c, t, pos, pa_, pm)
+        eng.step_fn = recording_step
+        out["out1"] = eng.generate(prompts, steps=4)
+        eng.step_fn = orig_step
+        ids = [r[1] for r in record]
+        out["straddle"] = dict(
+            versions=[r[0] for r in record], which=[r[2] for r in record],
+            swapped=ids[3] != ids[4], cached=len(set(ids[4:])) == 1,
+            builds=builds.n, version=eng.version)
+        out["out2"] = eng.generate(prompts, steps=4)
+        with Engine(cfg, rt, p3, max_len=32, pa=pa, version=2) as fresh:
+            out["fresh3"] = fresh.generate(prompts, steps=4)
+        eng.close()
+        # a direct params swap: the buffer's identity beats the counters
+        with Engine(cfg, rt, p1, max_len=32, pa=pa) as eng2:
+            out["swap_a"] = eng2.generate(prompts, steps=3)
+            eng2.params = p3
+            out["swap_b"] = eng2.generate(prompts, steps=3)
+        with Engine(cfg, rt, p3, max_len=32, pa=pa) as fresh:
+            out["swap_fresh"] = fresh.generate(prompts, steps=3)
+    finally:
+        builds.close()
+    return out
+
+
+def serve_fleet_rank(grid, npz: str):
+    """On a 2 x 4 grid: four same-host replicas behind a bus (one build
+    per publication, ``dedup_hits``, a crash, an eviction and a rejoin),
+    the continuous-batching scheduler in lockstep (a bus publication in
+    flight while it ticks included), and ``train_loop`` publishing a
+    resharded buffer into a live engine."""
+    import threading
+    import warnings
+
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.params import snapshot
+    from repro_torch.core.schedule import ReshardingPolicy
+    from repro_torch.serve.bus import PublicationBus
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import TERMINAL, RequestScheduler
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    z, cfg, rt, params, pa = _serve_setup(grid, npz)
+    p1, p2, p3 = params["params"], params["params2"], params["params3"]
+    prompts = z["prompts"]
+    out = {}
+    builds = _StackBuilds()
+    try:
+        # four replicas on one host
+        engines = [Engine(cfg, rt, p1, max_len=32, pa=pa, name=f"r{i}")
+                   for i in range(4)]
+        bus = PublicationBus([(e.name, e) for e in engines],
+                             max_retries=1, backoff_s=0.01)
+        builds.n = 0
+        M.reset_collective_counts()
+        bus.publish_params(p2, version=1, wait=True)
+        out["dedup"] = (builds.n, _spag_calls(), bus.dedup_hits,
+                        [e.version for e in engines])
+        outs = [e.generate(prompts, steps=3) for e in engines]
+        with Engine(cfg, rt, p2, max_len=32, pa=pa, version=1) as fresh:
+            ref = fresh.generate(prompts, steps=3)
+        out["dedup_equal"] = all((o == ref).all() for o in outs)
+        out["dedup_tokens"] = outs[0]
+        faults.inject("replica.crash", only="r1", times=None)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            bus.publish_params(p3, version=2, wait=True)
+        states = bus.poll()
+        out["crash"] = (states["r1"].state, len(bus.route()),
+                        [e.version for e in engines])
+        faults.clear()
+        builds.n = 0
+        M.reset_collective_counts()
+        out["rejoin"] = (bus.rejoin("r1"), engines[1].version, builds.n,
+                         _spag_calls())
+        ref2 = engines[0].generate(prompts, steps=3)
+        out["rejoin_tokens"] = ref2
+        out["rejoin_equal"] = bool(
+            (engines[1].generate(prompts, steps=3) == ref2).all())
+        out["fleet_dedup_hits"] = bus.dedup_hits
+        bus.close()
+        for e in engines:
+            e.close()
+
+        # a bus publication in flight while the scheduler ticks, with no
+        # flush: ranks 0..3 stage it before the first tick, ranks 4..7
+        # only after the third, so for three ticks some ranks have a
+        # triple staged and the others do not
+        engines = [Engine(cfg, rt, p1, max_len=32, pa=pa, name=f"s{i}")
+                   for i in range(2)]
+        bus = PublicationBus([(e.name, e) for e in engines])
+        staged, release = threading.Event(), threading.Event()
+        if grid.rank < 4:
+            release.set()
+        stage = engines[0].publish_params
+
+        def late(*a, **kw):
+            release.wait(timeout=120)
+            v = stage(*a, **kw)
+            staged.set()
+            return v
+        engines[0].publish_params = late
+        versions = []
+        snap = engines[0]._snapshot
+
+        def recorded_snapshot():
+            got = snap()
+            versions.append(engines[0].version)
+            return got
+        engines[0]._snapshot = recorded_snapshot
+        with RequestScheduler(engines[0], max_slots=8, num_pages=40,
+                              page_size=4, max_kv=32) as rs:
+            reqs = [rs.submit(z[f"req{i}"], max_new_tokens=int(n))
+                    for i, n in enumerate(z["req_new"])]
+            bus.publish_params(p2, version=1)
+            if grid.rank < 4:
+                staged.wait(timeout=120)
+            ticks = 0
+            while ticks < 200 and any(r.state not in TERMINAL
+                                      for r in reqs):
+                rs.step()
+                ticks += 1
+                if ticks == 3:
+                    release.set()
+            release.set()
+            out["inflight"] = dict(
+                outputs=[r.output() for r in reqs],
+                states=[r.state for r in reqs], ticks=ticks,
+                deferred=engines[0].deferred_boundaries)
+        bus.flush()
+        out["inflight"].update(versions=versions,
+                               final=[e.version for e in engines])
+        bus.close()
+        for e in engines:
+            e.close()
+
+        # the scheduler in lockstep (its ranks 5..7 own idle slots)
+        with Engine(cfg, rt, p1, max_len=32, pa=pa) as eng:
+            with RequestScheduler(eng, max_slots=8, num_pages=40,
+                                  page_size=4, max_kv=32) as rs:
+                reqs = [rs.submit(z[f"req{i}"], max_new_tokens=int(n))
+                        for i, n in enumerate(z["req_new"])]
+                rs.run(max_ticks=200)
+                out["sched"] = dict(
+                    outputs=[r.output() for r in reqs],
+                    states=[r.state for r in reqs],
+                    ticks=rs.decode_ticks)
+    finally:
+        builds.close()
+
+    # train_loop resharding every step and publishing after every step
+    sched = HecateScheduler(cfg, ep=grid.model, impl="ring", t=4,
+                            device="cpu", calibrate=False,
+                            resharding=ReshardingPolicy(interval=1, t=2))
+    for _ in range(3):
+        sched.observe(z["skew"])
+    eng = Engine(cfg, rt, snapshot(p1), max_len=32, pa=pa)
+    eng.generate(prompts, steps=1)
+    published = []
+    publish = eng.publish_params
+
+    def recorded(params_, version=None, **kw):
+        published.append((version, kw.get("pa")))
+        return publish(params_, version=version, **kw)
+    eng.publish_params = recorded
+    state, hist = train_loop(cfg, rt, TrainConfig(
+        learning_rate=3e-3, warmup_steps=1, total_steps=2),
+        iter([{"tokens": z["loop_tokens"][i]} for i in range(2)]),
+        scheduler=sched, state=_fresh_state(p1), num_steps=2,
+        log_every=0, device="cpu", publish_engine=eng, publish_every=1)
+    eng.flush()
+    last_pa = published[-1][1]
+    out["f1"] = dict(
+        versions=[v for v, _ in published],
+        with_plan=[p is not None for _, p in published],
+        engine_pa_is_published=eng.pa is last_pa,
+        version=eng.version, moved=bool((sched.sharding.owner_dev !=
+                                         z["homog_owner_dev"]).any()),
+        drops=hist[-1]["publish_drops"],
+        tokens=eng.generate(prompts, steps=3),
+        slots=eng._materialized().numpy())
+    with Engine(cfg, rt, snapshot(state.params), max_len=32, pa=last_pa,
+                version=eng.version) as fresh:
+        out["f1"]["fresh"] = fresh.generate(prompts, steps=3)
+        out["f1"]["fresh_slots"] = fresh._materialized().numpy()
+    with Engine(cfg, rt, snapshot(state.params), max_len=32, pa=pa,
+                version=eng.version) as stale:
+        out["f1"]["stale_slots"] = stale._materialized().numpy()
+    eng.close()
+    return out
+
+
+def elastic_publish_rank(grid, workdir: str):
+    """On (1, 4): the in-process shrink of ``elastic_rank`` (EP rank 3
+    lost at step 4, grown back at the step-6 checkpoint) with the loop
+    publishing after every step into an engine on the full grid: the
+    versions it published, which carried a plan, and the engine's tokens
+    beside a fresh engine's at the trainer's (params, pa, version)."""
+    import os
+
+    from repro_torch.common import faults
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.params import snapshot
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import step as st
+    from repro_torch.train.trainer import HecateScheduler, train_loop
+    cfg = ckpt_cfg()
+    toks = ckpt_tokens(8, 12)
+    sup = _rejoin_after_shrink()
+    rt = _elastic_rt(grid)
+    state = st.init_state(cfg, 0, 4, "cpu", grid)
+    prompts = toks[0][:4, :3]
+    eng = Engine(cfg, rt, snapshot(state.params), max_len=16,
+                 pa=_ring_pa(cfg, 4))
+    published = []
+    publish = eng.publish_params
+
+    def recorded(params_, version=None, **kw):
+        published.append((version, kw.get("pa")))
+        return publish(params_, version=version, **kw)
+    eng.publish_params = recorded
+    faults.inject("mesh.device_lost", only=3, after=4, times=None)
+    try:
+        state, hist = train_loop(
+            cfg, rt, TrainConfig(learning_rate=1e-3, warmup_steps=2,
+                                 total_steps=8, checkpoint_every=2,
+                                 checkpoint_dir=os.path.join(workdir, "ck"),
+                                 keep_checkpoints=0, seed=0),
+            iter([{"tokens": t} for t in toks]),
+            scheduler=HecateScheduler(cfg, ep=4, impl="ring", device="cpu",
+                                      async_plan=False, calibrate=False),
+            state=state, num_steps=8, log_every=0, device="cpu",
+            supervisor=sup, publish_engine=eng, publish_every=1)
+    finally:
+        faults.clear()
+    eng.flush()
+    out = dict(versions=[v for v, _ in published],
+               with_plan=[p is not None for _, p in published],
+               engine_pa_is_published=eng.pa is [
+                   p for _, p in published if p is not None][-1],
+               version=eng.version,
+               last={k: hist[-1][k] for k in ("elastic_shrinks",
+                                              "grow_backs",
+                                              "publish_drops")},
+               tokens=eng.generate(prompts, steps=3))
+    with Engine(cfg, rt, snapshot(state.params), max_len=16, pa=eng.pa,
+                version=eng.version) as fresh:
+        out["fresh"] = fresh.generate(prompts, steps=3)
+    eng.close()
+    return out
