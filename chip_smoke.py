@@ -153,15 +153,35 @@ JAX).  In order it:
    the last promotion the replica serves a fresh engine's tokens at the
    trainer's (params, pa, version); step, tick, build and
    publish-to-promotion ms and the peak;
-13. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
+13. serves and trains whisper-medium, the encoder-decoder, at full width
+   and depth (24 encoder and 24 decoder layers, bf16 compute, f32 master
+   weights from seed 0, seeded stand-in frames for the stub frontend): B4
+   at the decoder's self-attention shapes (1, S, 16, 64) at phase 4's
+   prompt lengths against its plain version and timed; phase 4's prompts
+   one-shot prefilled with their frames (B4 in every decoder layer,
+   nothing else of the repo) and decoded 16 greedy tokens each through
+   the dense cache (nothing of the repo launched), two identical prefills
+   and decode steps bitwise equal, ``Engine.generate(encoder_input=)`` on
+   four equal prompts, one profiled prefill, the f32 kernel-against-plain
+   distance at full depth (recorded) and at 2 + 2 layers (checked, with
+   the one-shot prefill's greedy tokens against generate's loop
+   prefill's); then ``train_loop`` at batch 8 x 448 decoder tokens and
+   1,500 frames: two identical steps bitwise equal, every encoder
+   parameter's gradient finite and nonzero and none for the frames, 3
+   counted steps (finite loss, no kernel launched; at full depth the
+   seeded init's f32 gradient norm overflows and the step guard skips
+   each step, as the JAX package's would), one profiled step, and the same
+   loop at 4 + 4 layers, which must take every step;
+14. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
    shapes with its launches in phases 4/5, 7, 8, 9 and 12, then at each
    phase-10 configuration's, then the serving kernels at phase 11's new
-   shapes), then
+   shapes, then B4 at Whisper's prompt lengths with its phase-13
+   launches), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line is printed.  Without
 a CUDA device, or without the repository around it, it fails.
-``--phases`` runs a subset of phases 3-12 after the build (phase 7 reads
+``--phases`` runs a subset of phases 3-13 after the build (phase 7 reads
 phase 5's step median where phase 5 ran); a subset prints no kernel table
 and no result line.
 """
@@ -251,6 +271,19 @@ SLICE10 = (("gpt-moe-l", "grid", 4, 8, 2048),
            ("granite-moe-3b-a800m", "loop", 28, 8, 2048))
 SLICE10_NEW = 8        # greedy tokens per served request
 SLICE10_STEPS = 3      # counted training steps
+# phase 13: whisper-medium at full width and depth: greedy tokens after
+# each one-shot prefill, the dense cache's rows (the decoder's cap), the
+# prompt length of generate's loop prefill (4 equal prompts), the training
+# batch (rows of 448 decoder tokens and 1,500 frames) and counted steps
+WHISPER_NEW = 16
+WHISPER_MAX_LEN = 448
+WHISPER_GEN_LEN = 32
+WHISPER_BATCH, WHISPER_STEPS = 8, 3
+# the seeded init's gradient norm grows with depth in both packages (at the
+# smoke widths from 1.3e2 at 2 + 2 layers to ~3e15 at 24 + 24:
+# tools/whisper_grad_depth.py); at this cut, in layers of each stack, the
+# loop must take every step
+WHISPER_TRAIN_CUT = 4
 # phase 11: the decoder-only families at full width, one at a time:
 # (name, layers served (None: all), layers trained (0: not on the card),
 # batch, seq), each trained through phase 5's train_loop path.  A cut is
@@ -3479,7 +3512,11 @@ def serve_grid_world_one(torch, ops, dev, card):
         torch.cuda.synchronize()
         launches = ops.launch_counts()          # ... and ends
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        rs._step_fn, bus.publish_params = step_fn, publish
+        # the timing wrappers go; an instance attribute holding the bus's
+        # own bound method would keep the bus, and the snapshot it last
+        # published, in a reference cycle
+        rs._step_fn = step_fn
+        del bus.publish_params
         losses = [h["loss"] for h in hist]
         step_ms = [h["time_s"] * 1e3 for h in hist]
         build_ms = [a.elapsed_time(b) for _, a, b in builds]
@@ -3600,12 +3637,515 @@ def serve_grid_world_one(torch, ops, dev, card):
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: Whisper, the encoder-decoder, at full width and depth
+# ---------------------------------------------------------------------------
+def check_flash_whisper(torch, ops, dev, flush, cfg):
+    """B4 at the shapes of Whisper's decoder self-attention in the one-shot
+    prefill: (1, S, 16, 64) causal at each of phase 4's prompt lengths,
+    against the plain version in bf16 and f32 and the step-wise version in
+    bf16, two calls bitwise equal; each length timed in bf16 (kernel,
+    plain version, SDPA, bound and its share).  Returns ({S: timings},
+    largest error)."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(130)
+    N, H = cfg.num_heads, cfg.head_dim
+    errs, lengths = [], {}
+
+    def qkv(S, dt):
+        return [torch.randn((1, S, N, H), generator=g, device=dev)
+                .mul_(0.5).to(dt) for _ in range(3)]
+
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for S in PROMPT_LENS:
+            q, k, v = qkv(S, dt)
+            got = ops.flash_attention(q, k, v, causal=True)
+            label = f"flash_attention_fwd (1,{S},{N},{H}) causal {dname}"
+            errs.append(compare(torch, label, got, ref.flash_attention_ref(
+                q, k, v, causal=True), *TOL[dname]))
+            if dname != "bfloat16":
+                continue
+            errs.append(compare(torch, f"{label} vs step-wise", got,
+                                ref.flash_attention_tiled_ref(
+                                    q, k, v, causal=True), *TILED_TOL))
+            if not torch.equal(got, ops.flash_attention(q, k, v,
+                                                        causal=True)):
+                raise CheckFailed("two identical flash_attention calls "
+                                  "gave different bits")
+            r = _time_flash(torch, flush, q, k, v)
+            lengths[S] = dict(r, bound_share=r["bound_ms"] / r["ms"])
+    return lengths, max(errs)
+
+
+def _whisper_prompts(torch, cfg, dev):
+    """Phase 4's prompts cut to the decoder's cap, and a seeded normal
+    stand-in for the stub frontend's frames of each, (4, 1500, 1024)."""
+    prompts = [p[:cfg.max_decoder_len] for p in _prompts(cfg.vocab_size)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((len(prompts), cfg.encoder_seq_len, cfg.d_model),
+                         generator=g, device=dev)
+    return prompts, frames
+
+
+def _dense_cache_of(torch, cfg, dev, ck, n):
+    """A dense cache of ``WHISPER_MAX_LEN`` rows holding a one-row
+    prefill's cache ``ck`` of ``n`` tokens, its cross K/V included."""
+    from repro_torch.models import model as mdl
+    cache = mdl.init_cache(cfg, 1, WHISPER_MAX_LEN, dev)
+    for k in ("k", "v"):
+        cache["l0"][k][:, :, :n] = ck["l0"][k]
+    cache["xk"], cache["xv"] = ck["xk"], ck["xv"]
+    return cache
+
+
+def _one_shot_then_decode(torch, ops, cfg, dev, prefill_fn, step_fn,
+                          params, prompt, frames, new, ticks=None):
+    """One-shot prefill of ``prompt`` (exact length) with its frames, then
+    ``new`` greedy tokens through the dense decode step: (prefill's last
+    logits, greedy tokens, prefill ms, the prefill's kernel launches);
+    ``ticks`` collects each decode step's ms."""
+    n = prompt.size
+    toks = torch.as_tensor(prompt, device=dev).to(torch.int32)[None]
+    n0 = ops.launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lk, ck = prefill_fn(params, {"tokens": toks, "encoder_input": frames},
+                        None)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    n1 = ops.launch_counts()
+    if not bool(torch.isfinite(lk).all()):
+        raise CheckFailed("whisper: non-finite prefill logits")
+    cache = _dense_cache_of(torch, cfg, dev, ck, n)
+    del ck
+    out, logits = [], lk
+    for i in range(new):
+        nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        out.append(int(nxt[0, 0]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step_fn(params, cache, nxt, n + i, None)
+        torch.cuda.synchronize()
+        if ticks is not None:
+            ticks.append((time.perf_counter() - t) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            raise CheckFailed("whisper: non-finite decode logits")
+    return lk, out, prefill_ms, {k: n1[k] - n0[k] for k in n1}
+
+
+def whisper_serve(torch, ops, dev, card, flush):
+    """Phase 13, serving: whisper-medium at full width and depth (bf16
+    compute, f32 master weights from seed 0).  B4 at its shapes against
+    its plain version; then the main path, with the launch counts reset
+    just before: each of phase 4's prompts one-shot prefilled with its
+    stand-in frames through ``build_prefill_step`` (B4 in every decoder
+    layer, nothing else of the repo) and decoded ``WHISPER_NEW`` greedy
+    tokens through the dense decode step (nothing of the repo launched);
+    two identical prefills and decode steps bitwise equal;
+    ``Engine.generate(encoder_input=)`` on four equal prompts (its loop
+    prefill launches nothing); at 2 + 2 layers in f32 the kernel prefill
+    against the plain path (1e-3 of the largest logit) and its greedy
+    tokens against ``generate``'s loop prefill; the f32 distance at full
+    depth; one profiled prefill."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import (Engine, build_prefill_step,
+                                          build_serve_step)
+
+    cfg = configs.get("whisper-medium")
+    kern, kern_err = check_flash_whisper(torch, ops, dev, flush, cfg)
+    for r in kern.values():
+        print(f"  [{card}] whisper-medium flash_attention_fwd "
+              f"{r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_share']:.3f} of the bound")
+    held_gb, freed_gb = _held_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = mdl.init_params(cfg, 0, dev)
+    rt = mdl.Runtime()
+    prefill_fn = build_prefill_step(cfg, rt)
+    step_fn = build_serve_step(cfg, rt)
+    prompts, frames = _whisper_prompts(torch, cfg, dev)
+    # warm-up: the allocator, and each kernel's first launch
+    _one_shot_then_decode(torch, ops, cfg, dev, prefill_fn, step_fn, params,
+                          prompts[0], frames[:1], 2)
+
+    prefill_ms, tick_ms, per_prefill, tokens = [], [], [], []
+    ops.reset_launch_counts()               # the main path's run starts
+    for i, p in enumerate(prompts):
+        _, out, ms, n = _one_shot_then_decode(
+            torch, ops, cfg, dev, prefill_fn, step_fn, params, p,
+            frames[i:i + 1], WHISPER_NEW, tick_ms)
+        prefill_ms.append(ms)
+        per_prefill.append(n)
+        tokens.append(out)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()          # ... and ends
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd"] = cfg.num_layers
+    if any(pp != want for pp in per_prefill):
+        raise CheckFailed(f"whisper: a prefill launched {per_prefill}, "
+                          f"expected {want}")
+    if launches != {k: n * len(prompts) for k, n in want.items()}:
+        raise CheckFailed(f"whisper: the decode steps launched a kernel of "
+                          f"the repo: {launches}")
+
+    # two identical prefills, and two identical decode steps
+    p = prompts[1]
+    toks = torch.as_tensor(p, device=dev).to(torch.int32)[None]
+    batch = {"tokens": toks, "encoder_input": frames[1:2]}
+    a_l, a_c = prefill_fn(params, batch, None)
+    b_l, b_c = prefill_fn(params, batch, None)
+    same = torch.equal(a_l, b_l) and all(
+        torch.equal(a_c["l0"][k], b_c["l0"][k]) for k in ("k", "v")) and \
+        torch.equal(a_c["xk"], b_c["xk"]) and torch.equal(a_c["xv"],
+                                                          b_c["xv"])
+    nxt = a_l[:, -1].argmax(-1)[:, None].to(torch.int32)
+    outs = []
+    for c in (a_c, b_c):
+        lg, c2 = step_fn(params, _dense_cache_of(torch, cfg, dev, c,
+                                                 p.size), nxt, p.size, None)
+        outs.append((lg, c2["l0"]["k"]))
+    same = same and torch.equal(outs[0][0], outs[1][0]) and \
+        torch.equal(outs[0][1], outs[1][1])
+    if not same:
+        raise CheckFailed("whisper: two identical prefills or decode steps "
+                          "gave different bits")
+    del a_l, a_c, b_l, b_c, outs
+
+    # generate's loop prefill: four equal prompts in one batch
+    gen_prompts = _dense_prompts(cfg.vocab_size, len(prompts),
+                                 WHISPER_GEN_LEN)
+    with Engine(cfg, rt, params, max_len=WHISPER_MAX_LEN) as eng:
+        eng.generate(gen_prompts[:, :2], steps=1, encoder_input=frames)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen = eng.generate(gen_prompts, steps=WHISPER_NEW,
+                           encoder_input=frames)
+        gen_s = time.perf_counter() - t
+        gen_launches = ops.launch_counts()
+    if any(gen_launches.values()):
+        raise CheckFailed(f"whisper: generate's loop prefill launched "
+                          f"{gen_launches}")
+    if gen.shape != (len(prompts), WHISPER_GEN_LEN + WHISPER_NEW):
+        raise CheckFailed(f"whisper: generate returned {gen.shape}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    prof = _profile_whisper_prefill(torch, prefill_fn, params, prompts[-1],
+                                    frames[-1:], dev, card)
+
+    # f32: the full depth's distance, then the 2 + 2 cut's checks
+    full = _f32_prefill(torch, ops, cfg.replace(dtype="float32"), dev,
+                        params, prompts[1], frames[1:2])
+    print(f"  whisper-medium at full depth, f32: one prefill of the "
+          f"{prompts[1].size}-token prompt through B4 against the plain "
+          f"path: max |dlogit| {full[0]:.3e} (max |logit| {full[1]:.3f}); "
+          f"recorded, not checked (ROADMAP C7)")
+    del params
+    torch.cuda.empty_cache()
+    cut = _whisper_f32_cut(torch, ops, cfg, dev, prompts[1], frames[1:2])
+
+    med = statistics.median(tick_ms)
+    print(f"  whisper-medium serving: {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, {len(prompts)} prompts of "
+          f"{[q.size for q in prompts]} tokens one-shot prefilled with "
+          f"{cfg.encoder_seq_len} stand-in frames each, {WHISPER_NEW} "
+          f"greedy tokens each through the dense cache of "
+          f"{WHISPER_MAX_LEN}; launches {launches} (flash_attention_fwd "
+          f"{cfg.num_layers} per prefill, none in a decode step); two "
+          f"identical prefills and decode steps bitwise equal; generate "
+          f"of 4 x {WHISPER_GEN_LEN} tokens + {WHISPER_NEW} launched "
+          f"nothing of the repo")
+    print(f"  [{card}] whisper-medium serving: prefill ms "
+          f"{[round(x, 3) for x in prefill_ms]}; median decode-step ms "
+          f"{med:.3f}; generate {gen_s * 1e3:.1f} ms ("
+          f"{WHISPER_GEN_LEN} loop-prefill + {WHISPER_NEW} decode steps at "
+          f"batch 4); device memory peak {peak_gb:.2f} GB ({held_gb:.3f} "
+          f"GB held before, {freed_gb:.3f} GB then freed by the garbage "
+          f"collector)")
+    return dict(kernel=kern, kernel_max_abs_err=kern_err,
+                launches=launches, launches_per_prefill=per_prefill[0],
+                prefill_ms=prefill_ms, decode_step_ms=tick_ms,
+                median_decode_step_ms=med, generate_ms=gen_s * 1e3,
+                generate_launches=gen_launches, tokens=tokens,
+                peak_memory_gb=peak_gb, held_before_gb=held_gb,
+                freed_by_gc_gb=freed_gb, profiled_prefill=prof,
+                full_depth_f32_max_dlogit=full[0],
+                full_depth_f32_max_logit=full[1], **cut)
+
+
+def _f32_prefill(torch, ops, cfg, dev, params, prompt, frames):
+    """(max |dlogit|, max |logit|) of one prefill of ``cfg`` (f32) through
+    the kernels against the plain path."""
+    from repro_torch.serve.engine import build_prefill_step
+    from repro_torch.models import model as mdl
+    prefill_fn = build_prefill_step(cfg, mdl.Runtime())
+    toks = torch.as_tensor(prompt, device=dev).to(torch.int32)[None]
+    batch = {"tokens": toks, "encoder_input": frames}
+    got, _ = prefill_fn(params, batch, None)
+    with ops.reference_mode():
+        want, _ = prefill_fn(params, batch, None)
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def _whisper_f32_cut(torch, ops, cfg, dev, prompt, frames):
+    """Full width cut to 2 + 2 layers in f32: the kernel prefill's logits
+    against the plain path's (1e-3 of the largest logit, as phases 10 and
+    11 hold their cuts: the random-init model is ill-conditioned, a 1e-7
+    perturbation of its frames moving its logits by 6.9e-4 of the largest
+    at the smoke widths, tools/whisper_f32_error.py), with B4 launched
+    once per decoder layer; then ``WHISPER_NEW`` greedy tokens after the
+    one-shot prefill against ``Engine.generate``'s loop prefill on the
+    same inputs, and the distance of the two prefills' last logits."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import (Engine, build_prefill_step,
+                                          build_serve_step)
+    cfg1 = cfg.replace(num_layers=2, encoder_layers=2, dtype="float32")
+    p1 = mdl.init_params(cfg1, 0, dev)
+    rt = mdl.Runtime()
+    prefill_fn = build_prefill_step(cfg1, rt)
+    n0 = ops.launch_counts()["flash_attention_fwd"]
+    d, scale = _f32_prefill(torch, ops, cfg1, dev, p1, prompt, frames)
+    flash = ops.launch_counts()["flash_attention_fwd"] - n0
+    print(f"  whisper-medium cut to 2 + 2 layers, f32: prefill of "
+          f"{prompt.size} tokens through B4 ({flash} launches) against "
+          f"the plain path: max |dlogit| {d:.3e} (max |logit| "
+          f"{scale:.3f}; tolerance 1e-3 x max |logit|)")
+    if flash != cfg1.num_layers or not d <= 1e-3 * scale:
+        raise CheckFailed("whisper: the f32 prefill through B4 disagrees "
+                          "with the plain path")
+    lk, one_shot, _, _ = _one_shot_then_decode(
+        torch, ops, cfg1, dev, prefill_fn, build_serve_step(cfg1, rt), p1,
+        prompt, frames, WHISPER_NEW)
+    with Engine(cfg1, rt, p1, max_len=WHISPER_MAX_LEN) as eng:
+        loop = eng.generate(prompt[None], steps=WHISPER_NEW,
+                            encoder_input=frames)[0, prompt.size:].tolist()
+        # the loop prefill's last logits, as generate computes them
+        params, pa, premat = eng._snapshot()
+        cache = mdl.init_cache(cfg1, 1, WHISPER_MAX_LEN, dev)
+        with torch.inference_mode():
+            enc = mdl._encode(cfg1, rt, params["encoder"], frames)
+            cache["xk"], cache["xv"] = mdl.precompute_cross_kv(cfg1, params,
+                                                               enc)
+            toks = torch.as_tensor(prompt, device=dev).to(torch.int32)[None]
+            for i in range(prompt.size):
+                ll, cache = eng.step_fn(params, cache, toks[:, i:i + 1], i,
+                                        pa, premat)
+    dd = float((ll[0, -1] - lk[0, -1]).abs().max())
+    equal = one_shot == loop
+    print(f"  whisper-medium cut to 2 + 2 layers, f32: {WHISPER_NEW} greedy "
+          f"tokens after the one-shot prefill {'equal' if equal else 'NOT equal'} "
+          f"to generate's loop prefill's; last prefill logits "
+          f"max |dlogit| {dd:.3e}")
+    if not equal and dd > 1e-3 * scale:
+        raise CheckFailed("whisper: the one-shot and the loop prefill part")
+    return dict(f32_cut_max_dlogit=d, f32_cut_max_logit=scale,
+                f32_cut_flash_launches=flash, f32_cut_tokens_equal=equal,
+                f32_cut_one_shot_vs_loop_max_dlogit=dd)
+
+
+def _profile_whisper_prefill(torch, prefill_fn, params, prompt, frames, dev,
+                             card):
+    """One one-shot prefill under torch.profiler: device-busy time, its idle
+    share, B4's part and the top device operations."""
+    toks = torch.as_tensor(prompt, device=dev).to(torch.int32)[None]
+    dev_ev, launches, busy, wall = _profile_call(
+        torch, lambda: prefill_fn(params, {"tokens": toks,
+                                           "encoder_input": frames}, None))
+    flash = _device_ms(dev_ev, "flash_fwd")
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+    top = [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+           for e in top]
+    print(f"  [{card}] one whisper-medium prefill of {prompt.size} tokens "
+          f"under the profiler: {launches} kernel launches, device busy "
+          f"{busy:.3f} ms of {wall:.3f} ms wall (device idle share "
+          f"{1 - busy / wall:.3f}), flash_attention_fwd {flash:.3f} ms of "
+          f"it; top device operations:")
+    for name, n, ms in top:
+        print(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+    return dict(launches=launches, device_busy_ms=busy, wall_ms=wall,
+                flash_ms=flash, top=top)
+
+
+def _whisper_loop(torch, ops, cfg, rt, tc, stream, dev, label):
+    """Two identical steps of ``cfg`` from seed 0 compared bit for bit
+    (parameters, loss, gradient norm), then one warm-up step of
+    ``train_loop`` and ``WHISPER_STEPS`` counted ones with the launch
+    counts reset just before: (the state, the counted steps' history,
+    their launches, the first step's metrics)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import train_loop
+    batch0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in stream.next_batch().items()}
+    step_fn = step_lib.build_train_step(cfg, rt, tc)
+    first = None
+    for _ in range(2):
+        state = step_lib.init_state(cfg, 0, device=dev)
+        state, m = step_fn(state, batch0, None)
+        got = [t.detach().cpu() for t in adamw.leaves(state.params)] + [
+            m["loss"].cpu(), m["grad_norm"].cpu()]
+        if first is None:
+            first, m0 = got, {k: float(v) for k, v in m.items()
+                              if v.numel() == 1}
+        elif not all(torch.equal(a, b) for a, b in zip(first, got)):
+            raise CheckFailed(f"whisper {label}: two identical train steps "
+                              f"gave different bits")
+        del m, got
+    del first, batch0
+    state, _ = train_loop(cfg, rt, tc, stream, state=state, num_steps=1,
+                          log_every=0, device=dev)
+    ops.reset_launch_counts()               # the main path's run starts
+    state, hist = train_loop(cfg, rt, tc, stream, state=state,
+                             num_steps=WHISPER_STEPS, log_every=0,
+                             device=dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()          # ... and ends
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses)):
+        raise CheckFailed(f"whisper {label}: training loss not finite: "
+                          f"{losses}")
+    if any(launches.values()):
+        raise CheckFailed(f"whisper {label}: training launched {launches}")
+    return state, hist, launches, m0
+
+
+def whisper_train(torch, ops, dev, card):
+    """Phase 13, training: whisper-medium at full width and depth (bf16,
+    f32 master weights and moments from seed 0) through ``train_loop`` at
+    batch ``WHISPER_BATCH`` x 448 decoder tokens with 1,500 stand-in frames
+    a row (``EncoderStubStream``): two identical steps bitwise equal, the
+    gradients of one batch (every encoder parameter's finite and nonzero,
+    none for the frames; their f32 global norm and largest entry), one
+    warm-up step, then ``WHISPER_STEPS`` counted steps with the launch
+    counts reset just before (finite losses; no kernel of the repo:
+    attention trains plain, and Whisper has no experts), one profiled
+    step.  The seeded init's gradient norm grows with depth in both
+    packages (``WHISPER_TRAIN_CUT``), and at full depth its f32 sum of
+    squares may overflow: the step guard then skips the step, as the JAX
+    package's does, so the full-depth loop may not abort on that alone
+    (``max_bad_steps``); at full width cut to ``WHISPER_TRAIN_CUT`` +
+    ``WHISPER_TRAIN_CUT`` layers the same loop must take every step."""
+    import repro_torch.configs as configs
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.pipeline import EncoderStubStream, make_stream
+    from repro_torch.models import model as mdl
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get("whisper-medium")
+    seq = cfg.max_decoder_len
+    rt = mdl.Runtime(use_pallas=False)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS,
+                     max_bad_steps=WHISPER_STEPS + 1)
+
+    def stream():
+        return EncoderStubStream(make_stream(cfg.vocab_size, seq,
+                                             WHISPER_BATCH, kind="bytes",
+                                             seed=0),
+                                 cfg.encoder_seq_len, cfg.d_model, seed=0)
+
+    held_gb, freed_gb = _held_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    # the gradients of one batch at full depth
+    data = stream()
+    batch0 = {k: torch.as_tensor(v, device=dev)
+              for k, v in data.next_batch().items()}
+    params = mdl.init_params(cfg, 0, dev)
+    metrics, grads = step_lib.loss_and_grads(cfg, rt, params, batch0, None)
+    enc = adamw.leaves(grads["encoder"])
+    enc_ok = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                 for g in enc)
+    frames = batch0["encoder_input"]
+    if not enc_ok or frames.requires_grad or frames.grad is not None:
+        raise CheckFailed("whisper: the encoder's parameters lack a finite "
+                          "nonzero gradient, or its input got one")
+    every = adamw.leaves(grads)
+    gmax = max(float(g.float().abs().max()) for g in every)
+    finite = all(bool(torch.isfinite(g).all()) for g in every)
+    gnorm = float(adamw.global_norm(grads))
+    print(f"  whisper-medium gradients of one batch at full depth: loss "
+          f"{float(metrics['loss']):.4f}; all {len(enc)} encoder leaves "
+          f"finite and nonzero, the frames carry no gradient; every leaf "
+          f"finite: {finite}, largest |g| {gmax:.3e}, f32 global norm "
+          f"{gnorm:.3e}")
+    del grads, enc, every, metrics, batch0, frames, params
+    torch.cuda.empty_cache()
+
+    state, hist, launches, m0 = _whisper_loop(torch, ops, cfg, rt, tc,
+                                              stream(), dev, "full depth")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile_train_step(torch, cfg, rt, tc, stream(), state, None,
+                               dev, card)
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    med = statistics.median(step_ms)
+    tok_s = WHISPER_BATCH * seq / med * 1e3
+    print(f"  whisper-medium training: {cfg.encoder_layers} + "
+          f"{cfg.num_layers} layers, batch {WHISPER_BATCH} x {seq} decoder "
+          f"tokens and {cfg.encoder_seq_len} frames a row; two identical "
+          f"steps bitwise equal (step_ok {m0['step_ok']:g}, grad_norm "
+          f"{m0['grad_norm']:.3e}); losses {[round(x, 4) for x in losses]}; "
+          f"step_ok {[h['step_ok'] for h in hist]}; launches {launches}")
+    print(f"  [{card}] whisper-medium training: step ms "
+          f"{[round(x, 1) for x in step_ms]}, median {med:.1f} ms, "
+          f"{tok_s:.0f} decoder tokens/s; device memory peak {peak_gb:.2f} "
+          f"GB ({held_gb:.3f} GB held before, {freed_gb:.3f} GB then freed "
+          f"by the garbage collector)")
+
+    # full width cut in depth: the loop takes every step
+    n = WHISPER_TRAIN_CUT
+    cut = cfg.replace(num_layers=n, encoder_layers=n)
+    state, chist, _, c0 = _whisper_loop(torch, ops, cut, rt, tc, stream(),
+                                        dev, f"{n} + {n} layers")
+    del state
+    torch.cuda.empty_cache()
+    closses = [h["loss"] for h in chist]
+    print(f"  whisper-medium cut to {n} + {n} layers: two identical steps "
+          f"bitwise equal (grad_norm {c0['grad_norm']:.3e}); losses "
+          f"{[round(x, 4) for x in closses]}, step_ok "
+          f"{[h['step_ok'] for h in chist]}, step ms "
+          f"{[round(h['time_s'] * 1e3, 1) for h in chist]}")
+    if c0["step_ok"] != 1.0 or any(h["step_ok"] != 1.0 for h in chist):
+        raise CheckFailed(f"whisper: the {n} + {n}-layer loop skipped a "
+                          f"step")
+    return dict(batch=WHISPER_BATCH, seq=seq, losses=losses,
+                step_ok=[h["step_ok"] for h in hist], step_ms=step_ms,
+                median_step_ms=med, decoder_tokens_per_s=tok_s,
+                peak_memory_gb=peak_gb, held_before_gb=held_gb,
+                freed_by_gc_gb=freed_gb, launches=launches,
+                profiled_step=prof, grads_finite=finite, grad_max=gmax,
+                grad_norm_f32=gnorm, first_step=m0, cut_layers=n,
+                cut_losses=closses, cut_first_step=c0,
+                cut_step_ms=[h["time_s"] * 1e3 for h in chist])
+
+
+def whisper_world_one(torch, ops, dev, card):
+    """Phase 13: whisper-medium served and trained at full width and
+    depth on one card."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    t = time.perf_counter()
+    res = {"serving": whisper_serve(torch, ops, dev, card, flush)}
+    del flush
+    torch.cuda.empty_cache()
+    res["training"] = whisper_train(torch, ops, dev, card)
+    res["seconds"] = time.perf_counter() - t
+    print(f"  whisper-medium: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 3-12 to run after "
+                    help="comma-separated phases among 3-13 to run after "
                          "the device and the build (default: all); the "
                          "kernel table and the result line need all")
     args = ap.parse_args()
@@ -3662,7 +4202,7 @@ def main() -> None:
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
-    run = set(range(3, 13)) if not args.phases else \
+    run = set(range(3, 14)) if not args.phases else \
         {int(x) for x in args.phases.split(",")}
 
     def phase(n, title):
@@ -3739,6 +4279,10 @@ def main() -> None:
             results["serve_grid"] = serve_grid_world_one(torch, ops, dev,
                                                          card_line)
             torch.cuda.empty_cache()
+        if phase(13, "whisper-medium, the encoder-decoder, at full width"):
+            results["whisper"] = whisper_world_one(torch, ops, dev,
+                                                   card_line)
+            torch.cuda.empty_cache()
     except CheckFailed as e:
         fail(str(e))
 
@@ -3747,13 +4291,13 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    if run != set(range(3, 13)):
+    if run != set(range(3, 14)):
         print(f"phases {sorted(run)} passed (script wall "
               f"{time.perf_counter() - T_START:.1f} s); the kernel table "
               f"and the result line come with every phase")
         return
     table = _kernel_table(results)
-    print(f"== 13. kernels (script wall so far "
+    print(f"== 14. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(results['kernels']))}")
     print(json.dumps({"kernels": table}))
@@ -3804,7 +4348,8 @@ def _kernel_table(results):
     """The rows of the kernels JSON line: each kernel at gpt-moe-s's shapes
     with its launches in phases 4/5 (and 7, 8, 9, 12), then at each phase-10
     configuration's shapes with its launches in phase 10, then the serving
-    kernels at phase 11's new shapes with their launches in phase 11."""
+    kernels at phase 11's new shapes with their launches in phase 11, then
+    B4 at each of Whisper's prompt lengths with its launches in phase 13."""
     def row(k, r, launches, **more):
         return {"name": k, "route": "cuda",
                 "source": "src/repro_torch/" + KERNEL_META[k][0],
@@ -3840,6 +4385,16 @@ def _kernel_table(results):
         for k, r in rows.items():
             if k not in TRAIN_KERNELS:
                 table.append(row(k, r, ran["launches"][k], config=cname))
+    # B4 at Whisper's prompt lengths (phase 13), with its launches in
+    # phase 13's serving run, the only kernel of that path
+    wh = results["whisper"]["serving"]
+    for S, r in wh["kernel"].items():
+        table.append(row("flash_attention_fwd",
+                         dict(r, max_abs_err=wh["kernel_max_abs_err"]),
+                         wh["launches"]["flash_attention_fwd"],
+                         config="whisper-medium",
+                         launches_per_prefill=wh["launches_per_prefill"][
+                             "flash_attention_fwd"]))
     return table
 
 

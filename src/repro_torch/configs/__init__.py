@@ -1,10 +1,10 @@
 """Architecture registry of the port.  ``get(name)`` -> full ModelConfig;
 ``get_smoke(name)`` -> the reduced same-family variant the CPU tests use.
 ``ASSIGNED`` and ``PAPER`` mirror the JAX registry's lists (the assigned
-architectures, and the paper's MoE models of Hecate Table 1); all of them
-are ported but ``whisper_medium`` (the encoder-decoder), which raises
-"not yet ported".  CLI ids use dashes (``olmoe-1b-7b``, ``mamba2-1.3b``),
-module names underscores."""
+architectures, and the paper's MoE models of Hecate Table 1), and all of
+them are ported (``PORTED``); any other name raises "not yet ported".
+CLI ids use dashes (``olmoe-1b-7b``, ``mamba2-1.3b``), module names
+underscores."""
 from __future__ import annotations
 
 import importlib
@@ -15,7 +15,7 @@ ASSIGNED = [
     "granite_moe_3b_a800m", "whisper_medium",
 ]
 PAPER = ["gpt_moe_s", "gpt_moe_l", "bert_moe", "bert_moe_deep"]
-PORTED = PAPER + [a for a in ASSIGNED if a != "whisper_medium"]
+PORTED = PAPER + ASSIGNED
 
 # CLI ids whose dashes and dots do not map mechanically (the JAX
 # registry's aliases)

@@ -94,6 +94,30 @@ class EmbedStubStream:
                 "labels": toks[:, 1:]}
 
 
+class EncoderStubStream:
+    """Batches of an encoder-decoder (Whisper), whose train step takes
+    ``{"encoder_input": (B, S_enc, D) f32, "tokens": (B, S+1) int32}``.
+    The audio frontend is a stub in both packages; its frame embeddings
+    stand in here as seeded normal draws, beside the wrapped stream's
+    tokens."""
+
+    def __init__(self, stream: LMStream, encoder_seq_len: int,
+                 d_model: int, seed: int = 0):
+        self.stream = stream
+        self.shape = (encoder_seq_len, d_model)
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        toks = self.stream.next_batch()["tokens"]
+        return {"encoder_input": self.rng.standard_normal(
+                    (toks.shape[0],) + self.shape, np.float32),
+                "tokens": toks}
+
+
 def host_slice(global_batch: int, process_index: int, process_count: int
                ) -> slice:
     per = global_batch // process_count

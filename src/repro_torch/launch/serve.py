@@ -6,7 +6,10 @@ on one device, through the continuous-batching scheduler
       --smoke --continuous --prompt "In the beginning " --steps 16
 
 Prompts are byte-encoded (each byte a token); the fixed batch pads them
-with zeros to the longest.  ``--replicas N`` serves from N engines behind
+with zeros to the longest.  An encoder-decoder (``--arch whisper-medium``)
+decodes against a seeded standard-normal stand-in for its stub frontend's
+frames, (prompts, encoder_seq_len, d_model), as the JAX launcher's, and
+has no ``--continuous`` path.  ``--replicas N`` serves from N engines behind
 a ``PublicationBus``, which broadcasts the parameters once before serving.
 The device is ``cuda`` unless ``--device cpu`` is given; with the default
 device and no GPU the launcher fails.  ``--checkpoint-dir DIR`` serves
@@ -132,6 +135,15 @@ def main(argv=None):
     batch = np.zeros((len(enc), max(e.size for e in enc)), np.int32)
     for i, e in enumerate(enc):
         batch[i, :e.size] = e
+    enc_in = None
+    if cfg.is_encoder_decoder:
+        if args.continuous:
+            raise SystemExit("--continuous requires a decoder-only arch "
+                             "(the paged KV pool has no encoder "
+                             "cross-attention cache)")
+        enc_in = np.random.default_rng(0).standard_normal(
+            (len(prompts), cfg.encoder_seq_len, cfg.d_model)).astype(
+            np.float32)
 
     def serve(eng):
         if args.continuous:
@@ -143,7 +155,8 @@ def main(argv=None):
                   f"for {len(prompts)} requests")
             return out
         out = eng.generate(batch, steps=args.steps,
-                           temperature=args.temperature, seed=args.seed)
+                           temperature=args.temperature, seed=args.seed,
+                           encoder_input=enc_in)
         print(f"fixed batch: {len(prompts)} prompts padded to "
               f"{batch.shape[1]} tokens, {args.steps} new tokens each")
         return out

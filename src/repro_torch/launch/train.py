@@ -25,6 +25,12 @@ scheduler plans ahead, calibrates and re-shards every
 ``--resharding-interval`` steps (Algorithm 2, for the ``ring`` and
 ``a2a`` plans).
 
+An encoder-decoder (``--arch whisper-medium``) trains on
+``data.pipeline.EncoderStubStream``: seeded stand-in frames for its stub
+frontend beside the token stream; its ``--seq-len`` may not pass the
+decoder's cap (``max_decoder_len``, 448), which is also the default where
+it is below 128.
+
 ``--checkpoint-dir DIR --checkpoint-every N`` checkpoints the whole
 training state every N steps (atomic, checksummed, the newest
 ``--keep-checkpoints`` kept, and a final save at the end) and resumes from
@@ -48,7 +54,9 @@ def main(argv=None):
                     help="use the reduced config (CPU-scale)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="decoder tokens per row (default 128, or an "
+                         "encoder-decoder's cap where lower)")
     ap.add_argument("--impl", default="ep",
                     choices=["ring", "a2a", "dense", "ep"],
                     help="materialization plan")
@@ -133,7 +141,8 @@ def _train(args, grid):
     from repro_torch.common.config import TrainConfig
     from repro_torch.core.moe import MoERuntime
     from repro_torch.core.schedule import ReshardingPolicy
-    from repro_torch.data.pipeline import EmbedStubStream, make_stream
+    from repro_torch.data.pipeline import (EmbedStubStream,
+                                           EncoderStubStream, make_stream)
     from repro_torch.models import model as mdl
     from repro_torch.train.supervisor import TrainSupervisor
     from repro_torch.train.trainer import (HecateScheduler, save_train_state,
@@ -145,6 +154,12 @@ def _train(args, grid):
                          "CPU with the kernels' plain versions")
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    cap = cfg.max_decoder_len
+    if args.seq_len is None:
+        args.seq_len = min(128, cap) if cap else 128
+    elif cap and args.seq_len > cap:
+        raise SystemExit(f"--seq-len {args.seq_len}: {cfg.name}'s decoder "
+                         f"is capped at {cap} tokens")
     impl = {"ep": "none"}.get(args.impl, args.impl)
 
     def runtime(g):
@@ -162,7 +177,12 @@ def _train(args, grid):
                      auto_resume=not args.no_resume)
     stream = make_stream(cfg.vocab_size, args.seq_len, args.global_batch,
                          kind=args.data, seed=args.seed, skew=args.skew)
-    if cfg.frontend is not None:        # stand-in frontend embeddings
+    # stand-in frontend embeddings: an encoder-decoder's frames, or the
+    # decoder's own input embeddings
+    if cfg.is_encoder_decoder:
+        stream = EncoderStubStream(stream, cfg.encoder_seq_len, cfg.d_model,
+                                   seed=args.seed)
+    elif cfg.frontend is not None:
         stream = EmbedStubStream(stream, cfg.d_model, seed=args.seed)
     scheduler = None
     if cfg.moe.enabled:

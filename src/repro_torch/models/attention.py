@@ -23,7 +23,9 @@ from repro_torch.models.layers import apply_rope, default_mrope_sections
 NEG_INF = -1e30
 
 
-def attn_params(cfg: ModelConfig):
+def attn_params(cfg: ModelConfig, cross: bool = False):
+    """Q/K/V/O projections; the QKV bias where the config has one, but
+    never on cross attention (as in the JAX package)."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {
@@ -34,18 +36,21 @@ def attn_params(cfg: ModelConfig):
                     init="scaled"),
         "wo": Param((nq, hd, d), ("heads", "head_dim", "embed"), init="scaled"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = Param((nq, hd), ("heads", "head_dim"), init="zeros")
         p["bk"] = Param((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
         p["bv"] = Param((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
     return p
 
 
-def _project_qkv(p, x):
+def _project_qkv(p, x, xa=None):
+    """xa: the cross-attention source (encoder states), whose projections
+    give K and V; else self-attention."""
     dt = x.dtype
+    src = x if xa is None else xa
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dnh->bsnh", src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dnh->bsnh", src, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -98,22 +103,27 @@ def _decode_positions(cfg: ModelConfig, posb):
 
 
 def attention(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
-              causal: bool = True, use_pallas: bool = False,
+              causal: bool = True, xa=None, use_pallas: bool = False,
               return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  Returns (B,S,D), and the
-    rotated (k, v) when ``return_kv`` (the prefill cache fill).
-    positions: (B, S), or (B, S, 3) with M-RoPE."""
-    q, k, v = _project_qkv(p, x)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    """Full-sequence attention (training and prefill).  Returns (B,S,D),
+    and the rotated (k, v) when ``return_kv`` (the prefill cache fill).
+    positions: (B, S), or (B, S, 3) with M-RoPE.  ``xa`` (B, S_enc, D):
+    cross attention over the encoder states, with no RoPE (pass
+    ``causal=False``: no mask)."""
+    q, k, v = _project_qkv(p, x, xa=xa)
+    if xa is None:
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
     window = cfg.sliding_window if kind == "local" else 0
     mask = None
     if causal or window:
         mask = make_mask(q.shape[1], k.shape[1], causal=causal, window=window,
                          device=x.device)
     # the JAX package's routing rule: the kernel takes masked self-attention
-    # without a logit softcap
-    if use_pallas and mask is not None and cfg.attn_logit_softcap == 0.0:
+    # without a logit softcap; bidirectional and cross attention (no mask)
+    # stay plain, as they are XLA there
+    if (use_pallas and mask is not None and xa is None
+            and cfg.attn_logit_softcap == 0.0):
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, cfg.head_dim)

@@ -3,8 +3,10 @@ dense and paged decode.
 
 A model is a stack of ``num_superblocks`` identical superblocks (one tile
 of ``cfg.layer_pattern``: attention layers, ``attn`` or ``local``, and
-Mamba-2 layers, ``mamba``; decoder-only, the encoder-decoder is not
-ported).  Parameters are stacked along a leading
+Mamba-2 layers, ``mamba``).  An encoder-decoder (Whisper) adds an encoder,
+a stack of ``cfg.encoder_layers`` bidirectional attention superblocks over
+the stub frontend's frame embeddings, and a cross-attention sublayer in
+each decoder superblock.  Parameters are stacked along a leading
 superblock axis exactly as in the JAX package (``blocks/l{j}/...``), and
 the JAX package's ``scan`` over superblocks becomes a Python loop here.
 MoE FFNs read from the one cross-layer chunk buffer through
@@ -86,24 +88,30 @@ def _moe_positions(cfg: ModelConfig) -> Tuple[int, ...]:
 
 def _check_ported(cfg: ModelConfig):
     kinds = set(cfg.layer_pattern)
-    if cfg.is_encoder_decoder or not kinds <= {"attn", "local", "mamba"}:
+    if not kinds <= {"attn", "local", "mamba"}:
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only models are ported to "
-            f"repro_torch so far (layer kinds {sorted(kinds)})")
+            f"{cfg.name}: layer kinds {sorted(kinds)} are not ported to "
+            f"repro_torch")
 
 
 # ---------------------------------------------------------------------------
 # Parameter declaration
 # ---------------------------------------------------------------------------
-def _sublayer_decl(cfg: ModelConfig, kind: str, is_moe: bool):
+def _sublayer_decl(cfg: ModelConfig, kind: str, is_moe: bool,
+                   cross: bool = False):
     """An attention sublayer has an FFN (dense or MoE); a mamba one only
-    when it is an MoE layer (the hybrid's), with its norm."""
+    when it is an MoE layer (the hybrid's), with its norm.  ``cross``: an
+    encoder-decoder's decoder sublayer, with its cross-attention norm
+    ``lnx`` and projections ``xattn``."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": ly.norm_params(d)}
     if kind == "mamba":
         p["mamba"] = mb.mamba_params(cfg)
     else:
         p["attn"] = attn.attn_params(cfg)
+    if cross:
+        p["lnx"] = ly.norm_params(d)
+        p["xattn"] = attn.attn_params(cfg, cross=True)
     if kind != "mamba" or is_moe:
         p["ln2"] = ly.norm_params(d)
     if kind != "mamba" and not is_moe:
@@ -113,10 +121,12 @@ def _sublayer_decl(cfg: ModelConfig, kind: str, is_moe: bool):
 
 def param_decls(cfg: ModelConfig, ep: int = 1):
     """Full parameter declaration tree (Param descriptors), the JAX
-    package's tree for decoder-only models."""
+    package's tree: an encoder-decoder adds ``encoder/{blocks,
+    final_norm}`` (one attention sublayer per encoder superblock)."""
     _check_ported(cfg)
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
-    sb = {f"l{j}": _sublayer_decl(cfg, kind, j in moe_pos)
+    sb = {f"l{j}": _sublayer_decl(cfg, kind, j in moe_pos,
+                                  cross=cfg.is_encoder_decoder)
           for j, kind in enumerate(cfg.layer_pattern)}
     decls: Dict[str, Any] = {
         "embed": ly.embed_params(cfg.vocab_size, cfg.d_model,
@@ -127,6 +137,12 @@ def param_decls(cfg: ModelConfig, ep: int = 1):
     if cfg.moe.enabled:
         decls["router"] = moe_core.router_param(cfg)
         decls["moe_buffer"] = moe_core.moe_buffer_param(cfg, ep)
+    if cfg.is_encoder_decoder:
+        enc_sb = {"l0": _sublayer_decl(cfg, "attn", False)}
+        decls["encoder"] = {
+            "blocks": stack_params(enc_sb, cfg.encoder_layers),
+            "final_norm": ly.norm_params(cfg.d_model),
+        }
     return decls
 
 
@@ -207,10 +223,13 @@ def _mixer(cfg: ModelConfig, rt: Runtime, kind: str, positions,
 
 
 def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
-                positions, causal: bool, collect_cache: bool, x):
+                positions, causal: bool, collect_cache: bool, x,
+                enc_out=None):
     """One superblock: returns (x, [MoEAux per MoE layer], {l{j}: cache}
     when ``collect_cache``: an attention sublayer's {"k", "v"}, a mamba
-    one's {"conv", "ssm"})."""
+    one's {"conv", "ssm"}).  ``enc_out`` (B, S_enc, D): the encoder
+    states each attention sublayer cross-attends to after its
+    self-attention (an encoder-decoder's decoder)."""
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
     p_sb = _block(params, sb)
     aux_list, cache = [], {}
@@ -222,6 +241,10 @@ def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
         if collect_cache:
             y, cache[f"l{j}"] = y
         x = x + y
+        if enc_out is not None and kind != "mamba":
+            hx = ly.apply_norm(p["lnx"], x, cfg.norm)
+            x = x + attn.attention(p["xattn"], cfg, hx, positions,
+                                   causal=False, xa=enc_out)
         if j in moe_pos:
             h = ly.apply_norm(p["ln2"], x, cfg.norm)
             y, aux = _moe_ffn(cfg, rt, h, params["router"][mi],
@@ -344,8 +367,9 @@ def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
 
 def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
             embeds=None, pa: Optional[PlanArrays] = None, positions=None,
-            causal: bool = True, collect_cache: bool = False,
-            return_hidden: bool = False, premat=None):
+            encoder_input=None, causal: bool = True,
+            collect_cache: bool = False, return_hidden: bool = False,
+            premat=None):
     """tokens: (B, S) int -> (logits (B, S, V) f32, aux) — or
     (logits, aux, cache) with ``collect_cache``: the cache holds every
     attention layer's rotated K/V as ``{"l{j}": {"k", "v"}}`` of shape
@@ -356,7 +380,12 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
 
     ``embeds`` (B, S, D) replaces ``tokens`` for a frontend stub
     (Qwen2-VL's patch and text embeddings): taken as they are, without the
-    √d scale of the token embedding.  ``positions`` defaults to 0..S-1 per
+    √d scale of the token embedding.  ``encoder_input`` (B, S_enc, D): an
+    encoder-decoder's frame embeddings (Whisper's stub frontend), encoded
+    once (``_encode``) and cross-attended by every decoder superblock;
+    with ``collect_cache`` the cache also holds every decoder layer's
+    cross K/V, ``xk`` and ``xv`` (n_superblocks, B, S_enc, nkv, hd)
+    (``precompute_cross_kv``).  ``positions`` defaults to 0..S-1 per
     sequence, broadcast to the three streams (B, S, 3) under M-RoPE.
 
     ``return_hidden`` returns the final-norm hidden states (B, S, D) in
@@ -396,6 +425,12 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
                          "pipelined MoE path (moe.pipeline=True, "
                          "rematerialize != 'block')")
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if encoder_input is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward "
+                             f"needs encoder_input")
+        enc_out = _encode(cfg, rt, params["encoder"], encoder_input.to(dt))
     aux_list = []
     caches = {f"l{j}": [] for j in range(len(cfg.layer_pattern))}
     if (cfg.moe.enabled and rt.grid is not None and not collect_cache
@@ -405,7 +440,8 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
     else:
         for sb in range(cfg.num_superblocks):
             blk = partial(_superblock, cfg, rt, params, sb, pa, premat,
-                          positions, causal, collect_cache)
+                          positions, causal, collect_cache,
+                          enc_out=enc_out)
             if remat:
                 x, auxs, cache = checkpoint(blk, x, use_reentrant=False)
             else:
@@ -420,8 +456,53 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
     if collect_cache:
         cache = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
                  for name, cs in caches.items()}
+        if enc_out is not None:
+            cache["xk"], cache["xv"] = precompute_cross_kv(cfg, params,
+                                                           enc_out)
         return logits, aux_list, cache
     return logits, aux_list
+
+
+def _encode(cfg: ModelConfig, rt: Runtime, enc_params, enc_in):
+    """The encoder: ``cfg.encoder_layers`` superblocks of bidirectional
+    self-attention (RoPE, no mask: the plain path, as the JAX package's
+    XLA) and the dense FFN over ``enc_in`` (B, S_enc, D) in the compute
+    dtype, then the encoder's final norm.  With ``cfg.remat`` and grad on
+    each superblock runs under ``torch.utils.checkpoint``, where the JAX
+    package puts its ``jax.checkpoint``."""
+    b, s = enc_in.shape[:2]
+    positions = torch.arange(s, device=enc_in.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = enc_in
+    for sb in range(cfg.encoder_layers):
+        blk = partial(_superblock, cfg, rt, enc_params, sb, None, None,
+                      positions, False, False)
+        if remat:
+            x, _, _ = checkpoint(blk, x, use_reentrant=False)
+        else:
+            x, _, _ = blk(x)
+    return ly.apply_norm(enc_params["final_norm"], x, cfg.norm)
+
+
+def precompute_cross_kv(cfg: ModelConfig, params, enc_out):
+    """Every decoder layer's cross-attention K and V of the encoder states
+    ``enc_out`` (B, S_enc, D): (n_superblocks, B, S_enc, nkv, hd) each, in
+    ``enc_out``'s dtype (no RoPE, no bias)."""
+    dt = enc_out.dtype
+    xattn = params["blocks"]["l0"]["xattn"]
+    return tuple(torch.stack([
+        torch.einsum("bsd,dnh->bsnh", enc_out, w[sb].to(dt))
+        for sb in range(cfg.num_superblocks)]) for w in (xattn["wk"],
+                                                           xattn["wv"]))
+
+
+def _cross_decode(p, cfg: ModelConfig, x, xk, xv):
+    """One decode token's cross attention against a layer's precomputed
+    encoder K/V (B, S_enc, nkv, hd): no RoPE, no mask."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
+    out = attn._sdpa(q, xk, xv, None, cfg.attn_logit_softcap, cfg.head_dim)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -437,13 +518,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Dense decode cache: every attention sublayer holds
     (num_superblocks, batch, max_len, nkv, hd) K and V, every mamba
     sublayer its (num_superblocks, batch, ...) f32 conv and SSM state, as
-    in the JAX package."""
+    in the JAX package; an encoder-decoder also the cross K/V ``xk`` and
+    ``xv`` (num_superblocks, batch, encoder_seq_len, nkv, hd), zeros until
+    ``precompute_cross_kv`` fills them."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
-    return {f"l{j}": _stacked(cfg, mb.init_mamba_cache(cfg, batch, device)
-                              if kind == "mamba" else attn.init_kv_cache(
-                                  cfg, batch, max_len, dt, device))
-            for j, kind in enumerate(cfg.layer_pattern)}
+    cache = {f"l{j}": _stacked(cfg, mb.init_mamba_cache(cfg, batch, device)
+                               if kind == "mamba" else attn.init_kv_cache(
+                                   cfg, batch, max_len, dt, device))
+             for j, kind in enumerate(cfg.layer_pattern)}
+    if cfg.is_encoder_decoder:
+        shp = (cfg.num_superblocks, batch, cfg.encoder_seq_len,
+               cfg.num_kv_heads, cfg.head_dim)
+        for k in ("xk", "xv"):
+            cache[k] = torch.zeros(shp, dtype=dt, device=device)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_slots: int, num_rows: int,
@@ -453,8 +542,12 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_rows: int,
     not grow with the sequence, keeps one dense state per scheduler slot
     (``num_slots``); a leading ``num_superblocks`` axis on each, as in the
     JAX package.  A slot's state is overwritten whole by its request's
-    prefill, so nothing of an earlier request reaches a later one."""
+    prefill, so nothing of an earlier request reaches a later one.
+    Encoder-decoder caches are not paged, as in the JAX package."""
     _check_ported(cfg)
+    if cfg.is_encoder_decoder:
+        raise ValueError("paged decode does not support encoder-decoder "
+                         "caches")
     dt = torch_dtype(cfg.dtype)
     n_sb = cfg.num_superblocks
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -481,8 +574,13 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
     premat: optional (L_moe, 1, K, chunk_len) compute slots
     (``moe.materialize_chunks``).  A mamba sublayer advances its dense
     state of each of the B sequences (in paged mode, of each scheduler
-    slot) by one token.  The cache is updated IN PLACE.  Returns
-    (logits (B, 1, V) f32, cache)."""
+    slot) by one token.  An encoder-decoder's attention sublayer then
+    cross-attends to its layer of the cache's ``xk`` / ``xv`` (dense cache
+    only).  The cache is updated IN PLACE.  Returns (logits (B, 1, V) f32,
+    cache)."""
+    if row_idx is not None and cfg.is_encoder_decoder:
+        raise ValueError("paged decode does not support encoder-decoder "
+                         "models")
     if row_idx is not None and page_size is None:
         raise NotImplementedError("the paged path's gather fallback is not "
                                   "ported to repro_torch; pass page_size")
@@ -511,6 +609,10 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
                     p["attn"], cfg, h, c_sb, pos, row_idx, kind=kind,
                     page_size=page_size)
             x = x + y
+            if cfg.is_encoder_decoder and kind != "mamba":
+                hx = ly.apply_norm(p["lnx"], x, cfg.norm)
+                x = x + _cross_decode(p["xattn"], cfg, hx, cache["xk"][sb],
+                                      cache["xv"][sb])
             if j in moe_pos:
                 h = ly.apply_norm(p["ln2"], x, cfg.norm)
                 y, _ = _moe_ffn(cfg, rt, h, params["router"][mi],

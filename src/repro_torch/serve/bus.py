@@ -43,7 +43,14 @@ order (elsewhere the newest staged publication supersedes an
 unbroadcast one): each publication's host build is a collective, so every
 rank must build the same ones.  The worker stages a publication into the
 engines at its own moment on each rank; the engines' boundaries agree
-over the ranks before a triple promotes (``Engine._agree``).
+over the ranks before a triple promotes (``Engine._agree``).  A replica's
+transitions (LAGGING, EVICTED, a lagging replica's catch-up) are decided
+once over the ranks: each rank proposes from its own view (its clock, its
+fault sites) and one MAX all-reduce on the bus's own groups picks the
+most severe proposal, so a replica evicted on one rank is evicted on
+every rank.  The agreement runs on the broadcast worker only, at the end
+of each broadcast and for each ``poll``, which on a grid is collective
+and queued behind the publications staged before it.
 
 Fault sites (``repro_torch.common.faults``): ``bus.broadcast_drop`` and
 ``replica.crash`` in the per-replica send path, ``replica.build_hang`` on
@@ -60,6 +67,7 @@ from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common import faults
 from repro_torch.launch.mesh import destroy_grid, private_grid
@@ -71,6 +79,11 @@ REJOINING = "REJOINING"
 
 _KEEP = object()            # publication without a plan: keep bus.pa
 _SELF_BUILD = object()      # host build failed: replicas build their own
+_POLL = object()            # a poll queued on a grid's broadcast worker
+
+# a replica's proposed transition at a poll; a grid agrees on the most
+# severe (the maximum) over its ranks
+_CAUGHT_UP, _IN_FLIGHT, _LAGS, _EVICTS = range(4)
 
 
 class ReplicaHandle:
@@ -267,13 +280,21 @@ class PublicationBus:
             if job is not None:
                 try:
                     with self._fleet_lock:
-                        self._broadcast(*job)
+                        if job[0] is _POLL:
+                            self._poll_locked()
+                        else:
+                            self._broadcast(*job)
                 except Exception as e:      # never kill the worker
-                    self.last_publish_error = e
-                    self.publish_drops += 1
+                    if job[0] is _POLL:
+                        job[2].append(e)    # raised by the poll
+                    else:
+                        self.last_publish_error = e
+                        self.publish_drops += 1
                 finally:
                     with self._lock:
                         self._busy = False
+                    if job[0] is _POLL:
+                        job[1].set()
             elif closed:
                 return
 
@@ -359,30 +380,77 @@ class PublicationBus:
     def poll(self) -> Dict[str, ReplicaStatus]:
         """Apply the state machine from each replica's lock-free health
         snapshot; returns the fleet health.  The fleet lock only
-        serializes against an in-flight broadcast."""
-        with self._fleet_lock:
-            self._poll_locked()
+        serializes against an in-flight broadcast.
+
+        On a grid of more than one rank ``poll`` is collective: every rank
+        calls it at the same point of its sequence of publications.  It
+        runs on the broadcast worker after every publication staged before
+        it, so its agreement meets the other ranks' in the same order."""
+        if not self._keep_all:
+            with self._fleet_lock:
+                self._poll_locked()
+            return self.health()
+        done, raised = threading.Event(), []
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("PublicationBus is closed")
+            self._jobs.append((_POLL, done, raised))
+            self._ensure_worker()
+            self._evt.set()
+        done.wait()
+        if raised:
+            raise raised[0]
         return self.health()
 
+    def _proposal(self, h: ReplicaHandle):
+        """(this rank's proposed transition for ``h``, the error an
+        eviction records): the engine closed or its staged build past
+        ``evict_deadline_s`` evicts, past ``build_deadline_s`` lags; a
+        build in flight within its deadline changes nothing, and with none
+        a LAGGING replica has caught up."""
+        if h.state == EVICTED:
+            return _EVICTS, None
+        hs = h.engine.health()
+        if hs.closed:
+            return _EVICTS, RuntimeError("engine closed")
+        if not hs.staged_pending:
+            return _CAUGHT_UP, None
+        if hs.staged_age_s >= self.evict_deadline_s:
+            return _EVICTS, RuntimeError(
+                f"staged build hung {hs.staged_age_s:.2f}s "
+                f"(> evict deadline {self.evict_deadline_s}s)")
+        if hs.staged_age_s >= self.build_deadline_s:
+            return _LAGS, None
+        return _IN_FLIGHT, None
+
+    def _agree(self, codes: List[int]) -> List[int]:
+        """The replicas' proposals agreed over a grid's ranks: one MAX
+        all-reduce on the bus's own world group (the codes as they are
+        off a grid of more than one rank)."""
+        if not self._keep_all or not codes:
+            return codes
+        group = self._grid.world_group
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        t = torch.tensor(codes, dtype=torch.int64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t.tolist()
+
     def _poll_locked(self) -> None:
-        for h in list(self._replicas.values()):
+        reps = list(self._replicas.values())
+        props = [self._proposal(h) for h in reps]
+        agreed = self._agree([code for code, _ in props])
+        for h, (mine, err), code in zip(reps, props, agreed):
             if h.state == EVICTED:
                 continue
-            hs = h.engine.health()
-            if hs.closed:
-                self._evict(h, RuntimeError("engine closed"))
-                continue
-            if hs.staged_pending:
-                if hs.staged_age_s >= self.evict_deadline_s:
-                    self._evict(h, RuntimeError(
-                        f"staged build hung {hs.staged_age_s:.2f}s "
-                        f"(> evict deadline {self.evict_deadline_s}s)"))
-                elif (hs.staged_age_s >= self.build_deadline_s
-                        and h.state == HEALTHY):
-                    h.state = LAGGING       # drained, old version serves
-            elif h.state == LAGGING:
-                # the build completed after all: catch the replica up to
-                # the newest published triple, then route to it again
+            if code == _EVICTS:
+                self._evict(h, err if mine == _EVICTS else RuntimeError(
+                    "evicted on another rank of the grid"))
+            elif code == _LAGS and h.state == HEALTHY:
+                h.state = LAGGING           # drained, old version serves
+            elif code == _CAUGHT_UP and h.state == LAGGING:
+                # the build completed after all (on every rank): catch the
+                # replica up to the newest published triple, then route to
+                # it again
                 h.state = HEALTHY
                 with self._lock:
                     latest = self._latest

@@ -133,7 +133,9 @@ def build_prefill_step(cfg: ModelConfig, rt: mdl.Runtime):
     prompt and every mamba layer's state after it.  ``batch["embeds"]``
     (B, S, D), where given, replaces ``batch["tokens"]`` (a frontend
     stub's embeddings; ``batch["positions"]`` may give M-RoPE's (B, S, 3)
-    streams).  ``batch["last_pos"]`` (optional, (B,) int) picks each
+    streams); an encoder-decoder also takes ``batch["encoder_input"]`` (B,
+    S_enc, D), and its cache then holds the cross K/V ``xk`` / ``xv``.
+    ``batch["last_pos"]`` (optional, (B,) int) picks each
     sequence's last REAL position instead of -1: prompts padded up to a
     shape bucket keep their real positions unaffected under the causal
     mask (a model with mamba layers is prefilled at exact length: their
@@ -142,6 +144,8 @@ def build_prefill_step(cfg: ModelConfig, rt: mdl.Runtime):
     def prefill_step(params, batch, pa: Optional[PlanArrays], premat=None):
         inputs = ({"embeds": batch["embeds"]} if "embeds" in batch
                   else {"tokens": batch["tokens"]})
+        if cfg.is_encoder_decoder:
+            inputs["encoder_input"] = batch["encoder_input"]
         logits, _, cache = mdl.forward(cfg, rt, params, pa=pa,
                                        positions=batch.get("positions"),
                                        collect_cache=True, premat=premat,
@@ -553,14 +557,19 @@ class Engine:
 
     # ---- fixed-batch generation -------------------------------------------
     def generate(self, prompts, steps: int, temperature: float = 0.0,
-                 seed: int = 0) -> np.ndarray:
+                 seed: int = 0, encoder_input=None) -> np.ndarray:
         """prompts: (B, P) int (left-aligned, no padding).  Prefills one
         token at a time through the decode step, then decodes ``steps``
         tokens, greedy or sampled with a ``torch.Generator`` seeded by
         ``seed``; every step runs a boundary and reads one snapshot.
         Returns (B, P + steps) int32.  On a grid of more than one rank
         (B a multiple of its size) each rank decodes its rows of the batch
-        and every rank returns the whole array."""
+        and every rank returns the whole array.
+
+        An encoder-decoder needs ``encoder_input`` (B, S_enc, D): it is
+        encoded once, with the live parameters, into the cache's cross K/V
+        (``precompute_cross_kv``) before the prefill; on a grid each rank
+        encodes its own rows."""
         self._check_open()
         dev = self.params["embed"]["embedding"].device
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
@@ -574,6 +583,20 @@ class Engine:
         with torch.inference_mode():
             cache = mdl.init_cache(self.cfg, toks[rows].shape[0],
                                    self.max_len, dev)
+            if self.cfg.is_encoder_decoder:
+                if encoder_input is None:
+                    raise ValueError(f"{self.cfg.name} is an "
+                                     f"encoder-decoder: generate needs "
+                                     f"encoder_input")
+                if not isinstance(encoder_input, torch.Tensor):
+                    encoder_input = torch.from_numpy(
+                        np.asarray(encoder_input))
+                enc_in = encoder_input.to(dev, cache["xk"].dtype)[rows]
+                enc = mdl._encode(self.cfg, self.rt, self.params["encoder"],
+                                  enc_in)
+                cache["xk"], cache["xv"] = mdl.precompute_cross_kv(
+                    self.cfg, self.params, enc)
+                del enc, enc_in
             out, logits = [toks], None
             for i in range(p):                  # loop prefill
                 params, pa, premat = self._snapshot()

@@ -135,7 +135,9 @@ class RequestScheduler:
     (page 0 reserved as the trash page idle slots park on), allocated on
     the device of the engine's parameters.  ``max_kv`` bounds any
     sequence's total length and fixes the decode step's shape; it defaults
-    to the engine's ``max_len`` rounded up to a page multiple."""
+    to the engine's ``max_len`` rounded up to a page multiple.  An
+    encoder-decoder is refused, as in the JAX package: the paged pool has
+    no cross K/V."""
 
     def __init__(self, engine, *, max_slots: int = 4, num_pages: int = 32,
                  page_size: int = 8, max_kv: Optional[int] = None,
@@ -147,6 +149,9 @@ class RequestScheduler:
                  clock: Callable[[], float] = time.monotonic):
         self.engine = engine
         self.cfg, self.rt = engine.cfg, engine.rt
+        if self.cfg.is_encoder_decoder:
+            raise ValueError("continuous batching does not support "
+                             "encoder-decoder models")
         self.device = engine.params["embed"]["embedding"].device
         self.pool = KVPagePool(num_pages, page_size)
         ps = page_size

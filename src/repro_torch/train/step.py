@@ -106,10 +106,15 @@ def chunked_nll(cfg: ModelConfig, embed_params, hidden, labels,
 def _unpack_batch(cfg: ModelConfig, batch):
     """(forward kwargs, labels): a frontend arch that is not
     encoder-decoder (Qwen2-VL) takes ``{"embeds": (B, S, D), "labels": (B,
-    S)}``, the others ``{"tokens": (B, S+1)}``, next-token labels."""
+    S)}``, an encoder-decoder (Whisper) ``{"encoder_input": (B, S_enc, D),
+    "tokens": (B, S+1)}``, the others ``{"tokens": (B, S+1)}``; labels are
+    the next tokens."""
     if cfg.frontend is not None and not cfg.is_encoder_decoder:
         return {"embeds": batch["embeds"]}, batch["labels"]
     toks = batch["tokens"]
+    if cfg.is_encoder_decoder:
+        return ({"tokens": toks[:, :-1],
+                 "encoder_input": batch["encoder_input"]}, toks[:, 1:])
     return {"tokens": toks[:, :-1]}, toks[:, 1:]
 
 

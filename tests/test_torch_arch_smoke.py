@@ -1,16 +1,17 @@
 """The port's architectures against the JAX package on the CPU: the
 counterpart of ``tests/test_arch_smoke.py`` for the configs that
-``repro_torch.configs.PORTED`` lists (every one of the JAX registry but
-whisper-medium).
+``repro_torch.configs.PORTED`` lists (every one of the JAX registry).
 
 Each full ``config()`` equals the JAX registry's field by field.  On each
 reduced ``smoke()`` config (f32), JAX initializes the parameters, the
 weight bridge carries them over and numpy makes the tokens (Qwen2-VL: the
-stub frontend's embeddings and the labels) from a seed; then one train
+stub frontend's embeddings and the labels; Whisper: the stand-in frames
+beside the tokens) from a seed; then one train
 step (``jax.jit(build_train_step)`` against the port's
 ``build_train_step``, ``ep`` plan of the Hecate scheduler for the MoE
-archs) and one decode step (``decode_step`` on a dense cache) run in both
-packages.  bert-moe also takes a bidirectional step (``causal=False``),
+archs) and one decode step (``decode_step`` on a dense cache, for
+Whisper with the cross K/V of the encoded frames) run in both packages.
+bert-moe also takes a bidirectional step (``causal=False``),
 Qwen2-VL a forward of embeddings at distinct M-RoPE position streams.  Tolerances as in
 ``tests/test_torch_train.py``: 1e-5 for losses, 5e-4 of each tensor's
 largest entry for gradients and the gradient norm, 1e-5 of the largest
@@ -46,7 +47,7 @@ from repro_torch.train.trainer import HecateScheduler  # noqa: E402
 ARCHS = ["gpt-moe-s", "gpt-moe-l", "bert-moe", "bert-moe-deep",
          "olmoe-1b-7b", "granite-moe-3b-a800m", "smollm-360m", "minitron-8b",
          "qwen1.5-110b", "gemma2-9b", "mamba2-1.3b", "jamba-v0.1-52b",
-         "qwen2-vl-72b"]
+         "qwen2-vl-72b", "whisper-medium"]
 B, S = 2, 32
 TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 # Gradients (and first moments) against JAX's, relative to each tensor's
@@ -54,8 +55,18 @@ TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 # ill-conditioned in f32: JAX's own f32 gradients lie up to 3.3e-3 from
 # its float64 ones there, the port's 2.1e-3, and the two packages' f32
 # gradients 1.36e-3 from each other (measured on the CPU); every other
-# arch is held to 5e-4.
-GRAD_TOL = {"qwen2-vl-72b": 2e-3}
+# arch is held to 5e-4.  Whisper's random-init model is ill-conditioned in
+# f32 (``tests/test_torch_whisper.py``, ``tools/whisper_f32_error.py``: a
+# 1e-7 perturbation of its unit-normal frames moves JAX's own gradients by
+# up to 11%); the two packages' first moments lie up to 2.01e-2 apart here
+# and their gradient norms 1.02e-2, their decode logits 1.98e-5 (measured
+# on the CPU).
+GRAD_TOL = {"qwen2-vl-72b": 2e-3, "whisper-medium": 2.5e-2}
+LOGIT_TOL = {"whisper-medium": 3e-5}
+# where ``_params_after_step`` holds an element to 0.1·lr: its gradient
+# clear of this share of the leaf's largest (Whisper's gradients differ
+# by up to GRAD_TOL between the packages)
+CLEAR_TOL = {"whisper-medium": GRAD_TOL["whisper-medium"]}
 
 
 def _np(a):
@@ -78,18 +89,18 @@ def _close(got, want, tol, what=""):
                                err_msg=what)
 
 
-def _params_after_step(got, want, want_mu, tc):
+def _params_after_step(got, want, want_mu, tc, gtol=5e-4):
     """The parameters after one AdamW step, each leaf element against JAX's:
     within 0.1·lr where the gradient stands clear of the gradient
-    tolerance (5e-4 of the leaf's largest entry).  The first step moves an
-    element by lr·g/(|g| + eps), about lr·sign(g), so where |g| lies within
-    that tolerance the two packages' f32 gradients may differ in sign, and
-    such an element is held to the two updates' extent, 2·lr."""
+    tolerance ``gtol`` of the leaf's largest entry.  The first step moves
+    an element by lr·g/(|g| + eps), about lr·sign(g), so where |g| lies
+    within that tolerance the two packages' f32 gradients may differ in
+    sign, and such an element is held to the two updates' extent, 2·lr."""
     want_mu = dict(_flat(jax.tree.map(np.asarray, want_mu)))
     got = dict(_flat(got))
     for k, w in _flat(jax.tree.map(np.asarray, want)):
         g = np.abs(want_mu[k]) / (1 - tc.beta1)
-        clear = g > 5e-4 * g.max()
+        clear = g > gtol * g.max()
         d = np.abs(_np(got[k]) - w)
         assert d[clear].max(initial=0) <= 0.1 * tc.learning_rate, k
         assert d.max() <= 2 * tc.learning_rate, k
@@ -106,6 +117,11 @@ def _setup(name):
         nb = {"embeds": rng.standard_normal((B, S, cfg.d_model), np.float32),
               "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(
                   np.int32)}
+    elif cfg.is_encoder_decoder:
+        nb = {"encoder_input": rng.standard_normal(
+                  (B, cfg.encoder_seq_len, cfg.d_model), np.float32),
+              "tokens": rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(
+                  np.int32)}
     else:
         nb = {"tokens": rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(
             np.int32)}
@@ -121,19 +137,18 @@ def _setup(name):
 
 
 def test_ported_configs():
-    """The registry mirrors the JAX one's lists and ports all of them but
-    the encoder-decoder whisper-medium; the CLI ids resolve as the JAX
-    registry's aliases do."""
+    """The registry mirrors the JAX one's lists and ports all of them, the
+    encoder-decoder whisper-medium included; the CLI ids resolve as the
+    JAX registry's aliases do, and a name outside the registry raises."""
     assert configs.PAPER == jconfigs.PAPER
     assert configs.ASSIGNED == jconfigs.ASSIGNED
-    assert configs.PORTED == [a for a in jconfigs.PAPER + jconfigs.ASSIGNED
-                              if a != "whisper_medium"]
+    assert configs.PORTED == jconfigs.PAPER + jconfigs.ASSIGNED
     assert sorted(configs.canonical(a) for a in ARCHS) == \
         sorted(configs.PORTED)
     for a in ARCHS:
         assert configs.canonical(a) == jconfigs.canonical(a)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get("whisper-medium")
+        configs.get("whisper-large")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -159,10 +174,14 @@ def test_full_config_equals_jax(name):
         "smollm-360m": (32, 960, 15, 5, 2560, 49152),
         "jamba-v0.1-52b": (32, 4096, 32, 8, 14336, 65536),
         "gemma2-9b": (42, 3584, 16, 8, 14336, 256000),
-        "qwen2-vl-72b": (80, 8192, 64, 8, 29568, 152064)}
+        "qwen2-vl-72b": (80, 8192, 64, 8, 29568, 152064),
+        "whisper-medium": (24, 1024, 16, 16, 4096, 51865)}
     if name in dense:
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads,
                 cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size) == dense[name]
+    if cfg.is_encoder_decoder:
+        assert (cfg.encoder_layers, cfg.encoder_seq_len,
+                cfg.max_decoder_len) == (24, 1500, 448)
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -193,24 +212,35 @@ def test_arch_train_and_decode_match_jax(name):
         np.testing.assert_array_equal(_np(tm["expert_counts"]),
                                       np.asarray(jm["expert_counts"]))
     assert sorted(dict(_flat(ts.params))) == sorted(dict(_flat(js.params)))
-    _params_after_step(ts.params, js.params, js.opt.mu, tc)
+    _params_after_step(ts.params, js.params, js.opt.mu, tc,
+                       CLEAR_TOL.get(name, 5e-4))
     mu = dict(_flat(params_to_numpy(ts.opt.mu)))
     for k, w in _flat(jax.tree.map(np.asarray, js.opt.mu)):
         _close(mu[k], w, gtol, k)
 
     # one decode step at position 3 on a fresh dense cache, from JAX's init
+    # (an encoder-decoder's cross K/V from its encoded frames)
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    jc = jmdl.init_cache(jcfg, B, 64)
+    params = params_from_jax(su["np_tree"], "cpu")
+    tc = mdl.init_cache(cfg, B, 64, "cpu")
+    if cfg.is_encoder_decoder:
+        jenc = jmdl._encode(jcfg, jmdl.Runtime(), su["jparams"]["encoder"],
+                            su["jb"]["encoder_input"])
+        jc["xk"], jc["xv"] = jmdl.precompute_cross_kv(jcfg, su["jparams"],
+                                                      jenc)
+        with torch.no_grad():
+            enc = mdl._encode(cfg, mdl.Runtime(), params["encoder"],
+                              su["tb"]["encoder_input"])
+            tc["xk"], tc["xv"] = mdl.precompute_cross_kv(cfg, params, enc)
     jl, _ = jax.jit(lambda p, c, t, a: jmdl.decode_step(
         jcfg, jmdl.Runtime(), p, c, t, jnp.int32(3), a))(
-            su["jparams"], jmdl.init_cache(jcfg, B, 64), jnp.asarray(toks),
-            su["jpa"])
-    tl, _ = mdl.decode_step(cfg, mdl.Runtime(),
-                            params_from_jax(su["np_tree"], "cpu"),
-                            mdl.init_cache(cfg, B, 64, "cpu"),
+            su["jparams"], jc, jnp.asarray(toks), su["jpa"])
+    tl, _ = mdl.decode_step(cfg, mdl.Runtime(), params, tc,
                             torch.from_numpy(toks), 3, su["pa"])
     assert tl.shape == (B, 1, cfg.vocab_size)
-    _close(tl, np.asarray(jl), 1e-5, "decode logits")
+    _close(tl, np.asarray(jl), LOGIT_TOL.get(name, 1e-5), "decode logits")
 
 
 def test_bert_bidirectional_step_matches_jax():

@@ -32,7 +32,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     for arch in ("gpt_moe_s", "gpt_moe_l", "bert_moe", "bert_moe_deep",
                  "olmoe_1b_7b", "granite_moe_3b_a800m", "smollm_360m",
                  "minitron_8b", "qwen1p5_110b", "gemma2_9b", "mamba2_1p3b",
-                 "jamba_v0p1_52b", "qwen2_vl_72b"):
+                 "jamba_v0p1_52b", "qwen2_vl_72b", "whisper_medium"):
         assert f"repro_torch.configs.{arch}" in mods, arch
     assert "repro_torch.models.mamba2" in mods
     code = ("import importlib, sys\n"

@@ -132,6 +132,30 @@ def test_crash_evicts_one_replica_and_rejoin_reuses_the_host_build(both):
         assert r["fleet_dedup_hits"] == 6
 
 
+def test_a_build_hung_on_one_rank_moves_the_replica_on_every_rank(both):
+    """C16: a replica's build hangs on rank 0 only, its age read from a
+    clock the test sets.  Each poll decides the transitions once over the
+    ranks, so every rank reports the same states after every poll: the
+    replica lags at t = 1 on every rank (drained everywhere), catches up
+    on every rank once the build is released, lags and is evicted on
+    every rank at the same polls on the next publication's hang, and the
+    other replica promotes the publication after that on every rank.  On
+    a bus that moved a replica on its own rank's view, rank 0 alone
+    lagged it and the ranks' states parted (the rank function raises at
+    the first such poll)."""
+    from repro_torch.serve.bus import EVICTED, HEALTHY, LAGGING
+    H, L, E = HEALTHY, LAGGING, EVICTED
+    _, ranks = both
+    for r in ranks:
+        c = r["c16"]
+        assert [every[0] for every in c["polls"]] == \
+            [(H, H), (H, L), (H, H), (H, L), (H, E)]
+        assert all(every == [every[0]] * len(ranks)
+                   for every in c["polls"])
+        assert c["routed"] == ["h0"]
+        assert c["versions"] == [3, 0] and c["evictions"] == 1
+
+
 def _ws1_params(jx, name, cfg):
     """The JAX tree of ``name`` with its buffer in the world-size-1
     layout (homogeneous sharding on one device)."""

@@ -889,6 +889,101 @@ def serve_grid_rank(grid, npz: str):
     return out
 
 
+def _hung_on_one_rank(grid, cfg, rt, pa, *trees):
+    """C16: two replicas behind each rank's bus; replica ``h1``'s staged
+    build hangs on rank 0 only, and the engines' ages read a clock the
+    test sets.  Every poll's states are all-gathered (and a disagreement
+    raises at once, so a split fleet cannot hang the flush after it): the
+    hung replica lags on every rank at t = 1, catches up on every rank
+    once its build is released, lags again and is evicted on every rank
+    at t = 10 on the next publication's hang, and ``h0`` promotes the
+    publication after that on every rank."""
+    import time
+    import types
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.common import faults
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.bus import PublicationBus
+    from repro_torch.serve.engine import Engine
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + 60.0
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"rank {grid.rank}: not reached "
+                                     f"within 60 s: {what}")
+            time.sleep(0.005)
+
+    def built(version, hung):
+        """Each replica staged ``version``; its build done unless it is
+        the one hung on this rank."""
+        wait_for(lambda: all(
+            e.health().staged_version == version
+            and e.health().staged_pending == (hung and e.name == "h1")
+            for e in engines), f"v{version} staged and built")
+
+    def hang():
+        if grid.rank == 0:
+            faults.inject("replica.build_hang", only="h1", hang_s=120.0,
+                          times=None)
+
+    polls = []
+
+    def poll():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            states = tuple(st.state for st in bus.poll().values())
+        every = [None] * grid.size
+        dist.all_gather_object(every, states)
+        polls.append(every)
+        if len(set(every)) != 1:
+            raise AssertionError(f"the ranks' buses disagree after poll "
+                                 f"{len(polls)}: {every}")
+
+    clock = types.SimpleNamespace(t=0.0)
+    clock.monotonic = lambda: clock.t
+    real_time, engine_mod.time = engine_mod.time, clock
+    engines, bus = [], None
+    try:
+        engines = [Engine(cfg, rt, trees[0], max_len=32, pa=pa,
+                          name=f"h{i}") for i in range(2)]
+        bus = PublicationBus([(e.name, e) for e in engines],
+                             build_deadline_s=0.2, evict_deadline_s=3.0)
+        hang()
+        bus.publish_params(trees[1], version=1)
+        built(1, grid.rank == 0)
+        poll()                              # t = 0: nothing is late
+        clock.t = 1.0
+        poll()                              # h1 lags on every rank
+        routed = [e.name for e in bus.route()]
+        faults.clear()                      # rank 0's build completes
+        built(1, False)
+        poll()                              # h1 caught up on every rank
+        hang()
+        bus.publish_params(trees[0], version=2)
+        built(2, grid.rank == 0)
+        clock.t = 1.5
+        poll()                              # lags again ...
+        clock.t = 10.0
+        poll()                              # ... and is evicted
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            bus.publish_params(trees[1], version=3, wait=True)
+        return dict(polls=polls, routed=routed,
+                    versions=[e.version for e in engines],
+                    evictions=bus.replica_evictions)
+    finally:
+        faults.clear()
+        if bus is not None:
+            bus.close()
+        for e in engines:
+            e.close()
+        engine_mod.time = real_time
+
+
 def serve_fleet_rank(grid, npz: str):
     """On a 2 x 4 grid: four same-host replicas behind a bus (one build
     per publication, ``dedup_hits``, a crash, an eviction and a rejoin),
@@ -947,6 +1042,8 @@ def serve_fleet_rank(grid, npz: str):
         bus.close()
         for e in engines:
             e.close()
+
+        out["c16"] = _hung_on_one_rank(grid, cfg, rt, pa, p1, p2)
 
         # a bus publication in flight while the scheduler ticks, with no
         # flush: ranks 0..3 stage it before the first tick, ranks 4..7
