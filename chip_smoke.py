@@ -172,7 +172,18 @@ JAX).  In order it:
    seeded init's f32 gradient norm overflows and the step guard skips
    each step, as the JAX package's would), one profiled step, and the same
    loop at 4 + 4 layers, which must take every step;
-14. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
+14. runs the dry run (``launch/dryrun.py``, which never touches the card):
+   ``python -m repro_torch.launch.dryrun --arch NAME --shape train_4k
+   --mesh single`` for every config (one process each, in parallel on the
+   spare cores, while the rest of the phase runs), each of which must exit
+   0 with an ``ok`` record, printed as one line a config; in this process
+   phase 7's step (gpt-moe-s, batch 8 x 2,048, ring plan, FSSDP layer at
+   world size 1) dry-run on a fake 1 x 1 grid, which must allocate no
+   device memory and launch no kernel, and whose argument bytes must
+   equal those of the real state, batch and plan tables the same step
+   then takes on the card over NCCL (3 steps: the real peak against the
+   dry run's, and model FLOPs over step time x 989 TFLOP/s);
+15. prints the kernel table as one JSON line (each kernel at gpt-moe-s's
    shapes with its launches in phases 4/5, 7, 8, 9 and 12, then at each
    phase-10 configuration's, then the serving kernels at phase 11's new
    shapes, then B4 at Whisper's prompt lengths with its phase-13
@@ -181,7 +192,7 @@ JAX).  In order it:
 
 Any failed check exits non-zero before the last line is printed.  Without
 a CUDA device, or without the repository around it, it fails.
-``--phases`` runs a subset of phases 3-13 after the build (phase 7 reads
+``--phases`` runs a subset of phases 3-14 after the build (phase 7 reads
 phase 5's step median where phase 5 ran); a subset prints no kernel table
 and no result line.
 """
@@ -4140,12 +4151,172 @@ def whisper_world_one(torch, ops, dev, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run
+# ---------------------------------------------------------------------------
+def _dryrun_batch(out_dir):
+    """Start ``python -m repro_torch.launch.dryrun`` at train_4k on the 16 x
+    16 grid for every config, the longest first, one process per config
+    and at most one per spare core, each on one intra-op thread; returns a
+    function that waits for them all and gives (config, exit code,
+    record, seconds) of each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import repro_torch.configs as configs
+    first = ("qwen1p5_110b", "qwen2_vl_72b", "jamba_v0p1_52b",
+             "mamba2_1p3b", "granite_moe_3b_a800m", "gemma2_9b",
+             "whisper_medium", "minitron_8b")
+    archs = list(first) + [a for a in configs.PAPER + configs.ASSIGNED
+                           if a not in first]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+
+    def one(arch):
+        t = time.perf_counter()
+        with open(os.path.join(out_dir, f"{arch}.log"), "w") as log:
+            rc = subprocess.run(
+                [sys.executable, "-W", "ignore::FutureWarning", "-m",
+                 "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 "train_4k", "--mesh", "single", "--out", out_dir],
+                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                timeout=600).returncode
+        path = os.path.join(out_dir, f"{arch}_train_4k_single_ring.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {}
+        return arch, rc, rec, time.perf_counter() - t
+
+    pool = ThreadPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) - 1))
+    futures = [pool.submit(one, a) for a in archs]
+    pool.shutdown(wait=False)
+    return lambda: [f.result() for f in futures]
+
+
+def dryrun_world_one(torch, ops, dev, card):
+    """Phase 14: the dry run (``launch/dryrun.py``).  Every config's
+    train_4k record on the fake 16 x 16 grid from the command line (the
+    CLI run of gpt-moe-s among them), then, in this process, phase 7's
+    step (gpt-moe-s, bf16, 8 x 2,048, ring plan, FSSDP layer at world size
+    1) dry-run on a fake 1 x 1 grid: it must allocate nothing on the card
+    and launch no kernel, and its argument bytes must equal the real
+    step's state, batch and plan tables, which the step then takes on the
+    card over NCCL: its peak against the dry run's, and the model FLOPs'
+    share of the card's bf16 peak."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+    from repro_torch.common.config import H100, ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import inputs as inp
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "experiments", "dryrun_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    wait = _dryrun_batch(out_dir)
+
+    cfg = configs.get("gpt-moe-s")
+    shape = ShapeConfig("phase7", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()                # the dry run's path starts
+    rec = dryrun.dryrun_combo(cfg, shape, grid=(1, 1))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()           # ... and ends
+    grew = torch.cuda.memory_allocated() - before
+    if rec["status"] != "ok":
+        raise CheckFailed(f"dry run of phase 7's step: {rec}")
+    if grew or any(launches.values()):
+        raise CheckFailed(f"the dry run touched the card: {grew} bytes "
+                          f"allocated, launches {launches}")
+    mem, cost = rec["memory"], rec["cost"]
+    print(f"  dry run of phase 7's step on a fake 1 x 1 grid: "
+          f"{rec['run_s']:.2f} s, 0 bytes allocated on the card, no kernel "
+          f"launched; arguments {mem['argument_bytes_per_device']} B, peak "
+          f"{mem['peak_estimate_per_device'] / 1e9:.2f} GB, "
+          f"{cost['flops']:.4e} FLOPs")
+
+    grid = _nccl_world()
+    try:
+        state = step_lib.init_state(cfg, 0, 1, dev, grid)
+        g = torch.Generator(device=dev).manual_seed(0)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
+            device=dev, dtype=torch.int32)}
+        pa = inp.concrete_plan(cfg, 1, "ring", device=dev)
+        arg_bytes = dryrun.storage_bytes((state, batch, pa))
+        if arg_bytes != mem["argument_bytes_per_device"]:
+            raise CheckFailed(f"argument bytes: the dry run's "
+                              f"{mem['argument_bytes_per_device']}, the "
+                              f"real step's {arg_bytes}")
+        tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=TRAIN_STEPS,
+                         microbatch=dryrun.default_microbatches(cfg, shape,
+                                                                grid))
+        step_fn = step_lib.build_train_step(
+            cfg, inp.make_runtime(cfg, grid, impl="ring"), tc)
+        step_s = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch, pa)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            if not math.isfinite(loss):
+                raise CheckFailed(f"phase 14 step {i}: loss {loss}")
+            peak = torch.cuda.max_memory_allocated()
+        del state, m, batch, pa
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    step = statistics.median(step_s[1:])
+    model_flops = 6 * cfg.active_param_count() * TRAIN_BATCH * TRAIN_SEQ
+    print(f"  the same step on the card ({card}): arguments {arg_bytes} B, "
+          f"equal to the dry run's; steps {[round(x, 4) for x in step_s]} "
+          f"s; peak {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) "
+          f"against the dry run's {mem['peak_estimate_per_device'] / 1e9:.2f}"
+          f" GB: ratio {peak / mem['peak_estimate_per_device']:.4f}; model "
+          f"FLOPs {model_flops:.4e} / (step {step:.4f} s x "
+          f"{H100.peak_flops_bf16:.4g}) = "
+          f"{model_flops / (step * H100.peak_flops_bf16):.4f}; counted "
+          f"FLOPs / (step x peak) = "
+          f"{cost['flops'] / (step * H100.peak_flops_bf16):.4f}")
+
+    t = time.perf_counter()
+    done = wait()
+    bad = [(a, rc, r.get("status")) for a, rc, r, _ in done
+           if rc != 0 or r.get("status") != "ok"]
+    if bad:
+        raise CheckFailed(f"dry runs at train_4k on the 16 x 16 grid: {bad}")
+    print(f"  train_4k on the fake 16 x 16 grid, per rank (CLI runs, "
+          f"{len(done)} configs, waited {time.perf_counter() - t:.1f} s):")
+    rows = {}
+    for arch, _, r, secs in sorted(done):
+        m, c, rf = r["memory"], r["cost"], r["roofline"]
+        coll = " ".join(f"{k} {v / 1e9:.3f}"
+                        for k, v in sorted(c["collective_bytes"].items()))
+        print(f"    {r['arch']}: peak {m['peak_estimate_per_device'] / 1e9:.2f}"
+              f" GB, model {r['memory_model']['total_bytes_est'] / 1e9:.2f} "
+              f"GB, {c['flops']:.4e} FLOPs, collective GB {coll}; compute "
+              f"{rf['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.2f} ms, collective "
+              f"{rf['collective_s'] * 1e3:.2f} ms ({rf['dominant']}); "
+              f"useful {rf['useful_flops_ratio']:.4f}; run "
+              f"{r['run_s']:.2f} s ({secs:.1f} s with start-up)")
+        rows[arch] = r
+    res = {"phase7_record": rec, "real_arg_bytes": arg_bytes,
+           "real_peak_bytes": peak, "step_s": step_s, "train_4k": rows,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  phase 14: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 3-13 to run after "
+                    help="comma-separated phases among 3-14 to run after "
                          "the device and the build (default: all); the "
                          "kernel table and the result line need all")
     args = ap.parse_args()
@@ -4202,7 +4373,7 @@ def main() -> None:
     print(f"  built {len(logs)} kernel libraries in {build_s:.2f} s")
 
     results = {"device": card_line, "build_s": build_s}
-    run = set(range(3, 14)) if not args.phases else \
+    run = set(range(3, 15)) if not args.phases else \
         {int(x) for x in args.phases.split(",")}
 
     def phase(n, title):
@@ -4283,6 +4454,8 @@ def main() -> None:
             results["whisper"] = whisper_world_one(torch, ops, dev,
                                                    card_line)
             torch.cuda.empty_cache()
+        if phase(14, "the dry run on fake tensors over a fake grid"):
+            results["dryrun"] = dryrun_world_one(torch, ops, dev, card_line)
     except CheckFailed as e:
         fail(str(e))
 
@@ -4291,13 +4464,13 @@ def main() -> None:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    if run != set(range(3, 14)):
+    if run != set(range(3, 15)):
         print(f"phases {sorted(run)} passed (script wall "
               f"{time.perf_counter() - T_START:.1f} s); the kernel table "
               f"and the result line come with every phase")
         return
     table = _kernel_table(results)
-    print(f"== 14. kernels (script wall so far "
+    print(f"== 15. kernels (script wall so far "
           f"{time.perf_counter() - T_START:.1f} s)")
     print(f"kernels: {json.dumps(list(results['kernels']))}")
     print(json.dumps({"kernels": table}))

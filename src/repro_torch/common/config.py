@@ -1,5 +1,6 @@
 """Configuration schema of the PyTorch port: its own copy of the JAX
-package's ``MoEConfig``, ``SSMConfig``, ``ModelConfig``, ``TrainConfig`` and
+package's ``MoEConfig``, ``SSMConfig``, ``ModelConfig``, ``ShapeConfig``
+(and ``INPUT_SHAPES``), ``MeshConfig``, ``TrainConfig`` and
 ``HardwareConfig``, field for field, so that one configuration describes
 the same model and the same training run in both packages.  The port's
 hardware model is the card it runs on (``H100``), not the JAX package's.
@@ -243,6 +244,48 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                           # "train" | "prefill" | "decode"
+
+
+# The dry run's input shapes (``launch.dryrun``), the JAX package's.
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a != "model")
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axes.index("model")]
+
+    @property
+    def batch_size(self) -> int:
+        return self.num_devices // self.model_size
 
 
 @dataclass(frozen=True)

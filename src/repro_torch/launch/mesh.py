@@ -23,8 +23,9 @@ constant: importing this module touches no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -119,6 +120,44 @@ def destroy_grid(grid: ProcessGrid) -> None:
         if g is not None and all(g is not d for d in done):
             dist.destroy_process_group(g)
             done.append(g)
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[int, int]:
+    """The (data, model) shape of the JAX package's production mesh on the
+    port's two-axis grid: 16 x 16 (256 ranks), or 32 x 16 (512) for two
+    pods.  The reference's ``batch`` and ``expert_ff`` rules map the
+    ("pod", "data") pair onto the batch and the chunk columns
+    (``repro/core/moe.py``), so its pod axis folds into ``data`` here."""
+    return (32, 16) if multi_pod else (16, 16)
+
+
+def make_production_grid(*, multi_pod: bool = False) -> ProcessGrid:
+    """The production grid (``production_shape``) over an initialized
+    default group of its size, the counterpart of the JAX package's
+    ``make_production_mesh``.  Collective: every rank calls it."""
+    return make_grid(*production_shape(multi_pod))
+
+
+@contextlib.contextmanager
+def fake_grid(data: int, model: int, rank: int = 0):
+    """Open a FAKE default process group of ``data * model`` ranks as
+    ``rank`` and yield its grid; destroy the group on exit.  Every
+    collective on it returns at once and moves nothing, so one process can
+    run a rank's step of a grid it does not have (``launch.dryrun``).  The
+    backend comes from ``torch.testing._internal.distributed.fake_pg``, a
+    private module of PyTorch (a test pins that it is there).  Refuses to
+    run beside an existing default group."""
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_grid needs no default process group: one "
+                           "is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=data * model)
+    try:
+        yield make_grid(data, model)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_debug_mesh(data: int = 2, model: int = 4) -> ProcessGrid:

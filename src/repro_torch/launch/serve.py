@@ -16,7 +16,8 @@ device and no GPU the launcher fails.  ``--checkpoint-dir DIR`` serves
 the parameters of the newest intact checkpoint in DIR (the training
 loop's or the JAX package's) with the serving state saved beside that
 step: its plan tables, and its version, at which the engine starts
-(``restore_for_serving``).
+(``restore_for_serving``); ``--no-serve-state`` ignores that state and
+serves the restored parameters with a fresh plan at version 0.
 """
 from __future__ import annotations
 
@@ -28,14 +29,17 @@ def _encode(prompt: str, vocab: int):
     return np.frombuffer(prompt.encode(), np.uint8).astype(np.int32) % vocab
 
 
-def restore_for_serving(cfg, checkpoint_dir: str, device, params=None):
+def restore_for_serving(cfg, checkpoint_dir: str, device, params=None,
+                        serve_state: bool = True):
     """(params, plan tables or None, version, step) from the newest intact
     checkpoint in ``checkpoint_dir``, as the JAX launcher restores them:
     the parameters go straight onto ``device``; the serving state must be
     the one of the same step (plan tables of another step describe
     another row ownership), and one from an EP > 1 run keeps only its
-    version, since a single device decodes with a local plan.  With no
-    checkpoint: ``params`` as given, no tables, version 0, step None."""
+    version, since a single device decodes with a local plan.  Without
+    ``serve_state`` the persisted (plan, version) is ignored: no tables,
+    version 0.  With no checkpoint: ``params`` as given, no tables,
+    version 0, step None."""
     from repro_torch.checkpoint import store
     from repro_torch.core import moe as moe_core
     from repro_torch.train.trainer import state_spec
@@ -47,7 +51,7 @@ def restore_for_serving(cfg, checkpoint_dir: str, device, params=None):
         params = store.restore(checkpoint_dir, step, target, device=device,
                                checked=True)["params"]
         print(f"restored checkpoint step {step}")
-    if step is not None:
+    if step is not None and serve_state:
         ss = store.restore_serving_state(checkpoint_dir, step=step)
         if ss is None and store.latest_serving_step(checkpoint_dir) \
                 is not None:
@@ -90,6 +94,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--no-serve-state", action="store_true",
+                    help="ignore persisted (plan, version) serving state")
     ap.add_argument("--prompt", action="append", default=None)
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the paged-KV continuous-batching "
@@ -121,7 +127,8 @@ def main(argv=None):
     params, pa, version = None, None, 0
     if args.checkpoint_dir:
         params, pa, version, _ = restore_for_serving(
-            cfg, args.checkpoint_dir, device)
+            cfg, args.checkpoint_dir, device,
+            serve_state=not args.no_serve_state)
     if params is None:
         params = mdl.init_params(cfg, args.seed, device)
     if cfg.moe.enabled and pa is None:

@@ -139,11 +139,10 @@ def _train(args, grid):
 
     import repro_torch.configs as configs
     from repro_torch.common.config import TrainConfig
-    from repro_torch.core.moe import MoERuntime
     from repro_torch.core.schedule import ReshardingPolicy
     from repro_torch.data.pipeline import (EmbedStubStream,
                                            EncoderStubStream, make_stream)
-    from repro_torch.models import model as mdl
+    from repro_torch.launch.inputs import make_runtime
     from repro_torch.train.supervisor import TrainSupervisor
     from repro_torch.train.trainer import (HecateScheduler, save_train_state,
                                            train_loop)
@@ -160,11 +159,9 @@ def _train(args, grid):
     elif cap and args.seq_len > cap:
         raise SystemExit(f"--seq-len {args.seq_len}: {cfg.name}'s decoder "
                          f"is capped at {cap} tokens")
-    impl = {"ep": "none"}.get(args.impl, args.impl)
 
     def runtime(g):
-        return mdl.Runtime(use_pallas=False, moe=MoERuntime(
-            use_pallas=True, grid=g, impl=impl))
+        return make_runtime(cfg, g, impl=args.impl)
     rt = runtime(grid)
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1), seed=args.seed,

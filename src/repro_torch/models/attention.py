@@ -4,8 +4,9 @@ and the block-paged KV caches.
 The plain path is einsum-based; the flash-attention kernel takes over the
 prefill when ``use_pallas`` is set (the JAX package's name for "use the
 hand-written kernels"), and the paged decode-attention kernel does the
-paged decode reduction.  The dense decode path is plain PyTorch, as it is
-plain XLA in the JAX package.  Layouts are the JAX package's: (B, S, N, H)
+paged decode reduction unless ``cfg.paged_attn_kernel`` is off.  The
+dense decode path is plain PyTorch, as it is plain XLA in the JAX
+package.  Layouts are the JAX package's: (B, S, N, H)
 activations, a (B, max_len, nkv, hd) dense cache, a flat
 (num_rows, nkv, hd) paged pool.
 """
@@ -181,7 +182,7 @@ def init_paged_kv_cache(cfg: ModelConfig, num_rows: int, dtype, device):
 
 
 def decode_attention_paged(p, cfg: ModelConfig, x, cache, positions,
-                           row_idx, *, kind="attn", page_size: int):
+                           row_idx, *, kind="attn", page_size=None):
     """One-token decode for B sequences at independent positions against a
     block-paged KV pool.
 
@@ -191,10 +192,13 @@ def decode_attention_paged(p, cfg: ModelConfig, x, cache, positions,
     ``cache`` (the pool tensors are updated, not copied).  Idle slots
     parked on the trash page all write row 0; which of them wins is
     undefined on CUDA and harmless, since no live sequence reads row 0.
-    The reduction runs in the paged decode kernel (its plain version for
-    CPU tensors, see ``kernels/ops.py``); the JAX package's separate gather
-    path behind ``cfg.paged_attn_kernel=False`` computes the same function
-    and is not ported.  Returns (out, cache)."""
+    With ``page_size`` set and ``cfg.paged_attn_kernel`` (the default) the
+    reduction runs in the paged decode kernel (its plain version for CPU
+    tensors, see ``kernels/ops.py``).  Without ``page_size``, or with the
+    config flag off, the gather path of the JAX package runs: ``k[row_idx]``,
+    ``v[row_idx]`` and the dense path's ``_sdpa`` over the ``t <=
+    positions[b]`` mask (windowed for ``kind="local"``), bit-exact with a
+    dense-cache trace of the same sequence.  Returns (out, cache)."""
     q, k_new, v_new = _project_qkv(p, x)
     posb = _decode_positions(cfg, positions[:, None])   # (B, 1[, 3])
     q = _rope(cfg, q, posb)
@@ -204,9 +208,20 @@ def decode_attention_paged(p, cfg: ModelConfig, x, cache, positions,
     cache["k"][write_rows] = k_new[:, 0]            # in place
     cache["v"][write_rows] = v_new[:, 0]
     window = cfg.sliding_window if kind == "local" else 0
-    out = kops.paged_decode_attention(
-        q[:, 0], cache["k"], cache["v"], row_idx, positions,
-        page_size=page_size, window=window,
-        softcap=cfg.attn_logit_softcap)[:, None]
+    if page_size is not None and cfg.paged_attn_kernel:
+        out = kops.paged_decode_attention(
+            q[:, 0], cache["k"], cache["v"], row_idx, positions,
+            page_size=page_size, window=window,
+            softcap=cfg.attn_logit_softcap)[:, None]
+    else:
+        rows = row_idx.long()
+        kb, vb = cache["k"][rows], cache["v"][rows]  # (B, max_kv, nkv, hd)
+        kpos = torch.arange(rows.shape[1], device=x.device)
+        at = positions.long()[:, None]
+        valid = kpos[None, :] <= at
+        if window > 0:
+            valid &= kpos[None, :] > at - window
+        out = _sdpa(q, kb, vb, valid[:, None, None, :],
+                    cfg.attn_logit_softcap, cfg.head_dim)
     out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
     return out, cache

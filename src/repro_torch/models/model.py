@@ -570,7 +570,9 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
     Python int.  With ``row_idx`` (B, max_kv) int32 per-token pool rows
     the cache is the block-paged one (``init_paged_cache``), ``pos`` a (B,)
     int32 tensor of per-sequence write positions, and ``page_size`` the
-    pool's page size (the paged decode kernel reads one page per step).
+    pool's page size (the paged decode kernel reads one page per step;
+    None, or ``cfg.paged_attn_kernel=False``, gathers the rows instead:
+    ``attention.decode_attention_paged``).
     premat: optional (L_moe, 1, K, chunk_len) compute slots
     (``moe.materialize_chunks``).  A mamba sublayer advances its dense
     state of each of the B sequences (in paged mode, of each scheduler
@@ -581,9 +583,6 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
     if row_idx is not None and cfg.is_encoder_decoder:
         raise ValueError("paged decode does not support encoder-decoder "
                          "models")
-    if row_idx is not None and page_size is None:
-        raise NotImplementedError("the paged path's gather fallback is not "
-                                  "ported to repro_torch; pass page_size")
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
     x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)

@@ -424,3 +424,24 @@ def test_resume_falls_back_past_old_format_checkpoint(dense, tmp_path):
         assert got is None and start == 0
         _, hist = _run(cfg, tc2, 2)
     assert hist[0]["step"] == 0 and hist[0]["resumes"] == 0
+
+
+def test_faults_registry_windows_and_zero_overhead():
+    """``tests/test_fault_tolerance.py``'s registry law for the port's
+    ``common.faults``: disarmed sites pass their payload through, an armed
+    window fires on its hits only, and clearing disarms."""
+    faults.clear()
+    assert not faults.armed()
+    assert faults.fire("nope", {"x": 1}) == {"x": 1}
+    faults.inject("site", after=2, times=2)
+    hits = []
+    for _ in range(5):
+        try:
+            faults.fire("site")
+            hits.append(0)
+        except faults.FaultError:
+            hits.append(1)
+    assert hits == [0, 0, 1, 1, 0]          # fires on hits 3 and 4 only
+    assert faults.fired("site") == 2
+    faults.clear("site")
+    assert not faults.armed()

@@ -35,6 +35,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "jamba_v0p1_52b", "qwen2_vl_72b", "whisper_medium"):
         assert f"repro_torch.configs.{arch}" in mods, arch
     assert "repro_torch.models.mamba2" in mods
+    for m in ("repro_torch.launch.inputs", "repro_torch.launch.dryrun"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -75,3 +77,27 @@ def test_distributed_modules_import_without_jax_or_repro():
                            capture_output=True, text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-3000:]
         assert "BAD []" in r.stdout, (mod, r.stdout)
+
+
+def test_dry_run_and_examples_import_without_jax_or_repro():
+    """The dry run's modules, each alone in a fresh interpreter, and every
+    ``examples/*_torch.py`` script (run as a module, not as the main one)
+    load no ``jax*`` and no ``repro.*`` module."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    examples = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert {p.name for p in examples} == {
+        f"{n}_torch.py" for n in ("quickstart", "train_moe_e2e",
+                                  "serve_decode", "train_and_serve",
+                                  "imbalance_demo")}
+    loads = [f"importlib.import_module({m!r})" for m in
+             ("repro_torch.launch.inputs", "repro_torch.launch.dryrun")]
+    loads += [f"runpy.run_path({str(p)!r}, run_name='example')"
+              for p in examples]
+    for load in loads:
+        code = (f"import importlib, runpy, sys\n{load}\n"
+                "print('BAD', sorted(m for m in sys.modules if m.split('.')"
+                "[0] in ('jax', 'jaxlib', 'repro')))\n")
+        r = subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        assert "BAD []" in r.stdout, (load, r.stdout)

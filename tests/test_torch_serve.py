@@ -106,3 +106,43 @@ def test_launcher_refuses_unported_modes(tmp_path):
             env=env, capture_output=True, text=True, timeout=300)
         assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
         assert want in r.stdout, r.stdout
+
+
+def test_launcher_no_serve_state_serves_a_fresh_plan_at_version_0(tmp_path):
+    """``--no-serve-state``, the JAX launcher's flag: the newest intact
+    checkpoint's parameters are served, the (plan, version) saved beside
+    them is ignored, and the engine starts at version 0 with a fresh
+    plan."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    ckpt = str(tmp_path / "ckpt")
+    launch_train.main(["--arch", "gpt-moe-s", "--smoke", "--device", "cpu",
+                       "--steps", "2", "--seq-len", "16", "--data", "bytes",
+                       "--checkpoint-dir", ckpt, "--checkpoint-every", "2"])
+    cfg = configs.get_smoke("gpt-moe-s")
+    params, pa, version, step = launch_serve.restore_for_serving(
+        cfg, ckpt, "cpu", serve_state=False)
+    assert (step, pa, version) == (2, None, 0)
+    kept, pa_kept, version_kept, _ = launch_serve.restore_for_serving(
+        cfg, ckpt, "cpu")
+    assert pa_kept is not None and version_kept == 2
+    for a, b in zip(_flat(params), _flat(kept)):
+        assert torch.equal(a, b)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gpt-moe-s", "--smoke", "--device", "cpu", "--steps", "4",
+         "--max-len", "32", "--checkpoint-dir", ckpt, "--no-serve-state"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "restored checkpoint step 2" in r.stdout, r.stdout
+    assert "restored serving state" not in r.stdout, r.stdout
+    assert "fixed batch: " in r.stdout, r.stdout
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k])
+    else:
+        yield tree

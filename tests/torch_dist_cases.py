@@ -1211,3 +1211,53 @@ def elastic_publish_rank(grid, workdir: str):
         out["fresh"] = fresh.generate(prompts, steps=3)
     eng.close()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run's volume law: tests/test_collective_volume.py's configuration
+# (olmoe's smoke experts in f32, EP 4 on a 2 x 4 grid, 64 tokens, capacity
+# 8, m = 2), the MoE layer's forward through the ring, a2a and ep plans
+# ---------------------------------------------------------------------------
+VOLUME_EP, VOLUME_T, VOLUME_CAP, VOLUME_M = 4, 64, 8, 2
+
+
+def volume_inputs(cfg=OLMOE):
+    """(plans, router, tokens, full buffer) of the volume law, numpy."""
+    L, E = M.num_moe_layers(cfg), cfg.moe.num_experts
+    loads = np.linspace(2, 1, E)[None].repeat(L, 0)
+    sh = homogeneous_sharding(L, E, VOLUME_EP)
+    plans = {impl: sparse_materialization(sh, loads, t=E, m=VOLUME_M,
+                                          impl=impl)
+             for impl in ("ring", "a2a")}
+    plans["ep"] = ep_materialization(sh)
+    rng = np.random.default_rng(0)
+    wr = (rng.standard_normal((cfg.d_model, E)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((VOLUME_T, cfg.d_model)).astype(np.float32)
+    buf = rng.standard_normal((M.buffer_rows(cfg, VOLUME_EP),
+                               M.chunk_len(cfg))).astype(np.float32)
+    return plans, wr, x, buf
+
+
+def volume_layer(grid, plan, x, wr, buf_shard, cfg=OLMOE):
+    """The forward of MoE layer 0 on this rank's rows of ``x`` (tensors,
+    real or fake; ``buf_shard`` this rank's shard of the buffer)."""
+    pa = M.plan_to_arrays(plan, "cpu").layer(0)
+    rt = M.MoERuntime(grid=grid, impl=plan.impl, capacity=VOLUME_CAP,
+                      use_pallas=False)
+    n = x.shape[0] // grid.size
+    with torch.no_grad():
+        return M.moe_layer(cfg, rt, x[grid.rank * n:(grid.rank + 1) * n],
+                           wr, buf_shard, pa)
+
+
+def volume_rank(grid):
+    """Each plan's collective record of the layer's forward."""
+    plans, wr, x, buf = volume_inputs()
+    shard = M.shard_buffer(torch.from_numpy(buf), grid)
+    out = {}
+    for tag, plan in plans.items():
+        M.reset_collective_counts()
+        volume_layer(grid, plan, torch.from_numpy(x), torch.from_numpy(wr),
+                     shard)
+        out[tag] = M.collective_counts()
+    return out
