@@ -174,9 +174,19 @@ JAX).  In order it:
    loop at 4 + 4 layers, which must take every step;
 14. runs the dry run (``launch/dryrun.py``, which never touches the card):
    ``python -m repro_torch.launch.dryrun --arch NAME --shape train_4k
-   --mesh single`` for every config (one process each, in parallel on the
-   spare cores, while the rest of the phase runs), each of which must exit
-   0 with an ``ok`` record, printed as one line a config; in this process
+   --mesh single`` for every config but ``DRYRUN_CPU_ONLY`` under the
+   reference's ``tp`` layout, the default (one process each, in parallel
+   on the spare cores, while
+   the rest of the phase runs), beside ``prefill_32k`` and ``decode_32k``
+   of gpt-moe-s and qwen1.5-110b and three train_4k records under
+   ``zero`` (``DRYRUN_SERVE``, ``DRYRUN_ZERO``), each of which must exit
+   0 with an ``ok`` record, a train_4k one with a peak under 80 GB,
+   printed as one line a record; one rank of the 16 x 16 ``tp``
+   deployment on real tensors on the card (``_one_rank_on_the_card``:
+   qwen1.5-110b's prefill_32k, which launches B4, and olmoe-1b-7b's
+   train_4k, B1-B3, the fake group standing in for the other 255 ranks,
+   so nothing is held numerically), its peak against the dry run's; in
+   this process
    phase 7's step (gpt-moe-s, batch 8 x 2,048, ring plan, FSSDP layer at
    world size 1) dry-run on a fake 1 x 1 grid, which must allocate no
    device memory and launch no kernel, and whose argument bytes must
@@ -199,6 +209,7 @@ and no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -2877,9 +2888,97 @@ def _decode_after_prefill(torch, cfg, dev, run_p, run_s, snap, prompt,
           f"max |dlogit| {max(errs):.3e} (max |logit| {scale:.3f}; "
           f"tolerance 1e-3 x max |logit|)")
     if max(errs) > 1e-3 * scale:
+        _diagnose_decode_after_prefill(torch, cfg, dev, run_p, run_s, snap,
+                                       toks, k0, errs, scale, name)
         raise CheckFailed(f"{name}: decode after prefill disagrees with "
                           f"the full forward")
     return max(errs)
+
+
+@contextlib.contextmanager
+def _recorded(module, attr, log, keep):
+    """``module.attr`` wrapped for the block: each call appends
+    ``keep(args, result)`` to ``log``."""
+    fn = getattr(module, attr)
+
+    def wrapper(*a, **kw):
+        out = fn(*a, **kw)
+        log.append(keep(a, out))
+        return out
+    setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
+def _diagnose_decode_after_prefill(torch, cfg, dev, run_p, run_s, snap,
+                                   toks, k0, errs, scale, name):
+    """C18's diagnosis, printed when the check fails: each decode step's
+    |dlogit|; at the worst step, the first norm whose input (the residual
+    stream entering a sublayer) parts from the full forward's at that
+    position by more than 1e-3 of its largest entry; and each MoE layer's
+    top-2 routes of that token and its dropped count in both runs."""
+    from repro_torch.core import moe as moe_core
+    from repro_torch.models import layers as ly
+    from repro_torch.models import model as mdl
+    params, pa, premat = snap
+    n = toks.shape[1]
+    worst = k0 + max(range(len(errs)), key=errs.__getitem__)
+    print(f"  C18 diagnosis, {name}: |dlogit| per decode step "
+          + ", ".join(f"pos {k0 + j}: {e:.3e}" for j, e in enumerate(errs))
+          + f" (tolerance {1e-3 * scale:.3e}); the worst is pos {worst}")
+    where = {}
+    for j in range(len(cfg.layer_pattern)):
+        for ln in ("ln1", "lnx", "ln2"):
+            sc = params["blocks"][f"l{j}"].get(ln, {}).get("scale")
+            for sb in range(cfg.num_superblocks) if sc is not None else ():
+                where[sc[sb].data_ptr()] = f"superblock {sb} l{j} {ln}"
+    where[params["final_norm"]["scale"].data_ptr()] = "final_norm"
+
+    def runs(row, tok):
+        norms, gates, drops = [], [], []
+        keep_norm = (lambda a, out: (where.get(a[0]["scale"].data_ptr(),
+                                               "?"),
+                                     a[1][row].detach().float().clone()))
+        keep_gate = (lambda a, out: out[0][tok, :2].tolist())
+        keep_drop = (lambda a, out: float(out[1].dropped_frac)
+                     * a[2].shape[0] * cfg.moe.experts_per_token)
+        return norms, gates, drops, (
+            _recorded(ly, "apply_norm", norms, keep_norm),
+            _recorded(moe_core, "gate", gates, keep_gate),
+            _recorded(moe_core, "moe_layer", drops, keep_drop))
+    f_norm, f_gate, f_drop, rec = runs((0, worst), worst)
+    with torch.inference_mode(), rec[0], rec[1], rec[2]:
+        mdl.forward(cfg, mdl.Runtime(), params, toks, pa=pa, premat=premat)
+    _, ck = run_p(params, {"tokens": toks[:, :k0]}, pa, premat)
+    cache, ri = _paged_cache_of(torch, cfg, dev, ck, k0)
+    d_norm, d_gate, d_drop, rec = runs((0, 0), 0)
+    for i in range(k0, worst + 1):
+        tk = torch.zeros((MAX_SLOTS, 1), dtype=torch.int32, device=dev)
+        tk[0, 0] = toks[0, i]
+        pos = torch.tensor([i, 0, 0, 0], dtype=torch.int32, device=dev)
+        if i < worst:
+            _, cache = run_s(params, cache, tk, pos, ri, pa, premat)
+            continue
+        with rec[0], rec[1], rec[2]:
+            run_s(params, cache, tk, pos, ri, pa, premat)
+    first = None
+    for (lab, a), (_, b) in zip(f_norm, d_norm):
+        d = float((a - b).abs().max())
+        if d > 1e-3 * float(a.abs().max()) and first is None:
+            first = (lab, d, float(a.abs().max()))
+    print(f"  C18 diagnosis, {name}: the first norm input that parts from "
+          f"the full forward's at pos {worst}: "
+          + ("none" if first is None else
+             f"{first[0]} (|d| {first[1]:.3e} of max {first[2]:.3e})")
+          + f"; {len(f_norm)} norms in the forward, {len(d_norm)} in the "
+          f"decode")
+    for li, (ga, gb, da, db) in enumerate(zip(f_gate, d_gate, f_drop,
+                                              d_drop)):
+        print(f"  C18 diagnosis, {name}: MoE layer {li}: top-2 routes of "
+              f"pos {worst} forward {ga} decode {gb}; dropped entries "
+              f"forward {da:.0f} decode {db:.0f}")
 
 
 def _embeds_prefill(torch, ops, cfg, dev, snap, S, name):
@@ -4154,52 +4253,191 @@ def whisper_world_one(torch, ops, dev, card):
 # ---------------------------------------------------------------------------
 # phase 14: the dry run
 # ---------------------------------------------------------------------------
+# phase 14's records beside every config's train_4k under tp: the serving
+# shapes that no grid of whole rows could run, and three configs under the
+# reference's zero mode (the CLI has no perf_opts flag, as the reference's
+# has none: these run dryrun_combo from ``python -c``)
+DRYRUN_SERVE = (("qwen1p5_110b", "prefill_32k"), ("qwen1p5_110b",
+                                                  "decode_32k"),
+                ("gpt_moe_s", "prefill_32k"), ("gpt_moe_s", "decode_32k"))
+DRYRUN_ZERO = ("qwen1p5_110b", "jamba_v0p1_52b", "olmoe_1b_7b")
+# train_4k records left to the CPU dry run (``--all``): after qwen1.5's,
+# the batch's longest (224.0 and 186.6 s with start-up on the card's host
+# in PR 28), whose work kept the whole script over 1,000 s; qwen2-vl's
+# layers are qwen1.5's, mamba2's are jamba's Mamba layers
+DRYRUN_CPU_ONLY = ("qwen2_vl_72b", "mamba2_1p3b")
+_ZERO_CALL = ("import json, sys; from repro_torch.launch import dryrun; "
+              "json.dump(dryrun.dryrun_combo(sys.argv[1], 'train_4k', "
+              "perf_opts={'sharding_mode': 'zero'}), open(sys.argv[2], 'w'))")
+
+
 def _dryrun_batch(out_dir):
-    """Start ``python -m repro_torch.launch.dryrun`` at train_4k on the 16 x
-    16 grid for every config, the longest first, one process per config
-    and at most one per spare core, each on one intra-op thread; returns a
-    function that waits for them all and gives (config, exit code,
-    record, seconds) of each."""
+    """Start phase 14's dry runs on the 16 x 16 grid, the longest first,
+    one process per record and at most one per spare core, each on one
+    intra-op thread: ``python -m repro_torch.launch.dryrun`` at train_4k
+    for every config but ``DRYRUN_CPU_ONLY`` and at ``DRYRUN_SERVE``, and
+    ``DRYRUN_ZERO`` under ``zero``.  Returns a function that waits for
+    them all and gives (config, shape, layout, exit code, record,
+    seconds) of each."""
     from concurrent.futures import ThreadPoolExecutor
 
     import repro_torch.configs as configs
-    first = ("qwen1p5_110b", "qwen2_vl_72b", "jamba_v0p1_52b",
-             "mamba2_1p3b", "granite_moe_3b_a800m", "gemma2_9b",
-             "whisper_medium", "minitron_8b")
+    first = ("qwen1p5_110b", "jamba_v0p1_52b", "gemma2_9b", "minitron_8b",
+             "granite_moe_3b_a800m", "whisper_medium")
     archs = list(first) + [a for a in configs.PAPER + configs.ASSIGNED
-                           if a not in first]
+                           if a not in first + DRYRUN_CPU_ONLY]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
+    jobs = [(a, "train_4k", "tp") for a in archs[:2]]
+    jobs += [(a, sh, "tp") for a, sh in DRYRUN_SERVE[:1]]
+    jobs += [(a, "train_4k", "tp") for a in archs[2:]]
+    jobs += [(a, sh, "tp") for a, sh in DRYRUN_SERVE[1:]]
+    jobs += [(a, "train_4k", "zero") for a in DRYRUN_ZERO]
 
-    def one(arch):
+    def one(job):
+        arch, shape, layout = job
         t = time.perf_counter()
-        with open(os.path.join(out_dir, f"{arch}.log"), "w") as log:
+        tag = f"{arch}_{shape}_{layout}"
+        path = os.path.join(out_dir, f"{arch}_{shape}_single_ring.json")
+        if layout == "zero":
+            path = os.path.join(out_dir, f"{tag}.json")
+            argv = ["-c", _ZERO_CALL, arch, path]
+        else:
+            argv = ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", shape, "--mesh", "single", "--out", out_dir]
+        with open(os.path.join(out_dir, f"{tag}.log"), "w") as log:
             rc = subprocess.run(
-                [sys.executable, "-W", "ignore::FutureWarning", "-m",
-                 "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                 "train_4k", "--mesh", "single", "--out", out_dir],
+                [sys.executable, "-W", "ignore::FutureWarning"] + argv,
                 env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
-                timeout=600).returncode
-        path = os.path.join(out_dir, f"{arch}_train_4k_single_ring.json")
+                timeout=900).returncode
         rec = json.load(open(path)) if os.path.exists(path) else {}
-        return arch, rc, rec, time.perf_counter() - t
+        return arch, shape, layout, rc, rec, time.perf_counter() - t
 
     pool = ThreadPoolExecutor(max_workers=max(1, (os.cpu_count() or 2) - 1))
-    futures = [pool.submit(one, a) for a in archs]
+    futures = [pool.submit(one, j) for j in jobs]
     pool.shutdown(wait=False)
     return lambda: [f.result() for f in futures]
 
 
+def _realize(torch, tree, dev, gen):
+    """Real tensors on the card in the shapes and dtypes of a tree of the
+    dry run's fake ones: floating ones drawn from N(0, 0.02²), the others
+    zero (dicts, lists and named tuples kept)."""
+    if isinstance(tree, dict):
+        return {k: _realize(torch, v, dev, gen) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_realize(torch, v, dev, gen) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_realize(torch, v, dev, gen) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if tree.is_floating_point():
+        return (torch.randn(tree.shape, generator=gen, device=dev)
+                .mul_(0.02).to(tree.dtype))
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+
+
+def _one_rank_on_the_card(torch, ops, dev, arch, shape_name, expect):
+    """Rank 0 of the 16 x 16 ``tp`` deployment of ``arch`` at
+    ``shape_name`` on real tensors on the card: the fake process group of
+    the dry run stands in for the other 255 ranks (its collectives move no
+    data, so nothing here is held numerically), the inputs are the dry
+    run's fake arguments made real (``_realize``: the rank's shard
+    shapes, the dry run's dtypes; tokens drawn from the vocabulary; the
+    real ring plan), and the step is the one a user would build, with the
+    kernels on (the flash forward at prefill).  Fails unless every kernel
+    of ``expect`` launched, every output lies on the card, and no kernel
+    ran its plain version (``reference_mode`` off).  Returns the launches,
+    the step's seconds and the card's peak."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.configs as configs
+    from repro_torch.common.config import INPUT_SHAPES, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch.mesh import fake_grid
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import build_prefill_step
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get(arch)
+    shape = INPUT_SHAPES[shape_name]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with fake_grid(16, 16) as g:
+        lay = inp.make_layout(cfg, shape, g, "tp")
+        _, fake = dryrun._step_and_args(
+            cfg, shape, g, "ring", FakeTensorMode(allow_non_fake_inputs=True))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        pa = (inp.concrete_plan(cfg, g.model, "ring", device=dev)
+              if cfg.moe.enabled else None)
+        batch = _realize(torch, fake[1], dev, gen)
+        for k in ("tokens", "labels"):
+            if k in batch:
+                batch[k] = torch.randint(0, cfg.vocab_size, batch[k].shape,
+                                         generator=gen, device=dev,
+                                         dtype=batch[k].dtype)
+        if shape.mode == "train":
+            params = _realize(torch, fake[0].params, dev, gen)
+            first = step_lib.TrainState(
+                params, adamw.init(params),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            rt = inp.make_runtime(cfg, g, impl="ring", layout=lay)
+            step = step_lib.build_train_step(cfg, rt, TrainConfig(
+                microbatch=dryrun.default_microbatches(cfg, shape, g, lay)),
+                causal=not cfg.name.startswith("bert"))
+        else:
+            first = _realize(torch, fake[0], dev, gen)
+            rt = inp.make_runtime(cfg, g, impl="ring", layout=lay,
+                                  use_pallas=True)
+            step = build_prefill_step(cfg, rt)
+        del fake
+        args_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        ops.reset_launch_counts()             # the rank's step starts
+        t = time.perf_counter()
+        out = step(first, batch, pa)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = ops.launch_counts()        # ... and ends
+        peak = torch.cuda.max_memory_allocated() - before
+        off = [tuple(x.shape) for x in dryrun._tensors(out)
+               if x.device.type != "cuda"]
+        del out, first, batch, pa
+    torch.cuda.empty_cache()
+    if off:
+        raise CheckFailed(f"{arch} {shape_name} on the card: outputs on the "
+                          f"CPU {off}")
+    missing = [k for k in expect if not launches.get(k)]
+    if missing:
+        raise CheckFailed(f"{arch} {shape_name} on the card: {missing} not "
+                          f"launched ({launches})")
+    return {"launches": launches, "seconds": secs, "peak_bytes": peak,
+            "args_gb": args_gb}
+
+
+# one rank of the 16 x 16 tp deployment on real tensors: (config, shape,
+# the kernels its step must launch)
+REAL_RANK = (("qwen1p5_110b", "prefill_32k", ("flash_attention_fwd",)),
+             ("olmoe_1b_7b", "train_4k", ("grouped_mlp_fwd_train",
+                                          "grouped_mlp_dgrad",
+                                          "grouped_mlp_wgrad")))
+
+
 def dryrun_world_one(torch, ops, dev, card):
-    """Phase 14: the dry run (``launch/dryrun.py``).  Every config's
-    train_4k record on the fake 16 x 16 grid from the command line (the
-    CLI run of gpt-moe-s among them), then, in this process, phase 7's
-    step (gpt-moe-s, bf16, 8 x 2,048, ring plan, FSSDP layer at world size
-    1) dry-run on a fake 1 x 1 grid: it must allocate nothing on the card
-    and launch no kernel, and its argument bytes must equal the real
-    step's state, batch and plan tables, which the step then takes on the
-    card over NCCL: its peak against the dry run's, and the model FLOPs'
-    share of the card's bf16 peak."""
+    """Phase 14: the dry run (``launch/dryrun.py``).  The train_4k record
+    of every config but ``DRYRUN_CPU_ONLY`` on the fake 16 x 16 grid under
+    ``tp`` from the command line, with ``DRYRUN_SERVE`` and
+    ``DRYRUN_ZERO`` (``_dryrun_batch``); in this process phase 7's step
+    (gpt-moe-s, bf16, 8 x 2,048, ring plan, FSSDP layer at world size 1)
+    dry-run on a fake 1 x 1 grid: it must allocate nothing on the card and
+    launch no kernel, and its argument bytes must equal the real step's
+    state, batch and plan tables, which the step then takes on the card
+    over NCCL: its peak against the dry run's, and the model FLOPs' share
+    of the card's bf16 peak; then one rank of the deployment on real
+    tensors for each of ``REAL_RANK`` (``_one_rank_on_the_card``), its
+    peak against its record's."""
     import torch.distributed as dist
 
     import repro_torch.configs as configs
@@ -4282,31 +4520,58 @@ def dryrun_world_one(torch, ops, dev, card):
           f"FLOPs / (step x peak) = "
           f"{cost['flops'] / (step * H100.peak_flops_bf16):.4f}")
 
+    real = {}
+    for arch, shape_name, expect in REAL_RANK:
+        real[f"{arch}_{shape_name}"] = r = _one_rank_on_the_card(
+            torch, ops, dev, arch, shape_name, expect)
+        print(f"  one rank of the 16 x 16 tp deployment on the card "
+              f"({card}): {arch} {shape_name}, real tensors in the rank's "
+              f"shard shapes ({r['args_gb']:.2f} GB of arguments), the "
+              f"fake group standing in for the other 255 ranks (its "
+              f"collectives move no data: nothing held numerically); "
+              f"launches {r['launches']}; step {r['seconds']:.3f} s; peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB")
+
     t = time.perf_counter()
     done = wait()
-    bad = [(a, rc, r.get("status")) for a, rc, r, _ in done
+    bad = [(a, sh, lay, rc, r.get("status")) for a, sh, lay, rc, r, _ in done
            if rc != 0 or r.get("status") != "ok"]
     if bad:
-        raise CheckFailed(f"dry runs at train_4k on the 16 x 16 grid: {bad}")
-    print(f"  train_4k on the fake 16 x 16 grid, per rank (CLI runs, "
-          f"{len(done)} configs, waited {time.perf_counter() - t:.1f} s):")
+        raise CheckFailed(f"dry runs on the 16 x 16 grid: {bad}")
+    over = [(a, lay, r["memory"]["peak_estimate_per_device"])
+            for a, sh, lay, _, r, _ in done if sh == "train_4k"
+            and r["memory"]["peak_estimate_per_device"] >= 80e9]
+    if over:
+        raise CheckFailed(f"train_4k records at or above 80 GB a rank: "
+                          f"{over}")
+    print(f"  dry runs on the fake 16 x 16 grid, per rank ({len(done)} "
+          f"records, waited {time.perf_counter() - t:.1f} s):")
     rows = {}
-    for arch, _, r, secs in sorted(done):
+    for arch, sh, lay, _, r, secs in sorted(done):
         m, c, rf = r["memory"], r["cost"], r["roofline"]
         coll = " ".join(f"{k} {v / 1e9:.3f}"
                         for k, v in sorted(c["collective_bytes"].items()))
-        print(f"    {r['arch']}: peak {m['peak_estimate_per_device'] / 1e9:.2f}"
-              f" GB, model {r['memory_model']['total_bytes_est'] / 1e9:.2f} "
-              f"GB, {c['flops']:.4e} FLOPs, collective GB {coll}; compute "
+        print(f"    {r['arch']} {sh} {lay}: peak "
+              f"{m['peak_estimate_per_device'] / 1e9:.2f} GB, model "
+              f"{r['memory_model']['total_bytes_est'] / 1e9:.2f} GB, "
+              f"{c['flops']:.4e} FLOPs, collective GB {coll}; compute "
               f"{rf['compute_s'] * 1e3:.2f} ms, memory "
               f"{rf['memory_s'] * 1e3:.2f} ms, collective "
               f"{rf['collective_s'] * 1e3:.2f} ms ({rf['dominant']}); "
-              f"useful {rf['useful_flops_ratio']:.4f}; run "
+              f"useful {rf['useful_flops_ratio']:.4f}; microbatches "
+              f"{r['microbatches']} (ran {r['measured_microbatches']}); run "
               f"{r['run_s']:.2f} s ({secs:.1f} s with start-up)")
-        rows[arch] = r
+        rows[f"{arch}_{sh}_{lay}"] = r
+    for key, r in real.items():
+        dry = rows[f"{key}_tp"]["memory"]["peak_estimate_per_device"]
+        r["dryrun_peak_bytes"] = dry
+        print(f"  [{card}] {key}, one rank on the card: peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB (torch.cuda."
+              f"max_memory_allocated) against the dry run's {dry / 1e9:.2f} "
+              f"GB: ratio {r['peak_bytes'] / dry:.4f}")
     res = {"phase7_record": rec, "real_arg_bytes": arg_bytes,
-           "real_peak_bytes": peak, "step_s": step_s, "train_4k": rows,
-           "seconds": time.perf_counter() - t_phase}
+           "real_peak_bytes": peak, "step_s": step_s, "records": rows,
+           "one_rank": real, "seconds": time.perf_counter() - t_phase}
     print(f"  phase 14: {res['seconds']:.1f} s")
     return res
 

@@ -122,6 +122,48 @@ def params_from_jax(np_tree, device="cuda", dtype=None):
     return out
 
 
+def shard_tree(tree, layouts, sizes, coord):
+    """A rank's shard of a whole tree under a layout: every leaf's block
+    (a copy) at the rank's index ``coord`` on each grid axis, ``layouts``
+    a tree of the same keys whose leaves give, for each dimension, the
+    grid axes it is split over (``common.sharding.layout_of``).
+    ``params_from_jax`` followed by this is the weight bridge onto a
+    grid."""
+    from repro_torch.common.sharding import axes_index, axes_size
+    out = {}
+    for path, t in _leaves(tree):
+        node = layouts
+        for k in path:
+            node = node[k]
+        for i, axes in enumerate(node):
+            n = axes_size(axes, sizes)
+            if t.shape[i] % n:
+                raise ValueError(f"{'/'.join(path)}: dim {i} of "
+                                 f"{tuple(t.shape)} does not split over "
+                                 f"{axes}")
+            if n > 1:
+                t = t.chunk(n, i)[axes_index(axes, coord, sizes)]
+        _set(out, path, t.clone())
+    return out
+
+
+def gather_tree(tree, layouts, gather):
+    """The inverse of ``shard_tree``: every leaf gathered back whole.
+    ``gather(t, dim, axes)`` all-gathers a tensor along ``dim`` over the
+    grid axes ``axes`` (collective: every rank of the grid calls it for
+    the same leaves in the same order)."""
+    out = {}
+    for path, t in _leaves(tree):
+        node = layouts
+        for k in path:
+            node = node[k]
+        for i, axes in enumerate(node):
+            if axes:
+                t = gather(t, i, axes)
+        _set(out, path, t)
+    return out
+
+
 def params_to_numpy(tree):
     """The port's parameter tree -> nested dict of numpy arrays."""
     out = {}

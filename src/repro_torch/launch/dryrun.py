@@ -4,7 +4,10 @@ package's ``repro/launch/dryrun.py``.
 
 The reference lowers and compiles each combination for 256 or 512 host
 devices and reads XLA's memory and cost analyses.  The port has no
-compiler to ask: it runs its own step once (``build_train_step``,
+compiler to ask: it runs its own step once, under the reference's dense
+layout (``perf_opts`` ``sharding_mode``: ``tp`` by default, or ``zero``;
+``grad_constraint`` reduce-scatters the weight gradients;
+``models.model.make_layout``), (``build_train_step``,
 ``build_prefill_step`` or ``build_serve_step``) as rank 0 of a fake
 default group of the grid's size (``launch.mesh.fake_grid``), on tensors
 made under a ``FakeTensorMode`` (shapes and dtypes, nothing allocated, on
@@ -21,8 +24,9 @@ records, per rank:
   op that is not a view (before any fusion, XLA:CPU's notion of bytes
   accessed), and the wire bytes and op counts of every collective by the
   reference's HLO kind names, with its ring factors and each call's group
-  size; the port runs every layer eagerly, so nothing is extrapolated and
-  ``cost_raw`` equals ``cost``;
+  size; the port runs every layer eagerly, so only a training step of more
+  than 3 microbatches is extrapolated, from its first 2 and 3
+  (``run_fake_step``; ``cost_raw``: the 3's, else equal to ``cost``);
 * ``roofline``: the reference's three terms on the H100.
 
 Emits one JSON record per combination under ``experiments/dryrun_torch/``:
@@ -173,12 +177,17 @@ class StepAccount(TorchDispatchMode):
         return out
 
 
-def default_microbatches(cfg: ModelConfig, shape: ShapeConfig, grid) -> int:
+def default_microbatches(cfg: ModelConfig, shape: ShapeConfig, grid,
+                         layout=None) -> int:
     """Gradient-accumulation depth: bound the rematerialization-saved
     activation stack (one (B_loc, S, d_model) residual per layer) to ~4 GB
     per rank, while keeping >= 1 batch row per rank (the reference's rule
-    with the port's ``mesh_batch_size``)."""
-    mb = inp.mesh_batch_size(grid)
+    with the port's ``mesh_batch_size``: under ``tp`` the reference's
+    own)."""
+    return _microbatches(cfg, shape, inp.mesh_batch_size(grid, layout))
+
+
+def _microbatches(cfg: ModelConfig, shape: ShapeConfig, mb: int) -> int:
     cap = max(1, shape.global_batch // mb)
     saved = (cfg.num_layers * shape.global_batch * shape.seq_len
              * cfg.d_model * 2) / mb
@@ -192,16 +201,16 @@ def default_microbatches(cfg: ModelConfig, shape: ShapeConfig, grid) -> int:
 
 def analytic_memory(cfg: ModelConfig, shape: ShapeConfig, grid) -> Dict:
     """The reference's per-device HBM model, formula for formula, against
-    the H100's 80 GB.  It models the reference's fully sharded layout:
-    the port replicates its dense parameters on every rank, which the
-    measured ``memory`` of a record shows."""
+    the H100's 80 GB: every parameter fully sharded, the batch over every
+    axis but ``model`` (the reference's ``mesh_batch_size``), whatever the
+    record's layout."""
     n_dev = grid.size
-    mb = inp.mesh_batch_size(grid)
+    mb = grid.data
     n_params = cfg.param_count()
     if shape.mode == "train":
         # f32 master + mu + nu fully sharded + f32 grads + bf16 compute copy
         weights = n_params * (4 + 4 + 4 + 4 + 2) / n_dev
-        micro = default_microbatches(cfg, shape, grid)
+        micro = _microbatches(cfg, shape, mb)
         saved = (cfg.num_layers * shape.global_batch * shape.seq_len
                  * cfg.d_model * 2) / mb / micro
         work = 2e9  # attention/FFN workspace per layer (flash kernels)
@@ -235,96 +244,155 @@ def _reduced_cfg(cfg: ModelConfig, depth: int) -> ModelConfig:
     return cfg.replace(**kw)
 
 
-def _with_perf_opts(cfg: ModelConfig, perf_opts) -> ModelConfig:
-    """``capacity_factor`` overrides the MoE dispatch capacity factor.  The
-    reference's ``grad_constraint`` and ``sharding_mode="zero"`` are GSPMD
-    layouts of the dense parameters, which the port does not shard."""
+def _with_perf_opts(cfg: ModelConfig, perf_opts
+                    ) -> Tuple[ModelConfig, str, bool]:
+    """(config, sharding mode, grad_constraint) of the reference's
+    ``perf_opts``: ``capacity_factor`` overrides the MoE dispatch capacity
+    factor, ``sharding_mode`` picks the dense layout ("tp", the default,
+    or "zero"), ``grad_constraint`` reduce-scatters the gradient of every
+    gathered weight in place of an all-reduce."""
     po = dict(perf_opts or {})
-    for k in ("grad_constraint", "sharding_mode"):
-        if po.pop(k, None):
-            raise ValueError(f"perf_opts {k!r}: a GSPMD layout of the dense "
-                             f"parameters, which the port replicates on "
-                             f"every rank; not ported")
+    sharding = po.pop("sharding_mode", None) or "tp"
+    if sharding not in ("tp", "zero"):
+        raise ValueError(f"perf_opts sharding_mode {sharding!r}: 'tp' or "
+                         f"'zero'")
+    gc = bool(po.pop("grad_constraint", False))
     cf = po.pop("capacity_factor", None)
     if po:
         raise ValueError(f"unknown perf_opts {sorted(po)}")
     if cf:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cf)))
-    return cfg
+    return cfg, sharding, gc
 
 
 def _step_and_args(cfg: ModelConfig, shape: ShapeConfig, grid, impl: str,
-                   mode):
-    """(step, args): the port's step for ``shape.mode`` on ``grid`` and
-    its fake arguments.  Training accumulates over
-    ``default_microbatches``; BERT's step is bidirectional, as the
+                   mode, sharding: str = "tp", grad_constraint: bool = False,
+                   microbatch: Optional[int] = None):
+    """(step, args): the port's step for ``shape.mode`` on ``grid`` under
+    the dense layout ``sharding`` and its fake arguments.  Training
+    accumulates over ``microbatch`` microbatches (default
+    ``default_microbatches``); BERT's step is bidirectional, as the
     reference's dry run lowers it."""
     from repro_torch.serve.engine import build_prefill_step, build_serve_step
     from repro_torch.train.step import build_train_step
 
-    rt = inp.make_runtime(cfg, grid, impl=impl)
+    lay = inp.make_layout(cfg, shape, grid, sharding, grad_constraint)
+    rt = inp.make_runtime(cfg, grid, impl=impl, layout=lay)
     pa = inp.abstract_plan(cfg, grid, mode, impl)
     if shape.mode == "train":
-        tc = TrainConfig(microbatch=default_microbatches(cfg, shape, grid))
+        tc = TrainConfig(microbatch=microbatch or default_microbatches(
+            cfg, shape, grid, lay))
         step = build_train_step(cfg, rt, tc,
                                 causal=not cfg.name.startswith("bert"))
-        return step, (inp.abstract_state(cfg, grid, mode),
-                      inp.abstract_batch(cfg, shape, grid, mode), pa)
-    params = inp.abstract_params(cfg, grid, mode)
+        return step, (inp.abstract_state(cfg, grid, mode, lay),
+                      inp.abstract_batch(cfg, shape, grid, mode, lay), pa)
+    params = inp.abstract_params(cfg, grid, mode, lay)
     if shape.mode == "prefill":
         return build_prefill_step(cfg, rt), (
-            params, inp.abstract_batch(cfg, shape, grid, mode), pa)
-    cache, tokens, pos = inp.abstract_decode_inputs(cfg, shape, grid, mode)
+            params, inp.abstract_batch(cfg, shape, grid, mode, lay), pa)
+    cache, tokens, pos = inp.abstract_decode_inputs(cfg, shape, grid, mode,
+                                                    lay)
     return build_serve_step(cfg, rt), (params, cache, tokens, pos, pa)
 
 
-def run_fake_step(cfg: ModelConfig, shape: ShapeConfig, grid,
-                  impl: str = "ring") -> Dict:
-    """Run one rank's step of ``cfg`` at ``shape`` on fake tensors over the
-    (fake) process ``grid``; returns its memory, cost and wall time."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
+def _measure(step, args) -> Dict:
+    """Run ``step(*args)`` once under the accounts; the raw numbers."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels import ops
-
-    mode = FakeTensorMode(allow_non_fake_inputs=True)
-    step, args = _step_and_args(cfg, shape, grid, impl, mode)
     arg_bytes = storage_bytes(args)
     acct = StepAccount(arg_bytes)
     acct.know(args)
     flops = FlopCounterMode(display=False)
+    mode = next(t for t in _tensors(args)).fake_mode
     t0 = time.perf_counter()
     with mode, ops.reference_mode(), flops, acct:
         out = step(*args)
     run_s = time.perf_counter() - t0
     out_bytes = storage_bytes(out)
     del out
-    coll = {k: int(v) for k, v in acct.collective_bytes.items()}
-    cost = {"flops": float(flops.get_total_flops()),
+    return {"flops": float(flops.get_total_flops()),
             "bytes_accessed": float(acct.bytes_accessed),
+            "collective_bytes": Counter(acct.collective_bytes),
+            "collective_ops": Counter(acct.collective_ops),
+            "arg_bytes": arg_bytes, "out_bytes": out_bytes,
+            "peak": acct.peak, "run_s": run_s}
+
+
+def run_fake_step(cfg: ModelConfig, shape: ShapeConfig, grid,
+                  impl: str = "ring", sharding: str = "tp",
+                  grad_constraint: bool = False) -> Dict:
+    """Run one rank's step of ``cfg`` at ``shape`` on fake tensors over the
+    (fake) process ``grid`` under the dense layout ``sharding``; returns
+    its memory, cost and wall time.
+
+    A training step of n > 3 microbatches runs its first 2 and its first 3
+    microbatches instead (the batch cut to their rows, the layout's split
+    unchanged): every microbatch after the second does the same work on
+    the same shapes, so the costs are the 3-microbatch step's plus (n - 3)
+    times the third microbatch's (their difference), and the peak is the
+    larger of the two runs' above their arguments, over the whole step's
+    arguments.  (A step of one microbatch takes another path, and one of
+    more may hoist the SparseAllGather, so 2 is the first run.)
+    ``measured_microbatches`` says which ran."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    lay = inp.make_layout(cfg, shape, grid, sharding, grad_constraint)
+    n = (default_microbatches(cfg, shape, grid, lay)
+         if shape.mode == "train" else 1)
+    runs = [n] if n <= 3 else [2, 3]
+    got = []
+    for k in runs:
+        sub = dataclasses.replace(shape,
+                                  global_batch=shape.global_batch * k // n)
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        step, args = _step_and_args(cfg, sub, grid, impl, mode, sharding,
+                                    grad_constraint, microbatch=k)
+        got.append(_measure(step, args))
+    last = got[-1]
+    if n > 3:
+        a, b = got
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        arg_bytes = storage_bytes(_step_and_args(
+            cfg, shape, grid, impl, mode, sharding, grad_constraint,
+            microbatch=n)[1])
+        ext = n - 3
+
+        def lin(x, y):
+            return y + ext * (y - x)
+        flops = lin(a["flops"], b["flops"])
+        bytes_accessed = lin(a["bytes_accessed"], b["bytes_accessed"])
+        coll = {k: lin(a["collective_bytes"][k], b["collective_bytes"][k])
+                for k in b["collective_bytes"]}
+        ops = {k: lin(a["collective_ops"][k], b["collective_ops"][k])
+               for k in b["collective_ops"]}
+        peak = max(r["peak"] - r["arg_bytes"] for r in got) + arg_bytes
+    else:
+        flops, bytes_accessed = last["flops"], last["bytes_accessed"]
+        coll, ops = last["collective_bytes"], last["collective_ops"]
+        arg_bytes, peak = last["arg_bytes"], last["peak"]
+    coll = {k: int(v) for k, v in coll.items()}
+    cost = {"flops": float(flops), "bytes_accessed": float(bytes_accessed),
             "collective_bytes": coll,
             "collective_bytes_total": float(sum(coll.values())),
-            "collective_op_counts": dict(acct.collective_ops)}
+            "collective_op_counts": {k: int(v) for k, v in ops.items()}}
+    raw = dict(cost)
+    if n > 3:
+        raw = {"flops": last["flops"],
+               "bytes_accessed": last["bytes_accessed"],
+               "collective_bytes": {k: int(v) for k, v in
+                                    last["collective_bytes"].items()},
+               "collective_op_counts": dict(last["collective_ops"])}
+        raw["collective_bytes_total"] = float(sum(
+            raw["collective_bytes"].values()))
     memory = {"argument_bytes_per_device": int(arg_bytes),
-              "output_bytes_per_device": int(out_bytes),
-              "temp_bytes_per_device": int(acct.peak - arg_bytes),
-              "peak_estimate_per_device": int(acct.peak)}
-    return {"memory": memory, "cost": cost, "run_s": run_s}
-
-
-def unsupported_reason(shape: ShapeConfig, grid_shape: Tuple[int, int]
-                       ) -> Optional[str]:
-    """Why the port cannot run ``shape`` on a grid of ``grid_shape``, or
-    None: each rank holds whole rows of the batch."""
-    n = grid_shape[0] * grid_shape[1]
-    if shape.global_batch % n:
-        return (f"global batch {shape.global_batch} is not a multiple of "
-                f"the grid's {n} ranks: each rank of the port's grid holds "
-                f"whole rows, and the port has no tensor-parallel dense "
-                f"layers (the reference shards heads and ff over 'model', "
-                f"src/repro/common/sharding.py)")
-    return None
+              "output_bytes_per_device": int(last["out_bytes"]),
+              "temp_bytes_per_device": int(peak - arg_bytes),
+              "peak_estimate_per_device": int(peak)}
+    return {"memory": memory, "cost": cost, "cost_raw": raw,
+            "microbatches": n, "measured_microbatches": runs,
+            "run_s": sum(r["run_s"] for r in got)}
 
 
 def dryrun_combo(arch: Union[str, ModelConfig],
@@ -334,10 +402,14 @@ def dryrun_combo(arch: Union[str, ModelConfig],
     """Full dry-run record for one (arch, shape, grid).  ``arch``: a
     config name (or a ``ModelConfig``); ``shape``: a name of
     ``INPUT_SHAPES`` (or a ``ShapeConfig``); ``grid``: any (data, model)
-    shape, else the production grid (``multi_pod``)."""
+    shape (one pod), else the production grid (``multi_pod``: two pods
+    folded into its 32-way data axis); ``perf_opts``: the reference's
+    (``_with_perf_opts``).  The record's ``layout`` names the dense
+    layout."""
     cfg = configs.get(arch) if isinstance(arch, str) else arch
     shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
     gshape = tuple(grid) if grid is not None else production_shape(multi_pod)
+    pods = 2 if grid is None and multi_pod else 1
     rec: Dict = {"arch": cfg.name, "shape": shape.name,
                  "mesh": f"grid{gshape[0]}x{gshape[1]}",
                  "grid": list(gshape),
@@ -350,20 +422,19 @@ def dryrun_combo(arch: Union[str, ModelConfig],
     note = inp.shape_note(cfg, shape)
     if note:
         rec["note"] = note
-    why = unsupported_reason(shape, gshape)
-    if why:
-        rec.update(status="unsupported", reason=why)
-        return rec
     if perf_opts:
         rec["perf_opts"] = dict(perf_opts)
-    cfg = _with_perf_opts(cfg, perf_opts)
-    with fake_grid(*gshape) as g:
-        run = run_fake_step(cfg, shape, g, impl)
+    cfg, sharding, gc = _with_perf_opts(cfg, perf_opts)
+    rec["layout"] = sharding
+    with fake_grid(*gshape, pod=pods) as g:
+        run = run_fake_step(cfg, shape, g, impl, sharding, gc)
         rec["run_s"] = round(run["run_s"], 2)
         rec["memory"] = run["memory"]
         rec["memory_model"] = analytic_memory(cfg, shape, g)
-        rec["cost_raw"] = dict(run["cost"])
-        rec["cost"] = dict(run["cost"])
+        rec["cost_raw"] = run["cost_raw"]
+        rec["cost"] = run["cost"]
+        rec["microbatches"] = run["microbatches"]
+        rec["measured_microbatches"] = run["measured_microbatches"]
         rec["roofline"] = roofline_terms(cfg, shape, rec, g.size)
     rec["status"] = "ok"
     return rec
@@ -463,7 +534,7 @@ def main(argv=None):
                              f"comp={r['compute_s']*1e3:.2f}ms "
                              f"mem={r['memory_s']*1e3:.2f}ms "
                              f"coll={r['collective_s']*1e3:.2f}ms")
-                elif status in ("skipped", "unsupported"):
+                elif status == "skipped":
                     extra = rec["reason"][:60]
                 else:
                     extra = rec.get("error", "")[:120]

@@ -17,6 +17,13 @@ over:
 * the world (the gate statistics, the gradient sum of replicated
   parameters).
 
+A grid of two pods (the reference's ``(pod, data, model)`` mesh) folds
+``pod`` into ``data`` (``data = pod * data_per_pod``, rank ``(p *
+data_per_pod + d) * model + e``) and keeps its ``pod`` factor, which the
+dense layouts read (``common.sharding``: d_model is split over the data
+axis of one pod, the batch over both).  ``axis_groups`` makes the groups
+of the other axis sets those layouts talk over.
+
 ``new_group`` is collective over the world, so every rank creates every
 group, in the same order, and keeps its own two.  A function, not a module
 constant: importing this module touches no process group.
@@ -44,6 +51,9 @@ class ProcessGrid:
     # use), so the compute stream waits for its collectives only where it
     # consumes the slots
     comm_stream: Any = None
+    pod: int = 1               # pods folded into ``data``
+    # this rank's group of each set of axes (``axis_groups``)
+    groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -58,6 +68,59 @@ class ProcessGrid:
     def e(self) -> int:
         """This rank's model (expert-parallel) index."""
         return self.rank % self.model
+
+    @property
+    def sizes(self) -> dict:
+        """The axis sizes (``common.sharding.grid_sizes``)."""
+        from repro_torch.common.sharding import grid_sizes
+        return grid_sizes(self.data, self.model, self.pod)
+
+    @property
+    def coord(self) -> dict:
+        """This rank's index on each axis of ``sizes``."""
+        per_pod = self.data // self.pod
+        out = {"data": self.d % per_pod, "model": self.e}
+        return dict({"pod": self.d // per_pod}, **out) if self.pod > 1 \
+            else out
+
+
+def axis_groups(grid: ProcessGrid) -> dict:
+    """This rank's process group over every set of the grid's axes (a
+    frozenset of names -> group): the ranks that share this rank's index
+    on every other axis.  ``{model}`` is the EP group, every axis but
+    ``model`` the FSDP group and every axis the world; the others (only a
+    grid of two pods has any) are made here, once per grid, and kept in
+    ``grid.groups``.  Collective the first time: every rank of the world
+    calls it, in the same order."""
+    import itertools
+    if grid.groups:
+        return grid.groups
+    sizes = grid.sizes
+    names = list(sizes)
+    have = {frozenset(["model"]): grid.ep_group,
+            frozenset(names): grid.world_group,
+            frozenset(n for n in names if n != "model"): grid.fsdp_group}
+    me = grid.coord
+
+    def rank_of(c):
+        d = c.get("pod", 0) * sizes["data"] + c["data"]
+        return d * grid.model + c["model"]
+    for n in range(1, len(names) + 1):
+        for sub in itertools.combinations(names, n):
+            key = frozenset(sub)
+            if key in have:
+                grid.groups[key] = have[key]
+                continue
+            rest = [a for a in names if a not in sub]
+            for fixed in itertools.product(*(range(sizes[a]) for a in rest)):
+                c = dict(zip(rest, fixed))
+                ranks = sorted(rank_of(dict(c, **dict(zip(sub, v))))
+                               for v in itertools.product(
+                                   *(range(sizes[a]) for a in sub)))
+                g = dist.new_group(ranks=ranks)     # every rank, same order
+                if all(c[a] == me[a] for a in rest):
+                    grid.groups[key] = g
+    return grid.groups
 
 
 def _axis_groups(data: int, model: int, rank: int):
@@ -81,9 +144,10 @@ def _axis_groups(data: int, model: int, rank: int):
     return ep_group, ep_ranks, fsdp_group
 
 
-def make_grid(data: int, model: int) -> ProcessGrid:
+def make_grid(data: int, model: int, pod: int = 1) -> ProcessGrid:
     """The grid over an initialized default group of ``data * model``
-    ranks.  Collective: every rank of the world must call it."""
+    ranks, its ``data`` axis folding ``pod`` pods.  Collective: every rank
+    of the world must call it."""
     if not dist.is_initialized():
         raise RuntimeError("make_grid needs torch.distributed initialized "
                            "(launch.distributed.spawn or maybe_initialize)")
@@ -92,9 +156,11 @@ def make_grid(data: int, model: int) -> ProcessGrid:
         raise ValueError(f"a {data} x {model} grid needs {data * model} "
                          f"ranks, the world has {world}")
     rank = dist.get_rank()
+    if data % pod:
+        raise ValueError(f"{pod} pods do not divide a data axis of {data}")
     ep_group, ep_ranks, fsdp_group = _axis_groups(data, model, rank)
     return ProcessGrid(data, model, rank, ep_group, fsdp_group,
-                       dist.group.WORLD, ep_ranks)
+                       dist.group.WORLD, ep_ranks, pod=pod)
 
 
 def private_grid(grid: ProcessGrid) -> ProcessGrid:
@@ -109,7 +175,7 @@ def private_grid(grid: ProcessGrid) -> ProcessGrid:
     ep_group, ep_ranks, fsdp_group = _axis_groups(grid.data, grid.model,
                                                   rank)
     return ProcessGrid(grid.data, grid.model, grid.rank, ep_group,
-                       fsdp_group, world, ep_ranks)
+                       fsdp_group, world, ep_ranks, pod=grid.pod)
 
 
 def destroy_grid(grid: ProcessGrid) -> None:
@@ -132,16 +198,18 @@ def production_shape(multi_pod: bool = False) -> Tuple[int, int]:
 
 
 def make_production_grid(*, multi_pod: bool = False) -> ProcessGrid:
-    """The production grid (``production_shape``) over an initialized
-    default group of its size, the counterpart of the JAX package's
-    ``make_production_mesh``.  Collective: every rank calls it."""
-    return make_grid(*production_shape(multi_pod))
+    """The production grid (``production_shape``, two pods for
+    ``multi_pod``) over an initialized default group of its size, the
+    counterpart of the JAX package's ``make_production_mesh``.
+    Collective: every rank calls it."""
+    return make_grid(*production_shape(multi_pod), pod=2 if multi_pod else 1)
 
 
 @contextlib.contextmanager
-def fake_grid(data: int, model: int, rank: int = 0):
+def fake_grid(data: int, model: int, rank: int = 0, pod: int = 1):
     """Open a FAKE default process group of ``data * model`` ranks as
-    ``rank`` and yield its grid; destroy the group on exit.  Every
+    ``rank`` and yield its grid (``pod`` pods folded into ``data``);
+    destroy the group on exit.  Every
     collective on it returns at once and moves nothing, so one process can
     run a rank's step of a grid it does not have (``launch.dryrun``).  The
     backend comes from ``torch.testing._internal.distributed.fake_pg``, a
@@ -155,7 +223,7 @@ def fake_grid(data: int, model: int, rank: int = 0):
     dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=data * model)
     try:
-        yield make_grid(data, model)
+        yield make_grid(data, model, pod)
     finally:
         dist.destroy_process_group()
 

@@ -9,6 +9,17 @@ dense decode path is plain PyTorch, as it is plain XLA in the JAX
 package.  Layouts are the JAX package's: (B, S, N, H)
 activations, a (B, max_len, nkv, hd) dense cache, a flat
 (num_rows, nkv, hd) paged pool.
+
+Under a dense layout (``lay``, ``models.parallel``; ``dims`` the
+projections' layouts) the heads run tensor-parallel where they split
+over the ``model`` axis: a rank projects its own query heads and only the
+KV heads those read (the reference groups query heads under their KV
+head contiguously, so qwen1.5's 4 query heads a rank of 16 read 1 of 8
+KV heads, sliced from the replicated ``wk``/``wv``), caches those, and
+the output projection's partial sums are summed over ``model``.  Where
+the heads do not split (SmolLM's 15 over 16, or ``zero``) attention runs
+whole on every rank.  A decode cache sequence-sharded over ``data``
+(``lay.seq_axes``) is reduced by log-sum-exp over its shards.
 """
 from __future__ import annotations
 
@@ -42,6 +53,47 @@ def attn_params(cfg: ModelConfig, cross: bool = False):
         p["bk"] = Param((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
         p["bv"] = Param((nkv, hd), ("kv_heads", "head_dim"), init="zeros")
     return p
+
+
+def _local(p, cfg: ModelConfig, dt, lay, dims):
+    """(projections in the compute dtype as this rank uses them, its
+    tensor-parallel heads ``lay.heads`` or None).  Without a layout the
+    parameters as they are."""
+    if lay is None:
+        return p, None
+    hd = lay.heads(cfg, dims["wq"])
+    keep = dims["wq"][1] if hd is not None else ()
+    out = {}
+    for k, t in p.items():
+        t = t.to(dt)
+        kv_dim = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}.get(k)
+        if hd is not None and kv_dim is not None \
+                and not dims[k][kv_dim]:
+            # replicated KV heads: only those this rank's queries read
+            t = t.narrow(kv_dim, hd[2], hd[3] - hd[2])
+        out[k] = lay.gather(t, dims[k], keep=keep)
+    return out, hd
+
+
+def _expand_kv(k, hd, cfg: ModelConfig):
+    """A rank's KV heads for its query heads: as they are where its query
+    heads are whole groups or lie in one, else one KV head per query head
+    (each query head paired with its own KV head)."""
+    if hd is None:
+        return k
+    q0, q1, k0, k1 = hd
+    g = cfg.num_heads // cfg.num_kv_heads
+    if k1 - k0 == 1 or (q0 % g == 0 and (q1 - q0) % g == 0):
+        return k
+    idx = torch.arange(q0, q1, device=k.device) // g - k0
+    return k.index_select(2, idx)
+
+
+def _out(p, out, x, lay, dims, hd):
+    """The output projection; tensor-parallel heads sum their partial
+    results over the heads' axes."""
+    y = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    return y if hd is None else lay.all_reduce(y, dims["wq"][1])
 
 
 def _project_qkv(p, x, xa=None):
@@ -105,12 +157,13 @@ def _decode_positions(cfg: ModelConfig, posb):
 
 def attention(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
               causal: bool = True, xa=None, use_pallas: bool = False,
-              return_kv: bool = False):
+              return_kv: bool = False, lay=None, dims=None):
     """Full-sequence attention (training and prefill).  Returns (B,S,D),
-    and the rotated (k, v) when ``return_kv`` (the prefill cache fill).
-    positions: (B, S), or (B, S, 3) with M-RoPE.  ``xa`` (B, S_enc, D):
-    cross attention over the encoder states, with no RoPE (pass
-    ``causal=False``: no mask)."""
+    and the rotated (k, v) when ``return_kv`` (the prefill cache fill;
+    under a layout the rank's KV heads).  positions: (B, S), or (B, S, 3)
+    with M-RoPE.  ``xa`` (B, S_enc, D): cross attention over the encoder
+    states, with no RoPE (pass ``causal=False``: no mask)."""
+    p, hd = _local(p, cfg, x.dtype, lay, dims)
     q, k, v = _project_qkv(p, x, xa=xa)
     if xa is None:
         q = _rope(cfg, q, positions)
@@ -120,55 +173,113 @@ def attention(p, cfg: ModelConfig, x, positions, *, kind: str = "attn",
     if causal or window:
         mask = make_mask(q.shape[1], k.shape[1], causal=causal, window=window,
                          device=x.device)
+    ke, ve = _expand_kv(k, hd, cfg), _expand_kv(v, hd, cfg)
     # the JAX package's routing rule: the kernel takes masked self-attention
     # without a logit softcap; bidirectional and cross attention (no mask)
     # stay plain, as they are XLA there
     if (use_pallas and mask is not None and xa is None
             and cfg.attn_logit_softcap == 0.0):
-        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+        out = kops.flash_attention(q, ke, ve, causal=causal, window=window)
     else:
-        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, cfg.head_dim)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+        out = _sdpa(q, ke, ve, mask, cfg.attn_logit_softcap, cfg.head_dim)
+    out = _out(p, out, x, lay, dims, hd)
     if return_kv:
         return out, {"k": k, "v": v}
     return out
 
 
+def cross_kv(p, cfg: ModelConfig, enc_out, lay=None, dims=None):
+    """One decoder layer's cross-attention K and V of the encoder states
+    (B, S_enc, D): (B, S_enc, nkv, hd) in their dtype, no RoPE, no bias;
+    under a layout the rank's KV heads."""
+    p, _ = _local({w: p[w] for w in ("wk", "wv")}, cfg, enc_out.dtype, lay,
+                  dims)
+    dt = enc_out.dtype
+    return tuple(torch.einsum("bsd,dnh->bsnh", enc_out, p[w].to(dt))
+                 for w in ("wk", "wv"))
+
+
+def cross_decode(p, cfg: ModelConfig, x, xk, xv, lay=None, dims=None):
+    """One decode token's cross attention against a layer's precomputed
+    encoder K/V (B, S_enc, nkv, hd; under a layout the rank's KV heads):
+    no RoPE, no mask."""
+    p, hd = _local(p, cfg, x.dtype, lay, dims)
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
+    out = _sdpa(q, _expand_kv(xk, hd, cfg), _expand_kv(xv, hd, cfg), None,
+                cfg.attn_logit_softcap, cfg.head_dim)
+    return _out(p, out, x, lay, dims, hd)
+
+
 # ------------------------------------------------------------------ decode
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device):
+                  device, nkv: int = 0):
     """Dense KV cache for ONE sublayer: ``max_len`` token rows per
-    sequence."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    sequence of ``nkv`` KV heads (0: the config's)."""
+    shape = (batch, max_len, nkv or cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def decode_attention(p, cfg: ModelConfig, x, cache, pos: int, *,
-                     kind="attn"):
+                     kind="attn", lay=None, dims=None):
     """One-token decode for B sequences at the same position against the
     dense cache.
 
     x: (B, 1, D); pos: the position being written, a Python int (the
     write and the mask need no value from the device).  The new K/V row
     is written IN PLACE at ``pos``; attention spans cache[0..pos],
-    windowed for ``kind="local"``.  Returns (out, cache)."""
+    windowed for ``kind="local"``.  Under a layout whose cache is
+    sequence-sharded (``lay.seq_axes``) the rank holds positions
+    ``[i·S_loc, (i+1)·S_loc)`` of its shard ``i``: the shard holding
+    ``pos`` writes it, and the shards' partial softmaxes combine over
+    ``seq_axes`` (``_split_kv``).  Returns (out, cache)."""
     b = x.shape[0]
+    p, hd = _local(p, cfg, x.dtype, lay, dims)
     q, k_new, v_new = _project_qkv(p, x)
     posb = _decode_positions(cfg, torch.full((b, 1), pos, dtype=torch.long,
                                              device=x.device))
     q = _rope(cfg, q, posb)
     k_new = _rope(cfg, k_new, posb)
-    cache["k"][:, pos] = k_new[:, 0]                # in place
-    cache["v"][:, pos] = v_new[:, 0]
-    window = cfg.sliding_window if kind == "local" else 0
     skv = cache["k"].shape[1]
-    mask = make_mask(1, skv, causal=True, window=window, q_offset=pos,
+    seq = lay.seq_axes if lay is not None else ()
+    off = lay.index(seq) * skv if seq else 0
+    if not seq or off <= pos < off + skv:
+        cache["k"][:, pos - off] = k_new[:, 0]      # in place
+        cache["v"][:, pos - off] = v_new[:, 0]
+    window = cfg.sliding_window if kind == "local" else 0
+    mask = make_mask(1, skv, causal=True, window=window, q_offset=pos - off,
                      device=x.device)
-    out = _sdpa(q, cache["k"], cache["v"], mask, cfg.attn_logit_softcap,
-                cfg.head_dim)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
-    return out, cache
+    k, v = _expand_kv(cache["k"], hd, cfg), _expand_kv(cache["v"], hd, cfg)
+    if seq:
+        out = _split_kv(q, k, v, mask, cfg, lay, seq)
+    else:
+        out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap, cfg.head_dim)
+    return _out(p, out, x, lay, dims, hd), cache
+
+
+def _split_kv(q, k, v, mask, cfg: ModelConfig, lay, axes):
+    """``_sdpa`` over a sequence split over ``axes``: each rank's logits
+    over its shard, the max over every shard, then the exponentials' sums
+    and their products with V summed over the shards (log-sum-exp: the
+    unsplit softmax).  A shard with no valid position adds zeros."""
+    hdim = cfg.head_dim
+    nq, nkv = q.shape[2], k.shape[2]
+    b, sq = q.shape[0], q.shape[1]
+    qg = q.reshape(b, sq, nkv, nq // nkv, hdim)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    logits = logits / math.sqrt(hdim)
+    if cfg.attn_logit_softcap > 0.0:
+        sc = cfg.attn_logit_softcap
+        logits = torch.tanh(logits / sc) * sc
+    logits = torch.where(mask[:, :, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    top = lay.all_reduce_max(logits.amax(-1, keepdim=True), axes)
+    e = torch.exp(logits - top)
+    den = lay.all_reduce(e.sum(-1), axes)                   # (b,k,g,q)
+    num = lay.all_reduce(torch.einsum("bkgqs,bskh->bqkgh", e, v.float()),
+                         axes)
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, nq, hdim).to(q.dtype)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_rows: int, dtype, device):

@@ -32,21 +32,64 @@ def embed_params(vocab: int, d: int, tie: bool):
     return p
 
 
-def embed(p, tokens, dtype=None):
+def embed(p, tokens, dtype=None, lay=None, dims=None):
     """The table is cast to the compute dtype BEFORE the lookup, where the
-    JAX package casts it (the lookup then moves compute-dtype rows)."""
+    JAX package casts it (the lookup then moves compute-dtype rows).
+
+    Under a layout ``lay`` (``models.parallel``; ``dims`` the embedding
+    subtree's layouts) a table whose vocabulary is split over axes the
+    rows are replicated over is looked up vocab-parallel: a token outside
+    the rank's shard gives zero, and the sum over those axes gives the
+    row.  Any other split is gathered first."""
     table = p["embedding"]
     if dtype is not None:
         table = table.to(dtype)
-    return table[tokens.long()]
+    if lay is None:
+        return table[tokens.long()]
+    layout = dims["embedding"]
+    va = layout[0]
+    if not lay.tp(va):
+        return lay.gather(table, layout)[tokens.long()]
+    table = lay.gather(table, layout, keep=va)
+    n = table.shape[0]
+    local = tokens.long() - lay.index(va) * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+    return lay.all_reduce(rows, va)
 
 
-def unembed(p, x, softcap: float = 0.0):
-    """Product in the compute dtype, then f32, then the optional softcap."""
-    if "unembed" in p:
-        logits = x @ p["unembed"].to(x.dtype)
+def vocab_axes(lay, dims):
+    """The axes the logits' vocabulary stays split over under ``lay``
+    (``()``: whole logits on the rank)."""
+    if lay is None:
+        return ()
+    w = dims["unembed"] if "unembed" in dims else dims["embedding"]
+    va = w[1] if "unembed" in dims else w[0]
+    return va if lay.tp(va) else ()
+
+
+def unembed_weights(p, dtype, lay=None, dims=None):
+    """The output projection's parameters as ``unembed`` multiplies by
+    them: in ``dtype``, and under a layout gathered but for the
+    vocabulary's tensor-parallel split (``vocab_axes``).  With ``lay``
+    None ``unembed`` takes the result as it is."""
+    key = "unembed" if "unembed" in p else "embedding"
+    w = p[key].to(dtype)
+    if lay is not None:
+        w = lay.gather(w, dims[key], keep=vocab_axes(lay, dims))
+    return {key: w}
+
+
+def unembed(p, x, softcap: float = 0.0, lay=None, dims=None):
+    """Product in the compute dtype, then f32, then the optional softcap.
+    Under a layout: the rank's vocabulary shard of the logits where the
+    vocabulary runs tensor-parallel (``vocab_axes``), whole logits
+    otherwise."""
+    w = unembed_weights(p, x.dtype, lay, dims)
+    if "unembed" in w:
+        logits = x @ w["unembed"]
     else:
-        logits = x @ p["embedding"].to(x.dtype).t()
+        logits = x @ w["embedding"].t()
     logits = logits.float()
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
@@ -66,14 +109,24 @@ def mlp_params(d: int, d_ff: int, act: str):
     return p
 
 
-def apply_mlp(p, x, act: str):
+def apply_mlp(p, x, act: str, lay=None, dims=None):
+    """The dense FFN.  Under a layout ``lay`` (``dims``: the FFN's
+    layouts) the d_model splits are gathered and a hidden dim split over
+    axes the rows are replicated over runs tensor-parallel: ``wi``/``wg``
+    column-parallel, ``wo`` row-parallel, one sum over those axes."""
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
+    w = {k: t.to(dt) for k, t in p.items()}
+    fa = ()
+    if lay is not None:
+        fa = dims["wi"][1] if lay.tp(dims["wi"][1]) else ()
+        w = {k: lay.gather(t, dims[k], keep=fa) for k, t in w.items()}
+    h = x @ w["wi"]
     if is_glu(act):
-        h = act_fn(act)(h) * (x @ p["wg"].to(dt))
+        h = act_fn(act)(h) * (x @ w["wg"])
     else:
         h = act_fn("gelu")(h)
-    return h @ p["wo"].to(dt)
+    out = h @ w["wo"]
+    return lay.all_reduce(out, fa) if fa else out
 
 
 # ---------------------------------------------------------------- RoPE

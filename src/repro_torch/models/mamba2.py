@@ -7,6 +7,17 @@ JAX package runs no Pallas kernel here: its SSD einsums, its scan over
 chunks and the depthwise causal conv are plain XLA, so they are plain
 PyTorch here, the scan a Python loop over chunks.  Layouts and parameter
 names are the JAX package's.
+
+Under a dense layout (``lay``, ``models.parallel``; ``dims`` the block's
+layouts) a rank holds ``in_proj``, ``conv_w``, ``conv_b``, ``gate_norm``
+and ``out_proj`` in the reference's shard shapes and all-gathers them
+before use: ``in_proj``'s output concatenates z, x, B, C and dt, so a
+flat split of it over ``model`` cuts across those segments, and the
+block's compute is replicated over ``model``.  The recurrent cache keeps
+the reference's layout (``mamba_cache_axes``: the conv channels and the
+SSM heads over ``model``): a prefill keeps its shard of the final state,
+and a decode step advances its own channels and heads (the conv is
+depthwise, the SSM per head) and all-gathers their outputs.
 """
 from __future__ import annotations
 
@@ -118,10 +129,36 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, initial_state=None):
     return y[:, :n_len], state
 
 
-def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False):
+def _whole(p, lay, dims):
+    """The block's parameters, gathered whole under a layout."""
+    if lay is None:
+        return p
+    return {k: lay.gather(t, dims[k]) for k, t in p.items()}
+
+
+def _cache_splits(cfg: ModelConfig, lay):
+    """(conv channels' axes, SSM heads' axes) of the recurrent cache under
+    ``lay`` (the ``ssm_inner`` dims of ``mamba_cache_axes``)."""
+    s = cfg.ssm
+    conv_ch = s.expand * cfg.d_model + 2 * s.state_dim
+    return (lay.layout_of((conv_ch,), ("ssm_inner",))[0],
+            lay.layout_of((s.num_heads(cfg.d_model),), ("ssm_inner",))[0])
+
+
+def _block_of(lay, t, axes, dim: int):
+    """This rank's block of ``t`` along ``dim`` split over ``axes`` (all of
+    it without a layout)."""
+    if lay is None or lay.size(axes) == 1:
+        return t
+    return t.chunk(lay.size(axes), dim)[lay.index(axes)]
+
+
+def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False,
+                  lay=None, dims=None):
     """x: (B, L, D) -> (B, L, D); with ``return_state`` also the decode
     cache after the sequence (the conv tail and the final SSM state: the
-    prefill's state handoff)."""
+    prefill's state handoff; under a layout the rank's shard of it)."""
+    p = _whole(p, lay, dims)
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nh = s.num_heads(cfg.d_model)
@@ -147,19 +184,28 @@ def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False):
         tail = xbc_raw[:, -kw:, :]
         if tail.shape[1] < kw:
             tail = F.pad(tail, (0, 0, kw - tail.shape[1], 0))
+        if lay is not None:
+            ca, sa = _cache_splits(cfg, lay)
+            tail, state = (_block_of(lay, tail, ca, 2),
+                           _block_of(lay, state, sa, 1))
         return out, {"conv": tail, "ssm": state}
     return out
 
 
 # ---------------------------------------------------------------- decode
-def init_mamba_cache(cfg: ModelConfig, batch: int, device):
+def init_mamba_cache(cfg: ModelConfig, batch: int, device, lay=None):
     """One sublayer's decode state for ``batch`` sequences: the conv's
     last K - 1 inputs and the SSM state, f32 (whatever the compute
-    dtype), as in the JAX package."""
+    dtype), as in the JAX package; under a layout the rank's channels and
+    heads."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nh = s.num_heads(cfg.d_model)
     conv_ch = d_in + 2 * s.state_dim
+    if lay is not None:
+        ca, sa = _cache_splits(cfg, lay)
+        conv_ch //= lay.size(ca)
+        nh //= lay.size(sa)
     return {
         "conv": torch.zeros((batch, s.conv_width - 1, conv_ch),
                             dtype=torch.float32, device=device),
@@ -168,19 +214,29 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device):
     }
 
 
-def mamba_decode_step(p, cfg: ModelConfig, x, cache):
+def mamba_decode_step(p, cfg: ModelConfig, x, cache, lay=None, dims=None):
     """x: (B, 1, D).  The O(1) recurrent update; returns (out, new cache)
-    with new tensors (the caller writes them into its cache)."""
+    with new tensors (the caller writes them into its cache).  Under a
+    layout the cache holds the rank's conv channels and SSM heads: it
+    advances those and all-gathers the conv's and the SSM's outputs."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nh = s.num_heads(cfg.d_model)
     dt_ = x.dtype
+    p = _whole(p, lay, dims)
+    ca = sa = ()
+    if lay is not None:
+        ca, sa = _cache_splits(cfg, lay)
     zxbcdt = x @ p["in_proj"].to(dt_)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     xbc = xbc[:, 0].float()                                   # (B, C)
-    hist = torch.cat([cache["conv"], xbc[:, None]], dim=1)   # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"].float()) \
-        + p["conv_b"].float()
+    hist = torch.cat([cache["conv"], _block_of(lay, xbc, ca, 1)[:, None]],
+                     dim=1)                                   # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", hist,
+                            _block_of(lay, p["conv_w"].float(), ca, 1)) \
+        + _block_of(lay, p["conv_b"].float(), ca, 0)
+    if ca:
+        conv_out = lay.gather_nograd(conv_out, ca, 1)
     conv_out = F.silu(conv_out)
     xs = conv_out[:, :d_in]
     bm = conv_out[:, d_in:d_in + s.state_dim]
@@ -188,9 +244,13 @@ def mamba_decode_step(p, cfg: ModelConfig, x, cache):
     dt1 = F.softplus(dt[:, 0].float() + p["dt_bias"].float())   # (B, H)
     a = torch.exp(dt1 * -torch.exp(p["A_log"].float())[None, :])
     xh = xs.reshape(-1, nh, s.head_dim)                      # (B, H, P)
-    upd = torch.einsum("bh,bn,bhp->bhnp", dt1, bm, xh)
-    new_ssm = cache["ssm"] * a[:, :, None, None] + upd       # (B,H,N,P)
+    upd = torch.einsum("bh,bn,bhp->bhnp", _block_of(lay, dt1, sa, 1), bm,
+                       _block_of(lay, xh, sa, 1))
+    new_ssm = cache["ssm"] * _block_of(lay, a, sa, 1)[:, :, None, None] \
+        + upd                                                 # (B,H,N,P)
     y = torch.einsum("bn,bhnp->bhp", cm, new_ssm)
+    if sa:
+        y = lay.gather_nograd(y, sa, 1)
     y = y + p["D"].float()[None, :, None] * xh
     y = _gated_norm(y.reshape(-1, 1, d_in), z, p["gate_norm"])
     out = y.to(dt_) @ p["out_proj"].to(dt_)

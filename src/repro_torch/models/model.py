@@ -13,6 +13,14 @@ MoE FFNs read from the one cross-layer chunk buffer through
 ``repro_torch.core.moe``.  On a process grid the stack follows the
 reference's ``moe.rematerialize`` modes and its one-layer-ahead
 SparseAllGather (``_grid_blocks``, the port of ``_pipelined_blocks``).
+
+``Runtime.layout`` (``make_layout``) lays the dense parameters, the batch
+and the decode cache out over the grid in the reference's ``tp`` or
+``zero`` mode (``models.parallel``); None keeps every dense parameter
+whole on every rank and whole rows of the batch on each.  Under a layout
+the MoE boundary is the reference's: a rank's rows are replicated over
+``rep_axes`` (``model`` in ``tp``), each replica runs the FSSDP layer on
+its 1/replicas share of them, and the outputs are all-gathered back.
 """
 from __future__ import annotations
 
@@ -27,13 +35,16 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from repro_torch.common import sharding as shd
 from repro_torch.common.config import ModelConfig
-from repro_torch.common.params import init_tree, stack_params, torch_dtype
+from repro_torch.common.params import (_leaves, _set, init_tree, shard_tree,
+                                       stack_params, torch_dtype)
 from repro_torch.core import moe as moe_core
 from repro_torch.core.moe import MoERuntime, PlanArrays
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ly
 from repro_torch.models import mamba2 as mb
+from repro_torch.models import parallel
 
 
 def checkpoint(fn, *args, **kw):
@@ -64,12 +75,14 @@ class Runtime:
     XLA attention."""
     use_pallas: bool = True
     moe: MoERuntime = dataclasses.field(default_factory=MoERuntime)
+    # the dense layout (``make_layout``) or None
+    layout: Any = None
 
     @property
     def grid(self):
         """The process grid (``launch.mesh.ProcessGrid``) or None.  On a
-        grid each rank runs the whole model on its own rows of the batch,
-        and only the MoE layer communicates."""
+        grid without a ``layout`` each rank runs the whole model on its
+        own rows of the batch, and only the MoE layer communicates."""
         return self.moe.grid
 
 
@@ -155,10 +168,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     return params if grid is None else shard_params(params, grid)
 
 
-def shard_params(params, grid):
-    """The tree a rank of ``grid`` holds: every parameter replicated but
-    the chunk buffer, of which it keeps its (rows / model, chunk_len /
-    data) shard."""
+def param_layouts(cfg: ModelConfig, grid, mode: str = "tp"):
+    """The layout of every leaf of the parameter tree on ``grid`` in the
+    reference's ``mode`` (``common.sharding``): for each dimension the
+    grid axes it is split over.  The chunk buffer keeps the FSSDP layer's
+    layout, its rows over ``model`` and its columns over every other axis
+    (the reference's ``P(ep_axis, fsdp_axes)``)."""
+    sizes = grid.sizes
+    rules = shd.resolve_rules(list(sizes), shd.mode_rules(mode))
+    out = {}
+    for path, p in _leaves(param_decls(cfg, grid.model)):
+        if path == ("moe_buffer",):
+            lay = (("model",), tuple(a for a in sizes if a != "model"))
+        else:
+            lay = shd.layout_of(p.shape, p.axes, rules, sizes)
+        _set(out, path, lay)
+    return out
+
+
+def make_layout(cfg: ModelConfig, grid, mode: str = "tp", *,
+                global_batch: int, grad_constraint: bool = False):
+    """The ``Runtime.layout`` of a step of ``global_batch`` sequences on
+    ``grid`` (``models.parallel.Layout``).  It makes no process group:
+    a grid of two pods makes its other groups at the first collective
+    that needs one (``launch.mesh.axis_groups``)."""
+    return parallel.Layout(grid, mode, param_layouts(cfg, grid, mode),
+                           global_batch, grad_constraint)
+
+
+def shard_params(params, grid, layout=None):
+    """The tree a rank of ``grid`` holds.  Without a ``layout``: every
+    parameter replicated but the chunk buffer, of which it keeps its
+    (rows / model, chunk_len / data) shard.  Under one: every leaf's
+    shard (``common.params.shard_tree``)."""
+    if layout is not None:
+        return shard_tree(params, layout.dims, layout.sizes, layout.coord)
     if "moe_buffer" not in params:
         return params
     return dict(params, moe_buffer=moe_core.shard_buffer(
@@ -182,7 +226,8 @@ def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
              warm_start: bool = False):
     """x: (B, S, D) -> (y, MoEAux): flatten the tokens and run the MoE
     layer over all of them (no padding to a device count: on a grid each
-    rank holds whole rows of the batch, which are its token slice).
+    rank holds whole rows of the batch, which are its token slice; under
+    a layout the rank's share of its replicated rows, ``Layout.share``).
 
     On a grid in ``rematerialize="gather"`` mode, given slots go through
     ``moe_layer_regather``, or with a backward ``pipe`` (``BwdPipe``)
@@ -190,61 +235,82 @@ def _moe_ffn(cfg: ModelConfig, rt: Runtime, x, wr, buf, pa: PlanArrays,
     MoE layer's tables (None for the first) and ``warm_start`` marks the
     network's last MoE layer."""
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
+    xt, valid = x.reshape(b * s, d), None
+    lay = rt.layout
+    if lay is not None:
+        xt, valid = lay.share(xt)
     if (premat is not None and rt.grid is not None
             and cfg.moe.rematerialize == "gather"):
         if pipe is not None:
             y, aux = moe_core.moe_layer_regather_pipelined(
-                cfg, rt.moe, xt, wr, buf, pa, pa_prev, None, premat, pipe,
+                cfg, rt.moe, xt, wr, buf, pa, pa_prev, valid, premat, pipe,
                 layer, warm_start)
         else:
             y, aux = moe_core.moe_layer_regather(cfg, rt.moe, xt, wr, buf,
-                                                 pa, None, premat, layer)
+                                                 pa, valid, premat, layer)
     else:
-        y, aux = moe_core.moe_layer(cfg, rt.moe, xt, wr, buf, pa,
+        y, aux = moe_core.moe_layer(cfg, rt.moe, xt, wr, buf, pa, valid,
                                     premat=premat, layer=layer)
+    if lay is not None:
+        y = lay.unshare(y, b * s)
     return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward (training and prefill)
 # ---------------------------------------------------------------------------
+def _sub(dims, key: str):
+    """A subtree of a layout tree, or None without a layout."""
+    return None if dims is None else dims[key]
+
+
+def _embed_dims(lay):
+    return None if lay is None else lay.dims["embed"]
+
+
 def _mixer(cfg: ModelConfig, rt: Runtime, kind: str, positions,
-           causal: bool, p, h, collect_cache: bool = False):
+           causal: bool, p, h, collect_cache: bool = False, dims=None):
     """A sublayer's sequence mixer on its normed input ``h``: attention, or
     the Mamba-2 block for ``kind="mamba"``; with ``collect_cache`` also its
-    decode cache (the rotated K/V, or the conv tail and the SSM state)."""
+    decode cache (the rotated K/V, or the conv tail and the SSM state).
+    ``dims``: the sublayer's layouts under ``rt.layout``."""
     if kind == "mamba":
         return mb.mamba_forward(p["mamba"], cfg, h,
-                                return_state=collect_cache)
+                                return_state=collect_cache, lay=rt.layout,
+                                dims=_sub(dims, "mamba"))
     return attn.attention(p["attn"], cfg, h, positions, kind=kind,
                           causal=causal, use_pallas=rt.use_pallas,
-                          return_kv=collect_cache)
+                          return_kv=collect_cache, lay=rt.layout,
+                          dims=_sub(dims, "attn"))
 
 
 def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
                 positions, causal: bool, collect_cache: bool, x,
-                enc_out=None):
+                enc_out=None, dims=None):
     """One superblock: returns (x, [MoEAux per MoE layer], {l{j}: cache}
     when ``collect_cache``: an attention sublayer's {"k", "v"}, a mamba
     one's {"conv", "ssm"}).  ``enc_out`` (B, S_enc, D): the encoder
     states each attention sublayer cross-attends to after its
-    self-attention (an encoder-decoder's decoder)."""
+    self-attention (an encoder-decoder's decoder).  ``dims``: the stack's
+    per-superblock layouts under ``rt.layout``."""
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
     p_sb = _block(params, sb)
     aux_list, cache = [], {}
     mi = sb * len(moe_pos)
+    lay = rt.layout
     for j, kind in enumerate(cfg.layer_pattern):
         p = p_sb[f"l{j}"]
+        ds = _sub(dims, f"l{j}")
         y = _mixer(cfg, rt, kind, positions, causal, p,
-                   ly.apply_norm(p["ln1"], x, cfg.norm), collect_cache)
+                   ly.apply_norm(p["ln1"], x, cfg.norm), collect_cache, ds)
         if collect_cache:
             y, cache[f"l{j}"] = y
         x = x + y
         if enc_out is not None and kind != "mamba":
             hx = ly.apply_norm(p["lnx"], x, cfg.norm)
             x = x + attn.attention(p["xattn"], cfg, hx, positions,
-                                   causal=False, xa=enc_out)
+                                   causal=False, xa=enc_out, lay=lay,
+                                   dims=_sub(ds, "xattn"))
         if j in moe_pos:
             h = ly.apply_norm(p["ln2"], x, cfg.norm)
             y, aux = _moe_ffn(cfg, rt, h, params["router"][mi],
@@ -255,7 +321,7 @@ def _superblock(cfg: ModelConfig, rt: Runtime, params, sb: int, pa, premat,
             aux_list.append(aux)
             mi += 1
         elif kind != "mamba":
-            x = _dense_ffn(cfg, p, x)
+            x = _dense_ffn(cfg, lay, ds, p, x)
     return x, aux_list, cache
 
 
@@ -274,15 +340,15 @@ def _use_bwd_pipe(cfg: ModelConfig, rt: Runtime) -> bool:
 
 
 def _mix(cfg: ModelConfig, rt: Runtime, kind: str, positions, causal: bool,
-         p, x):
+         dims, p, x):
     """A sublayer's mixer segment: x + mixer(norm(x))."""
     return x + _mixer(cfg, rt, kind, positions, causal, p,
-                      ly.apply_norm(p["ln1"], x, cfg.norm))
+                      ly.apply_norm(p["ln1"], x, cfg.norm), dims=dims)
 
 
-def _dense_ffn(cfg: ModelConfig, p, x):
+def _dense_ffn(cfg: ModelConfig, lay, dims, p, x):
     return x + ly.apply_mlp(p["mlp"], ly.apply_norm(p["ln2"], x, cfg.norm),
-                            cfg.act)
+                            cfg.act, lay, _sub(dims, "mlp"))
 
 
 def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
@@ -337,14 +403,17 @@ def _grid_blocks(cfg: ModelConfig, rt: Runtime, params, x, positions,
     nxt = issue(0) if premat is None and ahead else None
     aux_list = []
     mi = 0
+    lay = rt.layout
+    dims = getattr(lay, "block_dims", None)
     for sb in range(cfg.num_superblocks):
         p_sb = _block(params, sb)
         for j, kind in enumerate(cfg.layer_pattern):
             p = p_sb[f"l{j}"]
-            x = seg(partial(_mix, cfg, rt, kind, positions, causal), p, x)
+            ds = _sub(dims, f"l{j}")
+            x = seg(partial(_mix, cfg, rt, kind, positions, causal, ds), p, x)
             if j not in moe_pos:
                 if kind != "mamba":
-                    x = seg(partial(_dense_ffn, cfg), p, x)
+                    x = seg(partial(_dense_ffn, cfg, lay, ds), p, x)
                 continue
             if premat is not None:
                 slots = premat[mi]
@@ -407,9 +476,11 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
     checkpoint above with each layer's gather inside it."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
+    lay = rt.layout
     if embeds is None:
         # scaled in the compute dtype, as the JAX package scales
-        x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)
+        x = ly.embed(params["embed"], tokens, dt, lay,
+                     _embed_dims(lay)) * math.sqrt(cfg.d_model)
     else:
         x = embeds.to(dt)
     b, s = x.shape[:2]
@@ -441,7 +512,8 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
         for sb in range(cfg.num_superblocks):
             blk = partial(_superblock, cfg, rt, params, sb, pa, premat,
                           positions, causal, collect_cache,
-                          enc_out=enc_out)
+                          enc_out=enc_out,
+                          dims=getattr(lay, "block_dims", None))
             if remat:
                 x, auxs, cache = checkpoint(blk, x, use_reentrant=False)
             else:
@@ -452,13 +524,14 @@ def forward(cfg: ModelConfig, rt: Runtime, params, tokens=None, *,
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux_list
-    logits = ly.unembed(params["embed"], x, cfg.final_logit_softcap)
+    logits = ly.unembed(params["embed"], x, cfg.final_logit_softcap, lay,
+                        _embed_dims(lay))
     if collect_cache:
         cache = {name: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
                  for name, cs in caches.items()}
         if enc_out is not None:
             cache["xk"], cache["xv"] = precompute_cross_kv(cfg, params,
-                                                           enc_out)
+                                                           enc_out, lay)
         return logits, aux_list, cache
     return logits, aux_list
 
@@ -474,9 +547,11 @@ def _encode(cfg: ModelConfig, rt: Runtime, enc_params, enc_in):
     positions = torch.arange(s, device=enc_in.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     x = enc_in
+    lay = rt.layout
     for sb in range(cfg.encoder_layers):
         blk = partial(_superblock, cfg, rt, enc_params, sb, None, None,
-                      positions, False, False)
+                      positions, False, False,
+                      dims=getattr(lay, "enc_block_dims", None))
         if remat:
             x, _, _ = checkpoint(blk, x, use_reentrant=False)
         else:
@@ -484,25 +559,15 @@ def _encode(cfg: ModelConfig, rt: Runtime, enc_params, enc_in):
     return ly.apply_norm(enc_params["final_norm"], x, cfg.norm)
 
 
-def precompute_cross_kv(cfg: ModelConfig, params, enc_out):
+def precompute_cross_kv(cfg: ModelConfig, params, enc_out, lay=None):
     """Every decoder layer's cross-attention K and V of the encoder states
     ``enc_out`` (B, S_enc, D): (n_superblocks, B, S_enc, nkv, hd) each, in
-    ``enc_out``'s dtype (no RoPE, no bias)."""
-    dt = enc_out.dtype
-    xattn = params["blocks"]["l0"]["xattn"]
-    return tuple(torch.stack([
-        torch.einsum("bsd,dnh->bsnh", enc_out, w[sb].to(dt))
-        for sb in range(cfg.num_superblocks)]) for w in (xattn["wk"],
-                                                           xattn["wv"]))
-
-
-def _cross_decode(p, cfg: ModelConfig, x, xk, xv):
-    """One decode token's cross attention against a layer's precomputed
-    encoder K/V (B, S_enc, nkv, hd): no RoPE, no mask."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
-    out = attn._sdpa(q, xk, xv, None, cfg.attn_logit_softcap, cfg.head_dim)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(dt))
+    ``enc_out``'s dtype (no RoPE, no bias); under a layout ``lay`` the
+    rank's KV heads."""
+    dims = None if lay is None else lay.block_dims["l0"]["xattn"]
+    per = [attn.cross_kv(_block(params, sb)["l0"]["xattn"], cfg, enc_out,
+                         lay, dims) for sb in range(cfg.num_superblocks)]
+    return tuple(torch.stack([kv[i] for kv in per]) for i in (0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -514,22 +579,48 @@ def _stacked(cfg: ModelConfig, one):
             for k, t in one.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def local_kv_heads(cfg: ModelConfig, lay) -> int:
+    """The KV heads a rank caches: under tensor-parallel heads those its
+    query heads read (``Layout.heads``), else every one."""
+    if lay is not None:
+        ds = lay.block_dims
+        for j, kind in enumerate(cfg.layer_pattern):
+            if kind != "mamba":
+                hd = lay.heads(cfg, ds[f"l{j}"]["attn"]["wq"])
+                return cfg.num_kv_heads if hd is None else hd[3] - hd[2]
+    return cfg.num_kv_heads
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               lay=None):
     """Dense decode cache: every attention sublayer holds
     (num_superblocks, batch, max_len, nkv, hd) K and V, every mamba
     sublayer its (num_superblocks, batch, ...) f32 conv and SSM state, as
     in the JAX package; an encoder-decoder also the cross K/V ``xk`` and
     ``xv`` (num_superblocks, batch, encoder_seq_len, nkv, hd), zeros until
-    ``precompute_cross_kv`` fills them."""
+    ``precompute_cross_kv`` fills them.
+
+    Under a layout ``lay`` ``batch`` and ``max_len`` are global and the
+    cache is this rank's: its rows, its sequence shard where the cache is
+    sequence-sharded, its KV heads (``local_kv_heads``) and its mamba
+    channels and heads (``mamba2.init_mamba_cache``)."""
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
-    cache = {f"l{j}": _stacked(cfg, mb.init_mamba_cache(cfg, batch, device)
+    nkv = local_kv_heads(cfg, lay)
+    if lay is not None:
+        if batch != lay.global_batch:
+            raise ValueError(f"a cache of {batch} rows under a layout of "
+                             f"{lay.global_batch}")
+        batch //= lay.rows
+        max_len //= lay.size(lay.seq_axes)
+    cache = {f"l{j}": _stacked(cfg, mb.init_mamba_cache(cfg, batch, device,
+                                                        lay)
                                if kind == "mamba" else attn.init_kv_cache(
-                                   cfg, batch, max_len, dt, device))
+                                   cfg, batch, max_len, dt, device, nkv))
              for j, kind in enumerate(cfg.layer_pattern)}
     if cfg.is_encoder_decoder:
-        shp = (cfg.num_superblocks, batch, cfg.encoder_seq_len,
-               cfg.num_kv_heads, cfg.head_dim)
+        shp = (cfg.num_superblocks, batch, cfg.encoder_seq_len, nkv,
+               cfg.head_dim)
         for k in ("xk", "xv"):
             cache[k] = torch.zeros(shp, dtype=dt, device=device)
     return cache
@@ -585,24 +676,32 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
                          "models")
     _check_ported(cfg)
     dt = torch_dtype(cfg.dtype)
-    x = ly.embed(params["embed"], tokens, dt) * math.sqrt(cfg.d_model)
+    lay = rt.layout
+    if lay is not None and row_idx is not None:
+        raise NotImplementedError("paged decode under a dense layout")
+    x = ly.embed(params["embed"], tokens, dt, lay,
+                 _embed_dims(lay)) * math.sqrt(cfg.d_model)
     moe_pos = _moe_positions(cfg) if cfg.moe.enabled else ()
     if moe_pos:
         assert pa is not None, "MoE arch needs PlanArrays"
+    dims = getattr(lay, "block_dims", None)
     mi = 0
     for sb in range(cfg.num_superblocks):
         p_sb = _block(params, sb)
         for j, kind in enumerate(cfg.layer_pattern):
             p = p_sb[f"l{j}"]
+            ds = _sub(dims, f"l{j}")
             c_sb = {k: t[sb] for k, t in cache[f"l{j}"].items()}
             h = ly.apply_norm(p["ln1"], x, cfg.norm)
             if kind == "mamba":     # one dense state per sequence or slot
-                y, new = mb.mamba_decode_step(p["mamba"], cfg, h, c_sb)
+                y, new = mb.mamba_decode_step(p["mamba"], cfg, h, c_sb, lay,
+                                              _sub(ds, "mamba"))
                 for k, t in new.items():
                     c_sb[k].copy_(t)                # in place
             elif row_idx is None:
                 y, _ = attn.decode_attention(p["attn"], cfg, h, c_sb, pos,
-                                             kind=kind)
+                                             kind=kind, lay=lay,
+                                             dims=_sub(ds, "attn"))
             else:
                 y, _ = attn.decode_attention_paged(
                     p["attn"], cfg, h, c_sb, pos, row_idx, kind=kind,
@@ -610,8 +709,9 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
             x = x + y
             if cfg.is_encoder_decoder and kind != "mamba":
                 hx = ly.apply_norm(p["lnx"], x, cfg.norm)
-                x = x + _cross_decode(p["xattn"], cfg, hx, cache["xk"][sb],
-                                      cache["xv"][sb])
+                x = x + attn.cross_decode(p["xattn"], cfg, hx,
+                                          cache["xk"][sb], cache["xv"][sb],
+                                          lay, _sub(ds, "xattn"))
             if j in moe_pos:
                 h = ly.apply_norm(p["ln2"], x, cfg.norm)
                 y, _ = _moe_ffn(cfg, rt, h, params["router"][mi],
@@ -621,7 +721,7 @@ def decode_step(cfg: ModelConfig, rt: Runtime, params, cache, tokens, pos,
                 x = x + y
                 mi += 1
             elif kind != "mamba":
-                h = ly.apply_norm(p["ln2"], x, cfg.norm)
-                x = x + ly.apply_mlp(p["mlp"], h, cfg.act)
+                x = _dense_ffn(cfg, lay, ds, p, x)
     x = ly.apply_norm(params["final_norm"], x, cfg.norm)
-    return ly.unembed(params["embed"], x, cfg.final_logit_softcap), cache
+    return ly.unembed(params["embed"], x, cfg.final_logit_softcap, lay,
+                      _embed_dims(lay)), cache

@@ -116,7 +116,12 @@ def build_serve_step(cfg: ModelConfig, rt: mdl.Runtime):
     """fn(params, cache, tokens:(B,1), pos:int, pa, premat=None) ->
     (logits (B,1,V), cache): one decode token for B sequences at the same
     position against the dense cache (``mdl.init_cache``), which it
-    updates in place."""
+    updates in place.  Under ``rt.layout`` every argument is this rank's:
+    its shards of the parameters, its rows of the tokens and its part of
+    the cache (``mdl.init_cache(..., lay=)``: the reference's cache layout
+    but for the KV heads, of which it holds those its query heads read);
+    the logits are its rows' vocabulary shard where the vocabulary runs
+    tensor-parallel."""
     @torch.inference_mode()
     def serve_step(params, cache, tokens, pos: int,
                    pa: Optional[PlanArrays], premat=None):
@@ -139,7 +144,9 @@ def build_prefill_step(cfg: ModelConfig, rt: mdl.Runtime):
     sequence's last REAL position instead of -1: prompts padded up to a
     shape bucket keep their real positions unaffected under the causal
     mask (a model with mamba layers is prefilled at exact length: their
-    state would take in the padding)."""
+    state would take in the padding).  Under ``rt.layout`` the batch is
+    this rank's rows, and the cache and the logits are its part of them
+    (``build_serve_step``)."""
     @torch.inference_mode()
     def prefill_step(params, batch, pa: Optional[PlanArrays], premat=None):
         inputs = ({"embeds": batch["embeds"]} if "embeds" in batch

@@ -16,6 +16,17 @@ buffer's gradient stays on the rank that owns the shard (the
 SparseReduceScatter put it there), the clipping norm is the global one,
 and AdamW runs on each rank's parameters.
 
+Under a dense layout (``rt.layout``, ``models.parallel``) the logits'
+vocabulary may be split over ``model``: the loss is then vocab-parallel,
+a log-sum-exp over the shards with the target logit from the rank that
+owns it.  A rank's share of the loss is its rows' summed NLL over the
+token count summed over the world, in which each row counts once per rank
+that holds it.  A leaf's gradient is then summed over every axis the leaf
+is replicated over (the collectives' backwards are exact transposes, so
+the gathered leaves' shards already hold their sums over the gather), in
+one all-reduce per (axes, dtype), and the clipping norm counts each
+element of the global gradient once.
+
 Under gradient accumulation on a grid the SparseAllGather is hoisted out
 of the microbatch loop: ``moe.materialize_stack`` builds every MoE
 layer's slots once at the head of the step and every microbatch's forward
@@ -67,28 +78,54 @@ def cross_entropy(logits, labels, ignore: int = -1):
 
 
 def chunked_xent(cfg: ModelConfig, embed_params, hidden, labels,
-                 n_chunks: int = 8, ignore: int = -1):
+                 n_chunks: int = 8, ignore: int = -1, lay=None):
     """Streaming next-token loss: unembed + logsumexp one sequence chunk at
     a time, each under ``torch.utils.checkpoint``, so the (B, S, V) f32
     logits never exist (the backward recomputes one chunk's logits at a
     time).  Chunk sums are added in order, as the JAX package's scan
     adds them."""
     nll, cnt = chunked_nll(cfg, embed_params, hidden, labels, n_chunks,
-                           ignore)
+                           ignore, lay)
     return nll / cnt.clamp_min(1.0)
 
 
+def _vocab_parallel_nll(logits, lab, lay, va):
+    """Per-token NLL of logits whose vocabulary is split over ``va``: the
+    max over every shard (a constant of the gradient), the shards' sums of
+    exponentials summed, and the target logit from the shard that holds
+    it."""
+    n = logits.shape[-1]
+    top = lay.all_reduce_max(logits.amax(-1), va)
+    lse = top + torch.log(lay.all_reduce(
+        torch.exp(logits - top[..., None]).sum(-1), va))
+    local = lab.clamp_min(0).long() - lay.index(va) * n
+    inside = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - lay.all_reduce(ll * inside, va)
+
+
 def chunked_nll(cfg: ModelConfig, embed_params, hidden, labels,
-                n_chunks: int = 8, ignore: int = -1):
-    """(summed negative log-likelihood, token count) of ``chunked_xent``."""
+                n_chunks: int = 8, ignore: int = -1, lay=None):
+    """(summed negative log-likelihood, token count) of ``chunked_xent``;
+    vocab-parallel where ``lay`` splits the logits' vocabulary."""
     b, s, d = hidden.shape
     while s % n_chunks:
         n_chunks -= 1
     c = s // n_chunks
+    dims = lay.dims["embed"] if lay is not None else None
+    va = ly.vocab_axes(lay, dims)
+    if lay is not None:
+        # gathered once for every chunk (the chunks' checkpoints keep the
+        # one tensor), not once a chunk and again in each recompute
+        embed_params = ly.unembed_weights(embed_params, hidden.dtype, lay,
+                                          dims)
 
     def body(h, lab):
         logits = ly.unembed(embed_params, h, cfg.final_logit_softcap)
         mask = (lab != ignore).to(torch.float32)
+        if va:
+            return (_vocab_parallel_nll(logits, lab, lay, va)
+                    * mask).sum(), mask.sum()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lab.clamp_min(0).long()[..., None])
         return ((lse - ll[..., 0]) * mask).sum(), mask.sum()
@@ -132,8 +169,10 @@ def loss_fn(cfg: ModelConfig, rt: mdl.Runtime, params, batch,
         metrics = {"xent": loss}
     else:
         # this rank's share of the global mean: its summed NLL over the
-        # token count of the whole world
-        nll, cnt = chunked_nll(cfg, params["embed"], hidden, labels)
+        # token count of the whole world (a row held by n ranks counts n
+        # times in both)
+        nll, cnt = chunked_nll(cfg, params["embed"], hidden, labels,
+                               lay=rt.layout)
         tot = torch.stack([nll.detach(), cnt])
         dist.all_reduce(tot, group=grid.world_group)
         n = tot[1].clamp_min(1.0)
@@ -189,7 +228,10 @@ def _loss_and_grads(cfg, rt, params, batch, pa, causal, premat=None):
     g_premat = gs[len(ts)] if len(wrt) > len(ts) else None
     gs = [torch.zeros_like(t) if g is None else g for t, g in zip(ts, gs)]
     grid = getattr(rt, "grid", None)
-    if grid is not None:
+    lay = getattr(rt, "layout", None)
+    if lay is not None:
+        sum_layout_grads(gs, paths, lay)
+    elif grid is not None:
         sum_replicated_grads(gs, [p[0] != "moe_buffer" for p in paths],
                              grid.world_group)
     grads = {}
@@ -215,10 +257,38 @@ def sum_replicated_grads(gs, replicated, group) -> None:
             at += g.numel()
 
 
-def global_grad_norm(grads, grid):
+def _leaf_layout(lay, path):
+    node = lay.dims
+    for k in path:
+        node = node[k]
+    return node
+
+
+def sum_layout_grads(gs, paths, lay) -> None:
+    """Under a layout: sum each leaf's gradient over the axes the leaf is
+    replicated over, in place, one all-reduce of a flat bucket per (axes,
+    dtype), the leaves in the tree's sorted key order.  The chunk buffer's
+    shard has its sum already (the SparseReduceScatter)."""
+    by_axes = {}
+    for g, path in zip(gs, paths):
+        axes = lay.leaf_replicas(_leaf_layout(lay, path))
+        if path[0] != "moe_buffer" and lay.size(axes) > 1:
+            by_axes.setdefault(axes, []).append(g)
+    for axes, leaves in by_axes.items():
+        sum_replicated_grads(leaves, [True] * len(leaves), lay.group(axes))
+
+
+def global_grad_norm(grads, grid, lay=None):
     """The clipping norm of the whole model's gradient on a grid: the
     replicated leaves' squares (the same on every rank) plus the buffer
-    shards' squares summed over the world."""
+    shards' squares summed over the world.  Under a layout each leaf's
+    squares over the ranks that hold the same shard of it, summed over the
+    world: every element of the global gradient once."""
+    if lay is not None:
+        sq = sum(torch.sum(g.float() ** 2) / lay.size(lay.leaf_replicas(
+            _leaf_layout(lay, path))) for path, g in _leaves(grads))
+        dist.all_reduce(sq, group=grid.world_group)
+        return torch.sqrt(sq)
     sq = sum(torch.sum(g.float() ** 2) for path, g in _leaves(grads)
              if path[0] != "moe_buffer")
     if "moe_buffer" in grads:
@@ -232,6 +302,22 @@ def _tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+# what the step-hoisted slots may hold on a rank (a fifth of the card's
+# 80 GB): Jamba's 16 MoE layers of three 176M-element slots would hold 17
+# GB of bf16 slots and a 34 GB f32 cotangent
+HOIST_BYTES = 16e9
+
+
+def hoisted_bytes(cfg: ModelConfig, grid) -> int:
+    """Bytes the hoisted SparseAllGather holds on a rank of ``grid``:
+    every MoE layer's (K, chunk_len) slots in the compute dtype, and in
+    ``save`` mode a microbatch's slot cotangent in it and their f32 sum."""
+    K = -(-cfg.moe.num_experts // grid.model) + cfg.moe.slots_per_device
+    n = moe_core.num_moe_layers(cfg) * K * moe_core.chunk_len(cfg)
+    dt = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    return n * (2 * dt + 4 if cfg.moe.rematerialize == "save" else dt)
 
 
 def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
@@ -248,13 +334,15 @@ def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
     update bit-exactly (``adamw.update``).
 
     ``hoist_premat``: None hoists the SparseAllGathers out of the
-    microbatch loop whenever the pipelined MoE path of a grid is on and
-    n > 1; False keeps each microbatch's own gathers (the baseline)."""
+    microbatch loop whenever the pipelined MoE path of a grid is on, n > 1
+    and what the hoisting holds fits ``HOIST_BYTES`` (``hoisted_bytes``);
+    False keeps each microbatch's own gathers (the baseline)."""
     n = max(tc.microbatch, 1)
     grid = getattr(rt, "grid", None)
     hoist = (cfg.moe.enabled and grid is not None and n > 1
-             and mdl._use_pipeline(cfg, rt)) if hoist_premat is None \
-        else hoist_premat
+             and mdl._use_pipeline(cfg, rt)
+             and hoisted_bytes(cfg, grid) <= HOIST_BYTES) \
+        if hoist_premat is None else hoist_premat
     if hoist and not mdl._use_pipeline(cfg, rt):
         raise ValueError("hoist_premat needs the pipelined MoE path of a "
                          "process grid (moe.pipeline, rematerialize != "
@@ -319,7 +407,8 @@ def build_train_step(cfg: ModelConfig, rt: mdl.Runtime, tc: TrainConfig,
         params, opt, opt_metrics = adamw.update(
             grads, state.opt, state.params, tc,
             skip_nonfinite=tc.step_guard, extra_ok=extra_ok,
-            gnorm=None if grid is None else global_grad_norm(grads, grid))
+            gnorm=None if grid is None else global_grad_norm(
+                grads, grid, getattr(rt, "layout", None)))
         metrics.update(opt_metrics)
         return TrainState(params, opt, state.step + 1), metrics
 

@@ -12,9 +12,10 @@ Laws: a fake step counts the FLOPs and the argument bytes of the same
 step run for real over gloo; the collective bytes of olmoe's MoE layer on
 a fake 2 x 4 grid meet ``tests/test_collective_volume.py``'s Eq. 1/2
 assertions and equal what a real 2 x 4 gloo run records; FLOPs are linear
-in the depth; a full-width record on the 16 x 16 grid; the unsupported and
-the failed record.  One torch intra-op thread, small models but one
-full-width fake step (~10 s).
+in the depth; a full-width record on the 16 x 16 grid; a prefill whose
+batch does not split over the grid's ranks (the reference's ``tp``
+layout, the default); the reference's ``perf_opts``; the failed record.
+One torch intra-op thread, small models but two full-width fake steps.
 """
 import dataclasses
 import json
@@ -285,10 +286,13 @@ def test_full_width_gpt_moe_s_train_4k_on_the_16_by_16_grid():
 
 
 def test_prefill_32k_on_the_16_by_16_grid_is_unsupported():
+    """Once unsupported (a batch of 32 over 256 ranks that each held whole
+    rows); under the default ``tp`` layout each data index holds 2 rows,
+    replicated over ``model``, and the record is ``ok``."""
     rec = dryrun.dryrun_combo("gpt-moe-s", "prefill_32k")
-    assert rec["status"] == "unsupported"
-    assert "not a multiple of the grid's 256 ranks" in rec["reason"]
-    assert "tensor-parallel" in rec["reason"]
+    assert rec["status"] == "ok" and rec["layout"] == "tp", rec
+    assert rec["grid"] == [16, 16] and rec["cost"]["flops"] > 0
+    assert rec["cost"]["collective_bytes"]["all-gather"] > 0
     assert not dist.is_initialized()
 
 
@@ -327,14 +331,42 @@ def test_prefill_and_decode_steps_on_a_small_grid(mode):
 
 
 def test_perf_opts():
+    """``capacity_factor``, and the reference's ``grad_constraint`` and
+    ``sharding_mode`` on qwen1.5's smoke config on a fake 2 x 2 grid, with
+    the collective bytes moving as the reference describes them: with
+    ``grad_constraint`` the gathered weights' gradients are
+    reduce-scattered where ``tp`` all-reduces them; ``zero`` gathers the
+    dense weights per layer over both axes (more all-gather bytes) and,
+    the batch split over every axis, sums no tensor-parallel activations
+    (fewer all-reduce calls, and with ``grad_constraint`` fewer
+    all-reduce bytes than ``tp``'s)."""
     cfg = configs.get_smoke("gpt-moe-s")
     rec = dryrun.dryrun_combo(cfg, SMALL_TRAIN, grid=(1, 1),
                               perf_opts={"capacity_factor": 4.0})
     assert rec["status"] == "ok" and rec["perf_opts"] == {
         "capacity_factor": 4.0}
-    for po in ({"grad_constraint": True}, {"sharding_mode": "zero"}):
-        with pytest.raises(ValueError, match="not ported"):
-            dryrun.dryrun_combo(cfg, SMALL_TRAIN, grid=(1, 1), perf_opts=po)
+    shape = tconfig.ShapeConfig("small_train", 32, 4, "train")
+    qwen = configs.get_smoke("qwen1.5-110b")
+    opts = {"tp": None, "tp_gc": {"grad_constraint": True},
+            "zero": {"sharding_mode": "zero"},
+            "zero_gc": {"sharding_mode": "zero", "grad_constraint": True}}
+    recs = {t: dryrun.dryrun_combo(qwen, shape, grid=(2, 2), perf_opts=po)
+            for t, po in opts.items()}
+    assert [r["status"] for r in recs.values()] == ["ok"] * 4
+    assert [r["layout"] for r in recs.values()] == ["tp", "tp", "zero",
+                                                     "zero"]
+    by = {t: r["cost"]["collective_bytes"] for t, r in recs.items()}
+    calls = {t: r["cost"]["collective_op_counts"] for t, r in recs.items()}
+    assert "reduce-scatter" not in by["tp"]
+    assert by["tp_gc"]["reduce-scatter"] > 0
+    assert by["tp_gc"]["all-gather"] == by["tp"]["all-gather"]
+    assert by["tp_gc"]["all-reduce"] < by["tp"]["all-reduce"]
+    assert by["zero"]["all-gather"] > by["tp"]["all-gather"]
+    assert calls["zero"]["all-reduce"] < calls["tp"]["all-reduce"]
+    assert by["zero_gc"]["all-reduce"] < by["tp_gc"]["all-reduce"]
+    with pytest.raises(ValueError, match="sharding_mode"):
+        dryrun.dryrun_combo(cfg, SMALL_TRAIN, grid=(1, 1),
+                            perf_opts={"sharding_mode": "fsdp"})
 
 
 class _AllOps(cases._IndexOps):

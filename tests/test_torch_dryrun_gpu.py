@@ -71,3 +71,32 @@ def test_dry_run_allocates_nothing_on_the_card(cuda):
     assert rec["status"] == "ok"
     assert torch.cuda.memory_allocated() == before
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.gpu
+def test_one_rank_of_a_tp_grid_launches_the_kernels_at_its_shapes(cuda):
+    """Rank 0 of a fake 2 x 4 grid under ``tp`` on real tensors on the
+    card (the fake group moves no data, so no value is held): qwen1.5's
+    smoke config, whose 2 KV heads do not divide ``model``, prefills
+    through the flash kernel once a layer at the rank's 1 query head over
+    its 1 KV head, and every output stays on the card."""
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch.mesh import fake_grid
+    from repro_torch.serve.engine import build_prefill_step
+    cfg = configs.get_smoke("qwen1.5-110b").replace(dtype="bfloat16")
+    shape = ShapeConfig("small_prefill", 64, 4, "prefill")
+    with fake_grid(2, 4) as g:
+        lay = inp.make_layout(cfg, shape, g, "tp")
+        params = mdl.shard_params(mdl.init_params(cfg, 0, cuda), g, lay)
+        toks = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda,
+                             dtype=torch.int32)
+        step = build_prefill_step(cfg, inp.make_runtime(
+            cfg, g, layout=lay, use_pallas=True))
+        ops.reset_launch_counts()
+        last, cache = step(params, {"tokens": lay.local_rows(toks)}, None)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd"] == cfg.num_layers
+    assert last.shape == (2, 1, cfg.vocab_size // 4) and last.is_cuda
+    assert cache["l0"]["k"].shape == (cfg.num_layers, 2, 64, 1,
+                                      cfg.head_dim)
+    assert all(t.is_cuda for c in cache.values() for t in c.values())

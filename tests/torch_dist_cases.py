@@ -1261,3 +1261,245 @@ def volume_rank(grid):
                      shard)
         out[tag] = M.collective_counts()
     return out
+
+
+# ---------------------------------------------------------------------------
+# dense layouts (``models.parallel``): the smoke configs' train, prefill and
+# decode steps under ``tp`` and ``zero`` on a 2 x 4 grid, and the
+# sequence-sharded decode on a 4 x 1 grid
+# ---------------------------------------------------------------------------
+LAYOUT_ARCHS = ("gpt-moe-s", "qwen1.5-110b", "jamba-v0.1-52b",
+                "whisper-medium")
+LAYOUT_TRAIN = (("tp", False), ("zero", False), ("tp", True))
+
+
+def layout_cfg(name):
+    """The smoke config the layout tests run (f32); the MoE layer's
+    capacity factor high enough that no token is dropped, so the grid's
+    layer computes the single device's function."""
+    cfg = get_smoke(name)
+    if cfg.moe.enabled:
+        import dataclasses
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=64.0))
+    return cfg
+
+
+def _grid_tree(cfg, tree, grid, lay):
+    """A single device's parameter tree (numpy, the ``ep=1`` buffer rows)
+    -> this rank's shards on ``grid`` under ``lay``: the buffer's rows
+    re-laid out for the grid's EP size first."""
+    from repro_torch.common.params import params_from_jax
+    from repro_torch.common.sharding import (elastic_row_remap,
+                                             remap_buffer_rows)
+    from repro_torch.models import model as mdl
+    tree = dict(tree)
+    if cfg.moe.enabled:
+        L, E = M.num_moe_layers(cfg), cfg.moe.num_experts
+        src, valid = elastic_row_remap(
+            homogeneous_sharding(L, E, 1),
+            homogeneous_sharding(L, E, grid.model),
+            M.buffer_rows(cfg, grid.model))
+        tree["moe_buffer"] = remap_buffer_rows(tree["moe_buffer"], src,
+                                               valid)
+    return mdl.shard_params(params_from_jax(tree, "cpu"), grid, lay)
+
+
+def _layout_rt(cfg, grid, lay):
+    from repro_torch.launch import inputs as inp
+    rt = inp.make_runtime(cfg, grid, impl="ring", layout=lay)
+    pa = (inp.concrete_plan(cfg, grid.model, "ring", device="cpu")
+          if cfg.moe.enabled else None)
+    return rt, pa
+
+
+def _gather_logits(logits, lay):
+    """The global logits: this rank's rows and vocabulary shard gathered
+    over the grid."""
+    from repro_torch.models import layers as ly
+    va = ly.vocab_axes(lay, lay.dims["embed"])
+    if va:
+        logits = lay.gather_nograd(logits, va, -1)
+    return lay.gather_nograd(logits, lay.row_axes, 0)
+
+
+def _cache_slices(cfg, lay, cache):
+    """Each cache leaf's block of the global cache this rank holds: per
+    dim (start, stop), None for a whole dim."""
+    from repro_torch.models import mamba2 as mb
+    b = lay.global_batch // lay.rows
+    r0 = lay.index(lay.row_axes) * b
+    ca, sa = mb._cache_splits(cfg, lay) if "mamba" in cfg.layer_pattern \
+        else ((), ())
+    out = {}
+    for key, t in _flat_cache(cache).items():
+        name, _, k = key.partition("/")
+        sl = [None] * t.ndim
+        sl[1] = (r0, r0 + b)
+        if k in ("k", "v") or name in ("xk", "xv"):
+            sub = lay.block_dims["l0"]["xattn"] if name in ("xk", "xv") \
+                else lay.block_dims[name]["attn"]
+            hd = lay.heads(cfg, sub["wq"])
+            if hd is not None:
+                sl[3] = (hd[2], hd[3])
+        else:
+            axes, dim = (ca, 3) if k == "conv" else (sa, 2)
+            if lay.size(axes) > 1:
+                n = t.shape[dim]
+                i = lay.index(axes)
+                sl[dim] = (i * n, (i + 1) * n)
+        out[key] = sl
+    return out
+
+
+def _flat_cache(cache):
+    out = {}
+    for name, leaves in cache.items():
+        if isinstance(leaves, dict):
+            for k, t in leaves.items():
+                out[f"{name}/{k}"] = t.numpy().copy()
+        else:
+            out[name] = leaves.numpy().copy()
+    return out
+
+
+def _pad_seq_cache(cfg, cache, max_len):
+    """A prefill's cache padded with zero positions up to ``max_len``
+    (attention K/V only; the cross K/V and mamba states as they are)."""
+    import torch.nn.functional as F
+    out = {}
+    for name, leaves in cache.items():
+        if isinstance(leaves, dict) and "k" in leaves:
+            out[name] = {k: F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+                         for k, t in leaves.items()}
+        else:
+            out[name] = leaves
+    return out
+
+
+def layout_rank(grid, path: str):
+    """For each config of the inputs: the train step's loss and gathered
+    gradients under each of ``LAYOUT_TRAIN``, then under ``tp`` and
+    ``zero`` (and ``zero`` on the first 2 rows) the prefill's last logits
+    (gathered over the grid) and this rank's cache with its place in the
+    global one, and a decode step after the prefill (logits)."""
+    from repro_torch.common.params import _leaves, gather_tree
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import build_prefill_step, build_serve_step
+    from repro_torch.train import step as st
+    z = torch.load(path, weights_only=False)
+    out = {}
+    for name in z:
+        cfg, inp_ = layout_cfg(name), z[name]
+        b = inp_["batch"]
+        gb = next(iter(b.values())).shape[0]
+        res = {}
+        for mode, gc in LAYOUT_TRAIN:
+            lay = mdl.make_layout(cfg, grid, mode, global_batch=gb,
+                                  grad_constraint=gc)
+            rt, pa = _layout_rt(cfg, grid, lay)
+            params = _grid_tree(cfg, inp_["params"], grid, lay)
+            batch = {k: lay.local_rows(torch.from_numpy(v))
+                     for k, v in b.items()}
+            m, g = st.loss_and_grads(cfg, rt, params, batch, pa)
+            full = gather_tree(g, lay.dims, lambda t, d, a:
+                               lay.gather_nograd(t, a, d))
+            r = {"loss": float(m["loss"])}
+            if grid.rank == 0:
+                r["grads"] = {"/".join(p): t.numpy()
+                              for p, t in _leaves(full)}
+            res[f"train/{mode}/{gc}"] = r
+        pb = {k: v[:, :-1] if k == "tokens" else v for k, v in b.items()}
+        s = pb["tokens"].shape[1]
+        # the serving steps under tp and zero, and zero on the batch's first
+        # 2 rows: split over data alone, replicated over model
+        for mode, rows in (("tp", gb), ("zero", gb), ("zero", 2)):
+            lay = mdl.make_layout(cfg, grid, mode, global_batch=rows)
+            rt, pa = _layout_rt(cfg, grid, lay)
+            params = _grid_tree(cfg, inp_["params"], grid, lay)
+            batch = {k: lay.local_rows(torch.from_numpy(v[:rows]))
+                     for k, v in pb.items()}
+            last, cache = build_prefill_step(cfg, rt)(params, batch, pa)
+            r = {"last": _gather_logits(last, lay).numpy(),
+                 "cache": _flat_cache(cache),
+                 "slices": _cache_slices(cfg, lay, cache)}
+            cache = _pad_seq_cache(cfg, cache, inp_["max_len"])
+            tok = lay.local_rows(torch.from_numpy(inp_["next"][:rows]))
+            logits, _ = build_serve_step(cfg, rt)(params, cache, tok, s, pa)
+            r["decode"] = _gather_logits(logits, lay).numpy()
+            res[f"serve/{mode}/{rows}"] = r
+        out[name] = res
+    return out
+
+
+SPLIT_KV_ARCHS = ("gemma2-9b", "jamba-v0.1-52b")
+
+
+def split_kv_rank(grid, path: str):
+    """Batch 1 on an (N, 1) grid under ``tp``: the decode cache is
+    sequence-sharded over ``data``.  The prompt is prefilled (each rank
+    keeps its positions of the cache), then the next tokens are decoded
+    one by one; each step's logits."""
+    from repro_torch.models import model as mdl
+    from repro_torch.serve.engine import build_prefill_step, build_serve_step
+    z = torch.load(path, weights_only=False)
+    out = {}
+    for name in z:
+        cfg, inp_ = layout_cfg(name), z[name]
+        lay = mdl.make_layout(cfg, grid, "tp", global_batch=1)
+        assert lay.seq_axes == ("data",), lay.seq_axes
+        rt, pa = _layout_rt(cfg, grid, lay)
+        params = _grid_tree(cfg, inp_["params"], grid, lay)
+        toks = torch.from_numpy(inp_["tokens"])
+        s0, n = inp_["prompt"], inp_["max_len"]
+        _, pre = build_prefill_step(cfg, rt)(params, {"tokens": toks[:, :s0]},
+                                             pa)
+        cache = mdl.init_cache(cfg, 1, n, "cpu", lay=lay)
+        s_loc = n // lay.size(lay.seq_axes)
+        off = lay.index(lay.seq_axes) * s_loc
+        for name_, leaves in cache.items():
+            for k, t in leaves.items():
+                src = pre[name_][k]
+                if k in ("k", "v"):
+                    hi = min(s0, off + s_loc)
+                    if hi > off:
+                        t[:, :, :hi - off] = src[:, :, off:hi]
+                else:
+                    t.copy_(src)
+        step = build_serve_step(cfg, rt)
+        got = []
+        for i in range(s0, toks.shape[1]):
+            logits, cache = step(params, cache, toks[:, i:i + 1], i, pa)
+            got.append(logits[:, 0].numpy())
+        out[name] = {"logits": np.stack(got, 1),
+                     "attention": _split_attention(cfg, lay, n, s0)}
+    return out
+
+
+def _split_attention(cfg, lay, n: int, pos: int):
+    """One decode attention at ``pos`` (global and windowed) over a
+    sequence-sharded cache of ``n`` positions against the same attention
+    over the whole cache on this rank: the largest difference relative to
+    the largest output, for each kind."""
+    from repro_torch.common.params import init_tree, shard_tree
+    from repro_torch.models import attention as attn
+    j = next(j for j, k in enumerate(cfg.layer_pattern) if k != "mamba")
+    dims = lay.block_dims[f"l{j}"]["attn"]
+    p = init_tree(attn.attn_params(cfg), 3, "float32", "cpu")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((1, 1, cfg.d_model), generator=g)
+    kv = {k: torch.randn((1, n, cfg.num_kv_heads, cfg.head_dim),
+                         generator=g) for k in ("k", "v")}
+    s_loc = n // lay.size(lay.seq_axes)
+    off = lay.index(lay.seq_axes) * s_loc
+    out = {}
+    for kind in ("attn", "local"):
+        want, _ = attn.decode_attention(p, cfg, x, {k: t.clone() for k, t in
+                                                    kv.items()}, pos,
+                                        kind=kind)
+        mine = {k: t[:, off:off + s_loc].clone() for k, t in kv.items()}
+        got, _ = attn.decode_attention(
+            shard_tree(p, dims, lay.sizes, lay.coord), cfg, x, mine, pos,
+            kind=kind, lay=lay, dims=dims)
+        out[kind] = float((got - want).abs().max() / want.abs().max())
+    return out

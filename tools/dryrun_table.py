@@ -4,7 +4,8 @@ count of each status.
 
   python tools/dryrun_table.py experiments/dryrun_torch [--shape train_4k]
 
-Per rank: the peak of the fake step's live bytes, the reference's analytic
+Per rank, under the record's dense layout (``tp`` or ``zero``): the peak
+of the fake step's live bytes, the reference's analytic
 memory model, FLOPs, collective wire bytes by kind, the three roofline
 terms on the H100 (data-sheet rates: a model, not a measurement) and the
 fake step's wall time on the host that ran it.
@@ -29,18 +30,18 @@ def main():
     print("status: " + ", ".join(f"{k} {v}" for k, v in sorted(
         Counter(r["status"] for r in recs).items())))
     print()
-    print("| config | grid | peak GB | model GB | TFLOP | "
+    print("| config | grid | layout | peak GB | model GB | TFLOP | "
           + " | ".join(f"{k} GB" for k in KINDS)
           + " | compute ms | memory ms | collective ms | dominant | "
             "useful | run s |")
-    print("|" + "---|" * (11 + len(KINDS)))
+    print("|" + "---|" * (12 + len(KINDS)))
     for r in recs:
         if r["status"] != "ok" or (args.shape and r["shape"] != args.shape):
             continue
         m, c, rf = r["memory"], r["cost"], r["roofline"]
         coll = " | ".join(f"{c['collective_bytes'].get(k, 0) / 1e9:.3f}"
                           for k in KINDS)
-        print(f"| {r['arch']} | {r['mesh']} | "
+        print(f"| {r['arch']} | {r['mesh']} | {r.get('layout', '-')} | "
               f"{m['peak_estimate_per_device'] / 1e9:.2f} | "
               f"{r['memory_model']['total_bytes_est'] / 1e9:.2f} | "
               f"{c['flops'] / 1e12:.1f} | {coll} | "
